@@ -1,0 +1,206 @@
+"""Slice reconstruction and the metric sweep (counterpart of
+``mri_inr_tpu/eval/evaluate.py``).
+
+Per slice: tile the undersampled image, pad the patch batch to a multiple of
+``patch_bucket``, classify black patches (masked, not filtered: a masked
+patch still counts in the fold's denominator), run the forward, weighted-fold
+the reconstruction, plain-fold the fully-sampled and undersampled tiles for
+reference images, and score PSNR / SSIM / NRMSE of fully-sampled vs
+reconstruction. Artifacts: ``metrics_error.csv`` (FILENAME,PSNR,SSIM,NRMSE)
+and a mean/std/min/max ``metrics_summary.txt``.
+
+Not carried over: the TPU mesh and halo fold, and the sweep's padding to a
+bucket of slices and its ``steady_probe``, which exist to reuse compiled TPU
+programs; PyTorch compiles nothing per shape.
+"""
+
+from __future__ import annotations
+
+import csv
+import pathlib
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from mri_inr_tpu_torch.eval import metrics as metrics_mod
+from mri_inr_tpu_torch.ops import tiling
+from mri_inr_tpu_torch.utils.device import resolve_device
+
+
+def _bucket(n: int, multiple: int) -> int:
+    return -(-n // multiple) * multiple
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@dataclass
+class SliceResult:
+    slice_id: str
+    psnr: float
+    ssim: float
+    nrmse: float
+
+
+class SliceReconstructor:
+    """Slice -> (reconstruction, fully, under, metrics).
+
+    ``apply_fn``: (N, outer, outer) tiles -> (N, siren, siren), e.g. from
+    :func:`~mri_inr_tpu_torch.ops.siren_kernel.make_apply_fn`. ``device``
+    (default ``cuda``) is where images are placed and the pipeline runs."""
+
+    def __init__(self, apply_fn, outer_patch_size: int = 32,
+                 inner_patch_size: int = 16, siren_patch_size: int = 24,
+                 patch_bucket: int = 512,
+                 device: str | torch.device | None = None):
+        self.apply_fn = apply_fn
+        self.outer = outer_patch_size
+        self.inner = inner_patch_size
+        self.siren = siren_patch_size
+        self.patch_bucket = patch_bucket
+        self.device = resolve_device(device)
+
+    def _run(self, fully_img: torch.Tensor, under_img: torch.Tensor,
+             metrics_only: bool):
+        """``metrics_only`` scores against ``fully_img`` itself: the plain
+        fold of unfiltered patches reproduces the image (every overlapping
+        copy holds the same value), so the sweep skips both reference
+        folds."""
+        outer, inner, siren = self.outer, self.inner, self.siren
+        grid = tiling.grid_shape(*under_img.shape, inner)
+        under_patches = tiling.image_to_patches(under_img, outer, inner)
+        n = under_patches.shape[0]
+        valid = tiling.classify_black_patches(under_patches)
+        padded = under_patches.new_zeros((_bucket(n, self.patch_bucket), outer, outer))
+        padded[:n] = under_patches
+        pred = self.apply_fn(padded)[:n].float()
+        pred = tiling.mask_black_patches(pred, valid)
+        recon = tiling.patches_to_image_weighted_average(pred, grid, siren, inner)
+        if metrics_only:
+            return metrics_mod.image_metrics(fully_img.float(), recon)
+        fully = tiling.patches_to_image(
+            tiling.image_to_patches(fully_img, outer, inner), grid, outer, inner)
+        under = tiling.patches_to_image(under_patches, grid, outer, inner)
+        return recon, fully, under, metrics_mod.image_metrics(fully, recon)
+
+    @torch.no_grad()
+    def __call__(self, fully_img: np.ndarray, under_img: np.ndarray):
+        as_t = lambda a: torch.as_tensor(a, dtype=torch.float32, device=self.device)
+        return self._run(as_t(fully_img), as_t(under_img), metrics_only=False)
+
+    @torch.no_grad()
+    def metrics_stack(self, fully_stack: torch.Tensor,
+                      under_stack: torch.Tensor) -> torch.Tensor:
+        """(K, H, W) stacks on the device -> a device (3, K) tensor of
+        (psnr, ssim, nrmse) rows; one forward launch per slice, no host
+        synchronisation."""
+        cols = []
+        for fully, under in zip(fully_stack, under_stack):
+            m = self._run(fully, under, metrics_only=True)
+            cols.append(torch.stack([m["psnr"], m["ssim"], m["nrmse"]]))
+        return torch.stack(cols, dim=1)
+
+
+def evaluate_files(reconstructor: SliceReconstructor, sampler,
+                   num_samples: int | None = None, progress_every: int = 100,
+                   log=print) -> list[SliceResult]:
+    """Score ``num_samples`` slices (default: the whole sampler), one at a
+    time."""
+    total = len(sampler) if num_samples is None else min(num_samples, len(sampler))
+    results = []
+    for i in range(total):
+        pair = sampler.next_sample()
+        _, _, _, m = reconstructor(pair.fully_sampled, pair.undersampled)
+        vals = torch.stack([m["psnr"], m["ssim"], m["nrmse"]]).cpu().numpy()
+        results.append(SliceResult(pair.slice_id, float(vals[0]), float(vals[1]),
+                                   float(vals[2])))
+        if progress_every and (i + 1) % progress_every == 0:
+            log(f"evaluated {i + 1}/{total} slices")
+    return results
+
+
+def evaluate_files_device(reconstructor: SliceReconstructor, sampler,
+                          num_samples: int | None = None, log=print,
+                          ) -> tuple[list[SliceResult], dict[str, float]]:
+    """Device-resident sweep: the slices are stacked per image shape and
+    uploaded once, every slice is scored on the device, and each shape
+    group's (3, K) metrics come back in one copy (the one synchronisation of
+    the group). Rows come grouped by shape.
+
+    Returns ``(results, timings)``: ``stage_seconds`` (load, stack, upload),
+    ``dispatch_seconds`` (enqueueing every slice's work) and
+    ``execute_fetch_seconds`` (waiting for the device and copying back)."""
+    total = len(sampler) if num_samples is None else min(num_samples, len(sampler))
+    device = reconstructor.device
+
+    t0 = time.perf_counter()
+    pairs = [sampler.next_sample() for _ in range(total)]
+    by_shape: dict[tuple[int, int], list] = {}
+    for p in pairs:
+        by_shape.setdefault(p.fully_sampled.shape, []).append(p)
+    groups = [
+        ([p.slice_id for p in ps],
+         torch.from_numpy(np.stack([p.fully_sampled for p in ps])).to(device),
+         torch.from_numpy(np.stack([p.undersampled for p in ps])).to(device))
+        for ps in by_shape.values()
+    ]
+    _sync(device)
+    stage_secs = time.perf_counter() - t0
+
+    t1 = time.perf_counter()
+    futs = [(ids, reconstructor.metrics_stack(fully, under))
+            for ids, fully, under in groups]
+    dispatch_secs = time.perf_counter() - t1
+
+    t2 = time.perf_counter()
+    results: list[SliceResult] = []
+    for ids, fut in futs:
+        vals = fut.cpu().numpy()
+        results.extend(SliceResult(sid, float(vals[0, j]), float(vals[1, j]),
+                                   float(vals[2, j]))
+                       for j, sid in enumerate(ids))
+    fetch_secs = time.perf_counter() - t2
+
+    timings = {
+        "stage_seconds": stage_secs,
+        "dispatch_seconds": dispatch_secs,
+        "execute_fetch_seconds": fetch_secs,
+    }
+    log(f"device sweep: {total} slices staged in {stage_secs:.3f}s, "
+        f"dispatched in {dispatch_secs:.3f}s, executed+fetched in {fetch_secs:.3f}s")
+    return results, timings
+
+
+def read_metrics_csv(path: str | pathlib.Path) -> list[SliceResult]:
+    with open(path, newline="") as f:
+        return [SliceResult(row["FILENAME"], float(row["PSNR"]), float(row["SSIM"]),
+                            float(row["NRMSE"]))
+                for row in csv.DictReader(f)]
+
+
+def write_metrics_artifacts(results: list[SliceResult],
+                            output_dir: str | pathlib.Path) -> dict[str, dict[str, float]]:
+    """Write ``metrics_error.csv`` + ``metrics_summary.txt``; return the
+    summary statistics."""
+    output_dir = pathlib.Path(output_dir)
+    output_dir.mkdir(parents=True, exist_ok=True)
+    with open(output_dir / "metrics_error.csv", "w", newline="") as f:
+        writer = csv.writer(f)
+        writer.writerow(["FILENAME", "PSNR", "SSIM", "NRMSE"])
+        for r in results:
+            writer.writerow([r.slice_id, r.psnr, r.ssim, r.nrmse])
+
+    summary, lines = {}, []
+    for name, attr in (("PSNR", "psnr"), ("SSIM", "ssim"), ("NRMSE", "nrmse")):
+        arr = np.array([getattr(r, attr) for r in results])
+        stats = {"mean": float(arr.mean()), "std": float(arr.std()),
+                 "min": float(arr.min()), "max": float(arr.max())}
+        summary[name] = stats
+        lines.append(f"{name}: mean={stats['mean']:.4f} std={stats['std']:.4f} "
+                     f"min={stats['min']:.4f} max={stats['max']:.4f}")
+    (output_dir / "metrics_summary.txt").write_text("\n".join(lines) + "\n")
+    return summary

@@ -1,0 +1,306 @@
+"""Fused modulated-SIREN forward (counterpart of
+``mri_inr_tpu/ops/siren_kernel.py``).
+
+The eval hot path: per patch, a chain of (576, H) @ (H, H) products with a
+polynomial-sine + FiLM epilogue. The split is the JAX package's:
+
+- :func:`extract_kernel_params` repacks the model's weights; the first SIREN
+  layer ``sin(w0_initial * (coords @ W0 + b0))`` does not depend on the
+  patch and is computed once as ``base`` (S, H), with the exact sine (the
+  module path uses ``fast_sin`` there, as the JAX model does);
+- :func:`compute_modulations` runs the modulator MLP outside the kernel as
+  bf16-input / f32-output products;
+- the last layer's modulation is multiplied by the projection weights
+  before the kernel, so the kernel ends in ``sum_h act * modproj``;
+- :func:`siren_forward` runs the chain: the hand-written CUDA kernel
+  ``csrc/siren_forward.cu`` for tensors on the card, its plain PyTorch
+  version :func:`siren_forward_reference` for tensors on the CPU.
+
+Numeric knobs as in the JAX kernel: the hidden sine is degree 5 with
+``sin5``, else the bf16-tail degree 7 with ``sin_bf16``, else degree 7 with
+``sin7``, else degree 9; ``sin_bf16`` also rounds the hidden modulations to
+bf16; the output sine is degree 7 when any of the three is set, else 9.
+``block_b`` pads the batch like the TPU grid does. ``streams`` and ``ksplit``
+are TPU schedule knobs that only change the order of summation; they are
+validated as in the JAX package and otherwise ignored.
+
+Not in this port yet: the int8 kernel (``quantized=True`` raises).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import NamedTuple
+
+import torch
+import torch.nn.functional as F
+
+from mri_inr_tpu_torch.models.modulated_siren import coordinate_grid
+from mri_inr_tpu_torch.ops import _build
+from mri_inr_tpu_torch.ops.fast_math import (fast_sin, fast_sin5, fast_sin7,
+                                             fast_sin7_bf16)
+from mri_inr_tpu_torch.utils.device import module_device, resolve_device
+
+#: hidden sine mode codes shared with csrc/siren_forward.cu (0 = bf16 tail)
+_HIDDEN_SINES = {5: fast_sin5, 7: fast_sin7, 9: fast_sin, 0: fast_sin7_bf16}
+#: widths the CUDA kernel is instantiated for
+KERNEL_WIDTHS = (64, 128, 192, 256)
+
+
+class SirenKernelParams(NamedTuple):
+    """Weights repacked for the fused forward (H = dim_hidden, L = layers)."""
+
+    base: torch.Tensor  # (S, H) f32: sin(w0_init * (coords @ W0 + b0))
+    m0_w: torch.Tensor  # (latent, H) bf16: modulator layer 0
+    m0_b: torch.Tensor  # (1, H) f32
+    mh_w: torch.Tensor  # (L-1, H, H) bf16: modulator hidden-part weights
+    mz_w: torch.Tensor  # (L-1, latent, H) bf16: modulator latent-part weights
+    m_b: torch.Tensor  # (L-1, 1, H) f32
+    s_w: torch.Tensor  # (L-1, H, H) bf16: SIREN hidden layers 1..L-1, (in, out)
+    s_b: torch.Tensor  # (L-1, 1, H) f32
+    last_w: torch.Tensor  # (1, H) f32: final projection (transposed)
+    last_b: torch.Tensor  # (1, 1) f32
+
+
+def extract_kernel_params(model, coords: torch.Tensor) -> SirenKernelParams:
+    """Repack a :class:`ModulatedSiren`'s ``net`` and ``modulator`` weights;
+    product weights in bf16, the rest f32. ``coords``: (S, 2) fixed
+    coordinate grid."""
+    net, mod = model.net, model.modulator
+    num_layers = model.num_layers
+    l0 = net.layers[0]
+    pre0 = coords.float() @ l0.weight.float().t() + l0.bias.float()
+    base = torch.sin(model.w0_initial * pre0)
+    if model.activation == "morlet":
+        base = base * torch.exp(-0.5 * torch.square(pre0))
+
+    hidden = net.layers[1].weight.shape[1]
+    kernel = lambda layer: layer.weight.t()  # (in, out), as the Flax kernel
+    stack = lambda xs, dtype: torch.stack(list(xs)).to(dtype).contiguous()
+    mw = [kernel(mod.layers[i]) for i in range(1, num_layers)]
+    bf16 = torch.bfloat16
+    return SirenKernelParams(
+        base=base.float().contiguous(),
+        m0_w=kernel(mod.layers[0]).to(bf16).contiguous(),
+        m0_b=mod.layers[0].bias[None, :].float(),
+        mh_w=stack((w[:hidden] for w in mw), bf16),
+        mz_w=stack((w[hidden:] for w in mw), bf16),
+        m_b=stack((mod.layers[i].bias[None, :] for i in range(1, num_layers)),
+                  torch.float32),
+        s_w=stack((kernel(net.layers[i]) for i in range(1, num_layers)), bf16),
+        s_b=stack((net.layers[i].bias[None, :] for i in range(1, num_layers)),
+                  torch.float32),
+        last_w=net.last_layer.weight[0][None, :].float().contiguous(),
+        last_b=net.last_layer.bias.reshape(1, 1).float().contiguous(),
+    )
+
+
+def _dot(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``jnp.dot(x.astype(w.dtype), w, preferred_element_type=f32)``: round
+    the inputs to ``w``'s dtype, multiply in f32. A product of two bf16
+    values is exact in f32, so only the summation order can differ."""
+    return x.to(w.dtype).float() @ w.float()
+
+
+def compute_modulations(kp: SirenKernelParams, latents: torch.Tensor, *,
+                        num_layers: int = 5) -> torch.Tensor:
+    """(B, latent) -> (B, L*H) f32 FiLM modulations;
+    ``relu(concat(m, z) @ W + b) == relu(m @ Wh + z @ Wz + b)``."""
+    z = latents
+    m = torch.relu(_dot(z, kp.m0_w) + kp.m0_b)
+    mods = [m]
+    for i in range(num_layers - 1):
+        m = torch.relu(_dot(m, kp.mh_w[i]) + _dot(z, kp.mz_w[i]) + kp.m_b[i])
+        mods.append(m)
+    return torch.cat(mods, dim=1)
+
+
+def _sine_modes(sin7: bool, sin_bf16: bool, sin5: bool) -> tuple[int, int]:
+    """(hidden sine mode, output sine degree), the JAX kernel's precedence."""
+    hidden = 5 if sin5 else 0 if sin_bf16 else 7 if sin7 else 9
+    return hidden, 7 if (sin7 or sin_bf16 or sin5) else 9
+
+
+def siren_forward_reference(
+    mods: torch.Tensor, base: torch.Tensor, s_w: torch.Tensor,
+    s_b: torch.Tensor, last_b: torch.Tensor, *, num_layers: int = 5,
+    w0: float = 1.0, activation: str = "sine", sin7: bool = False,
+    sin_bf16: bool = False, sin5: bool = False,
+) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: the same chain, step by step.
+
+    mods (B, L*H) f32 with modproj as the last block, base (S, H) f32,
+    s_w (L-1, H, H) bf16 (in, out), s_b (L-1, 1, H) f32, last_b (1, 1) f32
+    -> (B, S) f32."""
+    hidden_mode, out_deg = _sine_modes(sin7, sin_bf16, sin5)
+    sin = _HIDDEN_SINES[hidden_mode]
+    sin_last = fast_sin7 if out_deg == 7 else fast_sin
+
+    def act(pre):
+        out = sin(w0 * pre)
+        if activation == "morlet":
+            out = out * torch.exp(-0.5 * torch.square(pre))
+        return out
+
+    batch = mods.shape[0]
+    hidden = base.shape[1]
+    m = mods.reshape(batch, num_layers, 1, hidden)
+    x = (base[None] * m[:, 0]).to(torch.bfloat16)
+    for i in range(num_layers - 1):
+        a = act(_dot(x, s_w[i]) + s_b[i])
+        if i < num_layers - 2:
+            mod = m[:, i + 1].to(torch.bfloat16) if sin_bf16 else m[:, i + 1]
+            x = (a * mod).to(torch.bfloat16)
+    r = (a.float() * m[:, num_layers - 1]).sum(-1)
+    return sin_last(w0 * (r + last_b[0, 0]))
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, dtype: torch.dtype,
+           device: torch.device) -> None:
+    if t.device != device or t.dtype != dtype or tuple(t.shape) != shape:
+        raise ValueError(
+            f"{name}: expected {dtype} {shape} on {device}, got "
+            f"{t.dtype} {tuple(t.shape)} on {t.device}"
+        )
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: must be contiguous and 16-byte aligned")
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+    lib = _build.load("siren_forward")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.siren_forward_launch.argtypes = [p, p, p, p, p, p, i, i, i, i,
+                                         ctypes.c_float, i, i, i, i, p]
+    lib.siren_forward_launch.restype = i
+    lib.siren_forward_error_string.argtypes = [i]
+    lib.siren_forward_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def siren_forward_cuda(
+    mods: torch.Tensor, base: torch.Tensor, s_w: torch.Tensor,
+    s_b: torch.Tensor, last_b: torch.Tensor, *, num_layers: int = 5,
+    w0: float = 1.0, activation: str = "sine", sin7: bool = False,
+    sin_bf16: bool = False, sin5: bool = False,
+) -> torch.Tensor:
+    """Launch ``csrc/siren_forward.cu`` on PyTorch's current stream; same
+    contract as :func:`siren_forward_reference`. Counts its launches in
+    ``siren_forward_cuda.launches``."""
+    batch = mods.shape[0]
+    seq, hidden = base.shape
+    layers = num_layers
+    dev = mods.device
+    if dev.type != "cuda":
+        raise ValueError(f"siren_forward_cuda needs CUDA tensors, got {dev}")
+    if hidden not in KERNEL_WIDTHS:
+        raise ValueError(f"the CUDA kernel takes H in {KERNEL_WIDTHS}, got {hidden}")
+    if layers < 2:
+        raise ValueError(f"num_layers must be at least 2, got {layers}")
+    _check("mods", mods, (batch, layers * hidden), torch.float32, dev)
+    _check("base", base, (seq, hidden), torch.float32, dev)
+    _check("s_w", s_w, (layers - 1, hidden, hidden), torch.bfloat16, dev)
+    _check("s_b", s_b, (layers - 1, 1, hidden), torch.float32, dev)
+    _check("last_b", last_b, (1, 1), torch.float32, dev)
+    hidden_mode, out_deg = _sine_modes(sin7, sin_bf16, sin5)
+    out = torch.empty((batch, seq), dtype=torch.float32, device=dev)
+    lib = _library()
+    with torch.cuda.device(dev):
+        err = lib.siren_forward_launch(
+            mods.data_ptr(), base.data_ptr(), s_w.data_ptr(), s_b.data_ptr(),
+            last_b.data_ptr(), out.data_ptr(), batch, seq, hidden, layers,
+            float(w0), int(activation == "morlet"), hidden_mode,
+            int(sin_bf16), out_deg, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        msg = lib.siren_forward_error_string(err).decode()
+        raise RuntimeError(f"siren_forward launch failed: {msg} ({err})")
+    siren_forward_cuda.launches += 1
+    return out
+
+
+siren_forward_cuda.launches = 0
+
+
+def siren_forward(mods: torch.Tensor, *args, **kwargs) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+    if mods.device.type == "cuda":
+        return siren_forward_cuda(mods, *args, **kwargs)
+    if mods.device.type == "cpu":
+        return siren_forward_reference(mods, *args, **kwargs)
+    raise ValueError(f"unsupported device {mods.device}")
+
+
+def fused_siren_forward(
+    kp: SirenKernelParams, latents: torch.Tensor, *, num_layers: int = 5,
+    w0: float = 1.0, activation: str = "sine", block_b: int = 8,
+    streams: int = 1, sin7: bool = False, sin_bf16: bool = False,
+    sin5: bool = False, ksplit: int = 1,
+) -> torch.Tensor:
+    """(B, latent) latents -> (B, S) SIREN outputs through the fused chain."""
+    batch = latents.shape[0]
+    hidden = kp.base.shape[1]
+    if block_b % streams:
+        raise ValueError(f"{streams=} must divide {block_b=}")
+    if hidden % ksplit or (ksplit > 1 and (hidden // ksplit) % 128):
+        raise ValueError(f"{ksplit=} must cut hidden={hidden} into 128-multiples")
+    padded = -(-batch // block_b) * block_b
+    if padded != batch:
+        latents = F.pad(latents, (0, 0, 0, padded - batch))
+    mods = compute_modulations(kp, latents, num_layers=num_layers)
+    cut = (num_layers - 1) * hidden
+    mods = torch.cat([mods[:, :cut], mods[:, cut:] * kp.last_w], dim=1)
+    out = siren_forward(
+        mods, kp.base, kp.s_w, kp.s_b, kp.last_b, num_layers=num_layers,
+        w0=w0, activation=activation, sin7=sin7, sin_bf16=sin_bf16, sin5=sin5,
+    )
+    return out[:batch]
+
+
+@torch.no_grad()
+def fused_forward(model, tiles: torch.Tensor, *, block_b: int = 8,
+                  quantized: bool = False, sin7: bool = True,
+                  sin_bf16: bool = False, sin5: bool = False,
+                  ksplit: int = 1) -> torch.Tensor:
+    """Full forward: conv encoder -> fused modulator + SIREN ->
+    (B, siren, siren). Drop-in for ``model(tiles)`` in eval mode."""
+    if quantized:
+        raise NotImplementedError(
+            "the int8 kernel is not ported yet (ROADMAP queue 2, item 5)"
+        )
+    latent = model.encode(tiles)
+    s = model.siren_patch_size
+    kp = extract_kernel_params(model, coordinate_grid(s, tiles.device))
+    out = fused_siren_forward(
+        kp, latent.float(), num_layers=model.num_layers, w0=model.w0,
+        activation=model.activation, block_b=block_b, sin7=sin7,
+        sin_bf16=sin_bf16, sin5=sin5, ksplit=ksplit,
+    )
+    return out.reshape(tiles.shape[0], s, s)
+
+
+@torch.no_grad()
+def _module_apply(model, tiles: torch.Tensor) -> torch.Tensor:
+    return model(tiles)
+
+
+def make_apply_fn(model, *, use_pallas: bool = True, block_b: int = 16,
+                  quantized: bool = False, sin7: bool = True,
+                  sin_bf16: bool = False, sin5: bool = False, ksplit: int = 1,
+                  device: str | torch.device | None = None):
+    """tiles -> (B, siren, siren) forward for ``SliceReconstructor``: the
+    fused forward when ``use_pallas`` (the name is the config key's), else
+    the module path. Residual models always take the module path. Puts the
+    model in eval mode (dropout off). ``device`` (default ``cuda``) must be
+    where the model lives."""
+    dev = resolve_device(device)
+    if module_device(model) != dev:
+        raise ValueError(f"model is on {module_device(model)}, not on {dev}")
+    model.eval()
+    if use_pallas and not model.residual:
+        return functools.partial(
+            fused_forward, model, block_b=block_b, quantized=quantized,
+            sin7=sin7, sin_bf16=sin_bf16, sin5=sin5, ksplit=ksplit,
+        )
+    return functools.partial(_module_apply, model)
