@@ -1,0 +1,150 @@
+"""Training CLI for the modulated SIREN (counterpart of the repository's
+``train_mod_siren.py``): resume-vs-fresh run resolution, a timestamped run
+directory with a config copy and the data manifest, dataset / model /
+optimizer / trainer assembly, training with periodic checkpoints and
+snapshots.
+
+    python -m mri_inr_tpu_torch.cli.train --config configs/train.yaml \\
+        [--set training.epochs=10] [--set training.lr=3e-4] [--device cpu|cuda]
+
+The default device is ``cuda`` and a missing card raises; ``--device cpu``
+runs the kernels' plain PyTorch versions.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import pathlib
+
+import torch
+import yaml
+
+from mri_inr_tpu_torch.configuration import config as config_lib
+from mri_inr_tpu_torch.data.dataset import MRIDataset
+from mri_inr_tpu_torch.models import modulated_siren as ms
+from mri_inr_tpu_torch.train import checkpoint as ckpt_lib
+from mri_inr_tpu_torch.train import losses
+from mri_inr_tpu_torch.train.trainer import (Trainer, create_train_state,
+                                             splice_pretrained_encoder)
+from mri_inr_tpu_torch.utils.device import resolve_device
+
+
+def _reject_unported(cfg) -> None:
+    tcfg, mcfg, dcfg = cfg.training, cfg.model, cfg.data
+    if dcfg.train.online or dcfg.val.online:
+        raise NotImplementedError(
+            "data.*.online (the online k-space pipeline) is not ported yet "
+            "(ROADMAP queue 1, item 13)")
+    if dcfg.low_memory:
+        raise NotImplementedError(
+            "data.low_memory (MRIDatasetLowMemory) is not ported yet "
+            "(ROADMAP queue 1, item 14)")
+    if mcfg.encoder_type == "vgg":
+        raise NotImplementedError(
+            "encoder_type=vgg is not ported yet (ROADMAP queue 1, item 15)")
+    if tcfg.data_axis_size not in (None, 1):
+        raise NotImplementedError(
+            "training.data_axis_size > 1 (data-parallel training) is not ported "
+            "yet (ROADMAP queue 1, item 17)")
+
+
+def _load_encoder_state(path: str) -> dict:
+    p = pathlib.Path(path)
+    if p.is_dir():
+        raise NotImplementedError(
+            f"model.encoder_path={path!r} is a directory (an Orbax checkpoint of "
+            "the JAX package); loading it needs the checkpoint interop tool "
+            "(ROADMAP queue 1, item 18)")
+    # weights_only: an encoder checkpoint is a state dict of tensors
+    state = torch.load(p, map_location="cpu", weights_only=True)
+    return state.get("model", state)
+
+
+def _dataset(split, dcfg, mcfg) -> MRIDataset:
+    return MRIDataset(
+        split.dataset, center_fraction=dcfg.center_fraction,
+        acceleration=dcfg.acceleration, mri_type=split.mri_type,
+        max_slice_num=split.max_slice_num, num_samples=split.num_samples,
+        seed=split.seed, outer_patch_size=mcfg.outer_patch_size,
+        inner_patch_size=mcfg.inner_patch_size)
+
+
+def main(argv: list[str] | None = None) -> Trainer:
+    parser = argparse.ArgumentParser(description=__doc__,
+                                     formatter_class=argparse.RawDescriptionHelpFormatter)
+    parser.add_argument("--config", "-c", default=None)
+    parser.add_argument("--set", dest="overrides", action="append", default=[])
+    parser.add_argument("--device", default=None,
+                        help="cuda (default; raises without a card) or cpu")
+    args = parser.parse_args(argv)
+    device = resolve_device(args.device)
+
+    cfg = config_lib.load_train_configuration(args.config, args.overrides)
+    tcfg, mcfg, dcfg = cfg.training, cfg.model, cfg.data
+    _reject_unported(cfg)
+
+    # resume-vs-fresh: an explicit training.model_path pins the run dir,
+    # otherwise the newest {name}_{timestamp} dir with its highest step
+    resume = None
+    if tcfg.continue_training:
+        if tcfg.model_path:
+            run = pathlib.Path(tcfg.model_path)
+            step = ckpt_lib.find_latest_step(run)
+            resume = (run, step) if step is not None else None
+        else:
+            resume = ckpt_lib.resolve_resume(tcfg.output_dir, tcfg.output_name)
+        if resume:
+            print(f"resuming from {resume[0]} at step {resume[1]}")
+    run_dir = resume[0] if resume else ckpt_lib.new_run_dir(tcfg.output_dir,
+                                                            tcfg.output_name)
+    with open(run_dir / "config.yaml", "w") as f:
+        yaml.safe_dump(config_lib.to_dict(cfg), f, sort_keys=False)
+    print(f"run dir: {run_dir}")
+
+    val_split = dcfg.val
+    if not val_split.dataset:
+        val_split = dataclasses.replace(val_split, dataset=dcfg.train.dataset)
+    train_ds = _dataset(dcfg.train, dcfg, mcfg)
+    val_ds = _dataset(val_split, dcfg, mcfg)
+    print(f"train patches: {len(train_ds)}, val patches: {len(val_ds)}")
+    train_ds.write_manifest(run_dir / "processed_files.txt")
+
+    model = ms.from_config(mcfg, tcfg.precision,
+                           generator=torch.Generator().manual_seed(tcfg.seed),
+                           device=device)
+    if mcfg.encoder_path:
+        splice_pretrained_encoder(model, _load_encoder_state(mcfg.encoder_path))
+        print(f"loaded pretrained {mcfg.encoder_type} encoder from {mcfg.encoder_path}")
+    state = create_train_state(model, tcfg.optimizer, tcfg.lr)
+    loss_fn = losses.make_loss_fn(tcfg.criterion)
+
+    use_pallas = tcfg.use_pallas if tcfg.use_pallas is not None else mcfg.use_pallas
+    if use_pallas and not mcfg.residual:
+        print("training with the fused forward and backward kernels "
+              f"({'CUDA' if device.type == 'cuda' else 'plain PyTorch versions on the CPU'})")
+
+    trainer = Trainer(
+        model, state, loss_fn, train_ds, val_ds, run_dir,
+        batch_size=tcfg.batch_size, save_interval=tcfg.save_interval,
+        outer_patch_size=mcfg.outer_patch_size, siren_patch_size=mcfg.siren_patch_size,
+        base_seed=tcfg.seed + 1, tensorboard=tcfg.logging, use_pallas=use_pallas,
+        device_data=tcfg.device_data, sin5=tcfg.sin5, freeze_encoder=tcfg.freeze_encoder,
+        device=device)
+    initial_epoch = 0
+    if resume:
+        ckpt_lib.restore_state(resume[0], resume[1], trainer.state)
+        steps_per_epoch = max(1, len(train_ds) // tcfg.batch_size)
+        initial_epoch = trainer.state.step // steps_per_epoch
+        print(f"restored step {resume[1]}; continuing at epoch {initial_epoch}")
+
+    if tcfg.debug_nans:
+        torch.autograd.set_detect_anomaly(True)
+    trainer.initial_errors()
+    trainer.train(tcfg.epochs, initial_epoch)
+    print(f"done; final step {trainer.state.step}; artifacts in {run_dir}")
+    return trainer
+
+
+if __name__ == "__main__":
+    main()

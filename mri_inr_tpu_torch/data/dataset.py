@@ -1,10 +1,17 @@
-"""Evaluation data (the eval subset of ``mri_inr_tpu/data/dataset.py``).
+"""Host-side datasets over preprocessed slices (counterpart of
+``mri_inr_tpu/data/dataset.py``).
 
-``MRISampler`` reads ``metadata.csv``, keeps the selected rows (MRI type,
-``slice_num <= max_slice_num``), shuffles them once with
-``default_rng(42).permutation`` and serves whole slices in that order, as the
-JAX sampler does. Slices are numpy arrays; the evaluation moves them to the
+``MRIDataset`` reads ``metadata.csv``, keeps the selected rows (MRI type,
+``slice_num <= max_slice_num``, optional seeded file subset), tiles every
+slice into overlapping outer patches once and serves (fully-sampled,
+undersampled) patch batches in the JAX package's order:
+:func:`epoch_index_batches` is the one definition of an epoch's batch
+composition. ``MRISampler`` shuffles the selected rows once with
+``default_rng(42).permutation`` and serves whole slices in that order.
+Everything here is numpy; the trainer and the evaluation move data to the
 device.
+
+Not ported yet: ``MRIDatasetLowMemory`` (``ROADMAP.md``).
 """
 
 from __future__ import annotations
@@ -12,15 +19,77 @@ from __future__ import annotations
 import copy
 import csv
 import pathlib
+import queue
+import threading
 from dataclasses import dataclass
 
 import numpy as np
+
+from mri_inr_tpu_torch import native
+
+BLACK_PATCH_THRESHOLD = 1e-10
 
 
 def undersample_column(cf: float, acc: int) -> str:
     """Metadata column of the slices undersampled with centre fraction
     ``cf`` and acceleration ``acc`` (``preprocessing.py:67-68``)."""
     return f"path_undersampled_{cf}_{acc}"
+
+
+def tile_image_np(image: np.ndarray, outer_patch_size: int,
+                  inner_patch_size: int) -> tuple[np.ndarray, tuple[int, int]]:
+    """Host-side twin of :func:`mri_inr_tpu_torch.ops.tiling.image_to_patches`.
+    Returns (patches (nv*nh, P, P), (nv, nh))."""
+    return native.tile_image(image, outer_patch_size, inner_patch_size)
+
+
+def prefetch_iter(iterable, depth: int = 2):
+    """Run an iterator in a background thread with a bounded queue, so batch
+    assembly overlaps device compute. An exception in the producer is raised
+    in the consumer."""
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    sentinel = object()
+
+    def producer():
+        try:
+            for item in iterable:
+                q.put(item)
+            q.put(sentinel)
+        except BaseException as exc:  # handed to the consumer, which raises it
+            q.put(exc)
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    while True:
+        item = q.get()
+        if item is sentinel:
+            return
+        if isinstance(item, BaseException):
+            raise item
+        yield item
+
+
+def epoch_index_batches(n: int, batch_size: int, seed: int,
+                        shuffle: bool = True) -> list[np.ndarray]:
+    """The one definition of an epoch's batch composition, shared by
+    ``MRIDataset.batches`` and the trainer's device-resident epoch: shuffled
+    order (``default_rng(seed).shuffle``), ceil(n / batch) batches, the
+    trailing partial batch wrapped with indices from the epoch's start so
+    every batch has exactly ``batch_size`` rows. ``n == 0`` gives no
+    batches."""
+    if n <= 0:
+        return []
+    order = np.arange(n)
+    if shuffle:
+        np.random.default_rng(seed).shuffle(order)
+    num_batches = max(1, -(-n // batch_size))
+    batches = []
+    for b in range(num_batches):
+        idx = order[b * batch_size : (b + 1) * batch_size]
+        if len(idx) < batch_size:
+            idx = np.concatenate([idx, np.resize(order, batch_size - len(idx))])
+        batches.append(idx)
+    return batches
 
 
 def sampler_order(n: int, seed: int, num_samples: int | None) -> list[int]:
@@ -56,6 +125,81 @@ class SlicePair:
     undersampled: np.ndarray
 
 
+def _load_pair(row: dict, undersampled_col: str) -> SlicePair:
+    return SlicePair(
+        slice_id=row["slice_id"],
+        fully_sampled=np.load(row["path_fullysampled"]).astype(np.float32),
+        undersampled=np.load(row[undersampled_col]).astype(np.float32),
+    )
+
+
+class MRIDataset:
+    """Eagerly tiled training dataset of (fully-sampled, undersampled)
+    outer-patch pairs."""
+
+    def __init__(self, metadata_path: str | pathlib.Path,
+                 center_fraction: float = 0.05, acceleration: int = 6,
+                 mri_type: str | None = "Flair", max_slice_num: int | None = 10,
+                 num_samples: int | None = None, seed: int = 31415,
+                 outer_patch_size: int = 32, inner_patch_size: int = 16,
+                 filter_black: bool = False):
+        self.outer_patch_size = outer_patch_size
+        self.inner_patch_size = inner_patch_size
+        self.undersampled_col = undersample_column(center_fraction, acceleration)
+        rows = _select_rows(read_metadata(metadata_path), mri_type, max_slice_num,
+                            num_samples, seed)
+        if not rows:
+            raise ValueError(f"No slices selected from {metadata_path}")
+        self.rows = rows
+
+        fully, under = [], []
+        for row in rows:
+            pair = _load_pair(row, self.undersampled_col)
+            fully.append(tile_image_np(pair.fully_sampled, outer_patch_size,
+                                       inner_patch_size)[0])
+            under.append(tile_image_np(pair.undersampled, outer_patch_size,
+                                       inner_patch_size)[0])
+        self.fully_tiles = np.concatenate(fully)
+        self.under_tiles = np.concatenate(under)
+
+        if filter_black:
+            keep = native.patch_means(self.fully_tiles) >= BLACK_PATCH_THRESHOLD
+            self.fully_tiles = self.fully_tiles[keep]
+            self.under_tiles = self.under_tiles[keep]
+
+    def __len__(self) -> int:
+        return self.fully_tiles.shape[0]
+
+    def __getitem__(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
+        return self.fully_tiles[idx], self.under_tiles[idx]
+
+    def batches(self, batch_size: int, seed: int, shuffle: bool = True,
+                prefetch: int = 0):
+        """Yield (fully, under) batches of exactly ``batch_size`` rows (the
+        trailing remainder is wrapped around). ``prefetch > 0`` assembles
+        batches in a background thread, ``prefetch`` deep."""
+
+        def generate():
+            for idx in epoch_index_batches(len(self), batch_size, seed, shuffle):
+                yield native.gather_pairs(self.fully_tiles, self.under_tiles, idx)
+
+        if prefetch > 0:
+            return prefetch_iter(generate(), depth=prefetch)
+        return generate()
+
+    def get_slice(self, index: int) -> SlicePair:
+        return _load_pair(self.rows[index % len(self.rows)], self.undersampled_col)
+
+    def get_random_slice(self, rng: np.random.Generator | None = None) -> SlicePair:
+        rng = rng or np.random.default_rng()
+        return self.get_slice(int(rng.integers(len(self.rows))))
+
+    def write_manifest(self, path: str | pathlib.Path) -> None:
+        """Write the manifest of the files used (``processed_files.txt``)."""
+        lines = [r["path_fullysampled"] for r in self.rows]
+        pathlib.Path(path).write_text("\n".join(lines) + "\n")
+
+
 class MRISampler:
     """Shuffle the selected slices once (seed 42) and serve them in order.
     ``test_files`` keeps only slices whose ``stem`` or ``slice_id`` is
@@ -84,11 +228,7 @@ class MRISampler:
     def next_sample(self) -> SlicePair:
         row = self.rows[self._counter % len(self.rows)]
         self._counter += 1
-        return SlicePair(
-            slice_id=row["slice_id"],
-            fully_sampled=np.load(row["path_fullysampled"]).astype(np.float32),
-            undersampled=np.load(row[self.undersampled_col]).astype(np.float32),
-        )
+        return _load_pair(row, self.undersampled_col)
 
     def shard(self, index: int, count: int) -> "MRISampler":
         """Every ``count``-th slice from ``index``, counter reset."""

@@ -27,9 +27,16 @@ def _coordinate_grid_np(size: int) -> np.ndarray:
     return np.stack([ii, jj], axis=-1).reshape(size * size, 2)
 
 
+@functools.lru_cache(maxsize=None)
+def _coordinate_grid_on(size: int, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(_coordinate_grid_np(size).copy()).to(device)
+
+
 def coordinate_grid(size: int, device: str | torch.device = "cpu") -> torch.Tensor:
-    """(size*size, 2) coordinates in [-1, 1]^2, row-major (i, j) order."""
-    return torch.from_numpy(_coordinate_grid_np(size)).to(device)
+    """(size*size, 2) coordinates in [-1, 1]^2, row-major (i, j) order. One
+    read-only tensor per (size, device), made once: a fresh upload on every
+    forward would make the host wait for the device's stream each time."""
+    return _coordinate_grid_on(size, torch.device(device))
 
 
 class ModulatedSiren(nn.Module):
@@ -51,6 +58,7 @@ class ModulatedSiren(nn.Module):
         super().__init__()
         device = resolve_device(device)
         self.num_layers = num_layers
+        self.dropout = dropout
         self.w0 = w0
         self.w0_initial = w0_initial
         self.activation = activation

@@ -2,7 +2,8 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and is compiled at first use
 into ``_build/lib<name>.so`` (listed in ``.gitignore``), again whenever the
-source is newer than the library, then loaded with ``ctypes``. No PyTorch
+source or a ``csrc/*.cuh`` header it includes is newer than the library, then
+loaded with ``ctypes``. No PyTorch
 headers and no ``ninja`` are involved, so a build takes seconds. A failed
 build raises; nothing falls back to the plain PyTorch versions.
 
@@ -16,6 +17,7 @@ import ctypes
 import functools
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import tempfile
@@ -35,13 +37,30 @@ def nvcc_path() -> str:
     return found
 
 
+def sources(name: str) -> list[pathlib.Path]:
+    """``csrc/<name>.cu`` and the ``csrc`` headers it includes by name
+    (``#include "x.cuh"``), headers of headers too."""
+    found, todo = [], [SRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop()
+        if path in found:
+            continue
+        found.append(path)
+        for inc in re.findall(r'^\s*#\s*include\s+"([^"]+)"', path.read_text(), re.M):
+            if (SRC_DIR / inc).is_file():
+                todo.append(SRC_DIR / inc)
+    return found
+
+
 def build(name: str) -> tuple[pathlib.Path, str]:
     """Compile ``csrc/<name>.cu`` if the library is missing or older than the
-    source. Returns the library's path and the compiler's output (ptxas
-    register / shared-memory report; empty when nothing was rebuilt)."""
+    source or one of its headers. Returns the library's path and the
+    compiler's output (ptxas register / shared-memory report; empty when
+    nothing was rebuilt)."""
     src = SRC_DIR / f"{name}.cu"
     lib = BUILD_DIR / f"lib{name}.so"
-    if lib.exists() and lib.stat().st_mtime >= src.stat().st_mtime:
+    newest = max(p.stat().st_mtime for p in sources(name))
+    if lib.exists() and lib.stat().st_mtime >= newest:
         return lib, ""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = nvcc_path()

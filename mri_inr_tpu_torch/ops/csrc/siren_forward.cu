@@ -41,20 +41,17 @@
 // Python wrapper (ops/siren_kernel.py) checks every tensor and calls
 // siren_forward_launch through ctypes on PyTorch's current stream.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "siren_common.cuh"
 
 namespace {
+
+using namespace siren;
 
 constexpr int TM = 64;        // rows of S per block
 constexpr int KS = 32;        // weight rows per pipeline stage
 constexpr int STAGES = 3;     // cp.async ring depth
 constexpr int THREADS = 256;  // 8 warps: 2 row groups x 4 column groups
 constexpr int PAD = 8;        // bf16 padding per shared row (16 bytes)
-
-constexpr float TWO_PI = 6.283185307179586f;
-constexpr float INV_TWO_PI = 0.15915494309189535f;
 
 // Hidden-layer sine variants (the MODE template argument).
 constexpr int SIN_BF16 = 0;  // degree 7, polynomial evaluated in bf16
@@ -73,41 +70,6 @@ struct Args {
   int round_mods;  // hidden modulations rounded to bf16 (sin_bf16 mode)
   int out_deg;     // 7 or 9
 };
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
-
-// v - 2pi * floor(v / 2pi + 0.5), rounded step by step as the reference
-// does (no fused multiply-add), so both pick the same period.
-__device__ __forceinline__ float reduce_range(float x) {
-  float k = floorf(__fadd_rn(__fmul_rn(x, INV_TWO_PI), 0.5f));
-  return __fsub_rn(x, __fmul_rn(TWO_PI, k));
-}
-
-__device__ __forceinline__ float sin9(float x) {
-  float v = reduce_range(x), v2 = v * v;
-  float p = -1.926507745066e-04f + v2 * 2.147913009143e-06f;
-  p = 8.308990402314e-03f + v2 * p;
-  p = -1.666243985636e-01f + v2 * p;
-  p = 9.999793973572e-01f + v2 * p;
-  return v * p;
-}
-
-__device__ __forceinline__ float sin7(float x) {
-  float v = reduce_range(x), v2 = v * v;
-  float p = 7.958186419379e-03f + v2 * -1.450852979995e-04f;
-  p = -1.656675056348e-01f + v2 * p;
-  p = 9.992763920561e-01f + v2 * p;
-  return v * p;
-}
-
-__device__ __forceinline__ float sin5(float x) {
-  float v = reduce_range(x), v2 = v * v;
-  float p = -1.5347773e-01f + v2 * 5.4669000e-03f;
-  p = 9.8444443e-01f + v2 * p;
-  return v * p;
-}
 
 // Degree 7 with every polynomial operation rounded to bf16. Products and
 // sums of two bf16 values are exact in f32, so one rounding per operation
@@ -135,45 +97,6 @@ __device__ __forceinline__ float activation(float pre, float w0, int morlet) {
   float a = hidden_sin<MODE>(w0 * pre);
   if (morlet) a *= expf(-0.5f * (pre * pre));
   return a;
-}
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(smem_addr(p)));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 template <int H>

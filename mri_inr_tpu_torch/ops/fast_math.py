@@ -1,4 +1,4 @@
-"""Polynomial sines (counterpart of ``mri_inr_tpu/ops/fast_math.py``).
+"""Polynomial sines and cosines (counterpart of ``mri_inr_tpu/ops/fast_math.py``).
 
 Same coefficients and the same range reduction as the JAX package:
 ``v - 2pi * floor(v / 2pi + 0.5)`` (round half up; the floor term carries no
@@ -8,11 +8,13 @@ gradient), then an odd minimax polynomial over [-pi, pi]:
 - ``fast_sin7``: degree 7, |err| <= 2.6e-4;
 - ``fast_sin5``: degree 5, |err| <= 7.0e-3;
 - ``fast_sin7_bf16``: degree 7 with the polynomial evaluated in bf16 (each
-  operation rounded to bf16, as XLA does), range reduction in f32.
+  operation rounded to bf16, as XLA does), range reduction in f32;
+- ``fast_cos`` / ``fast_cos5``: ``fast_sin(x + pi/2)`` / ``fast_sin5(x +
+  pi/2)`` in f32, the derivative partners the train kernels' backward uses.
 
-The CUDA kernel (``ops/csrc/siren_forward.cu``) evaluates the same
-polynomials; these functions are its plain version's building blocks and
-the module path's activation.
+The CUDA kernels (``ops/csrc/*.cu``) evaluate the same polynomials; these
+functions are the building blocks of their plain versions and the module
+path's activation.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 TWO_PI = 6.283185307179586
 INV_TWO_PI = 0.15915494309189535
+HALF_PI = 1.5707963267948966
 
 _C0 = 9.999793973572e-01
 _C1 = -1.666243985636e-01
@@ -90,3 +93,13 @@ def fast_sin7_bf16(x: torch.Tensor) -> torch.Tensor:
     p = _D1_BF + v2 * p
     p = _D0_BF + v2 * p
     return v * p
+
+
+def fast_cos(x: torch.Tensor) -> torch.Tensor:
+    """Polynomial cosine, ``fast_sin(x + pi/2)`` computed in f32."""
+    return fast_sin(x.float() + HALF_PI).to(x.dtype)
+
+
+def fast_cos5(x: torch.Tensor) -> torch.Tensor:
+    """Degree-5 polynomial cosine, ``fast_sin5(x + pi/2)`` computed in f32."""
+    return fast_sin5(x.float() + HALF_PI).to(x.dtype)

@@ -63,10 +63,13 @@ class SirenKernelParams(NamedTuple):
     last_b: torch.Tensor  # (1, 1) f32
 
 
-def extract_kernel_params(model, coords: torch.Tensor) -> SirenKernelParams:
+def extract_kernel_params(model, coords: torch.Tensor, *,
+                          mm_dtype: torch.dtype = torch.bfloat16) -> SirenKernelParams:
     """Repack a :class:`ModulatedSiren`'s ``net`` and ``modulator`` weights;
-    product weights in bf16, the rest f32. ``coords``: (S, 2) fixed
-    coordinate grid."""
+    product weights in ``mm_dtype`` (bf16 for the tensor cores, f32 for tight
+    parity tests), the rest f32. ``coords``: (S, 2) fixed coordinate grid.
+    Every operation is differentiable: outside ``torch.no_grad`` the training
+    path backpropagates through this repacking into the model's parameters."""
     net, mod = model.net, model.modulator
     num_layers = model.num_layers
     l0 = net.layers[0]
@@ -79,16 +82,15 @@ def extract_kernel_params(model, coords: torch.Tensor) -> SirenKernelParams:
     kernel = lambda layer: layer.weight.t()  # (in, out), as the Flax kernel
     stack = lambda xs, dtype: torch.stack(list(xs)).to(dtype).contiguous()
     mw = [kernel(mod.layers[i]) for i in range(1, num_layers)]
-    bf16 = torch.bfloat16
     return SirenKernelParams(
         base=base.float().contiguous(),
-        m0_w=kernel(mod.layers[0]).to(bf16).contiguous(),
+        m0_w=kernel(mod.layers[0]).to(mm_dtype).contiguous(),
         m0_b=mod.layers[0].bias[None, :].float(),
-        mh_w=stack((w[:hidden] for w in mw), bf16),
-        mz_w=stack((w[hidden:] for w in mw), bf16),
+        mh_w=stack((w[:hidden] for w in mw), mm_dtype),
+        mz_w=stack((w[hidden:] for w in mw), mm_dtype),
         m_b=stack((mod.layers[i].bias[None, :] for i in range(1, num_layers)),
                   torch.float32),
-        s_w=stack((kernel(net.layers[i]) for i in range(1, num_layers)), bf16),
+        s_w=stack((kernel(net.layers[i]) for i in range(1, num_layers)), mm_dtype),
         s_b=stack((net.layers[i].bias[None, :] for i in range(1, num_layers)),
                   torch.float32),
         last_w=net.last_layer.weight[0][None, :].float().contiguous(),

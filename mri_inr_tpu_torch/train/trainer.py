@@ -1,0 +1,332 @@
+"""Training runtime (counterpart of ``mri_inr_tpu/train/trainer.py``): one
+train step and an epoch loop with the same artifacts.
+
+Per batch: crop the 24x24 centre target from the fully-sampled patch ->
+model(undersampled patch) -> criterion -> optimizer step. Initial train/val
+loss before training; validation every epoch; every ``save_interval`` epochs
+a checkpoint and train/val snapshot renders; a progress log with epoch, loss
+and wall-clock columns; a final checkpoint at the end.
+
+In PyTorch's idiom:
+
+- the train step is eager: ``loss.backward()`` and ``optimizer.step()`` on a
+  :class:`TrainState` (model, optimizer, step) that is updated in place;
+- with ``use_pallas`` (the config key's name) the forward and backward of the
+  modulator + SIREN chain are the fused kernels of
+  ``ops/siren_train_kernel.py`` (CUDA on the card, plain versions on the
+  CPU); otherwise, and for residual models, the module path under autograd;
+- validation and snapshots go through ``make_apply_fn``, so they run the
+  fused eval forward when training runs fused, with the same sine degree;
+- parameters stay f32; with ``precision: bf16`` the encoder and modulator
+  compute in bf16 (the model's ``compute_dtype``) and the chain multiplies
+  bf16 inputs into f32 sums;
+- the per-step dropout seed is an integer in [0, 2^23) drawn by a numpy
+  generator keyed on (base seed, step), so a resumed run continues the same
+  stream;
+- ``device_data`` keeps each dataset's tiles on the device and gathers every
+  batch there from the epoch's index matrix (:func:`make_epoch_perm`); a
+  Python loop over the batches takes the place of ``lax.scan``.
+
+Not ported: the device mesh and ``shard_map`` step, TensorBoard scalars
+(``tensorboard=True`` raises).
+"""
+
+from __future__ import annotations
+
+import csv
+import pathlib
+import signal
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+from torch import nn
+
+from mri_inr_tpu_torch.data.dataset import epoch_index_batches
+from mri_inr_tpu_torch.eval.evaluate import SliceReconstructor
+from mri_inr_tpu_torch.models.siren import SirenLayer
+from mri_inr_tpu_torch.ops import siren_train_kernel as stk
+from mri_inr_tpu_torch.ops import tiling
+from mri_inr_tpu_torch.ops.siren_kernel import make_apply_fn
+from mri_inr_tpu_torch.train import checkpoint as ckpt_lib
+from mri_inr_tpu_torch.utils import visualization
+from mri_inr_tpu_torch.utils.device import module_device, resolve_device
+
+
+@dataclass
+class TrainState:
+    """What a checkpoint holds; updated in place by the train step."""
+
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def make_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
+    """``adam`` (b1 0.9, b2 0.999, eps 1e-8: optax's defaults) or ``sgd``."""
+    if name == "adam":
+        return torch.optim.Adam(params, lr=lr)
+    if name == "sgd":
+        return torch.optim.SGD(params, lr=lr)
+    raise ValueError(f"Unknown optimizer {name!r}")
+
+
+def create_train_state(model: nn.Module, optimizer: str, lr: float) -> TrainState:
+    return TrainState(model, make_optimizer(optimizer, lr, model.parameters()), 0)
+
+
+def splice_pretrained_encoder(model: nn.Module, autoencoder_state: dict) -> nn.Module:
+    """Install a pretrained conv autoencoder's encoder (the ``encoder.``
+    subtree of its state dict) as the model's latent encoder; it is then
+    fine-tuned jointly with the SIREN. A ``trunk.`` subtree is a VGG
+    autoencoder's, which is not ported."""
+    if any(k.startswith("trunk.") for k in autoencoder_state):
+        raise NotImplementedError(
+            "the vgg encoder is not ported yet (ROADMAP queue 1, item 15)")
+    sub = {k[len("encoder."):]: v for k, v in autoencoder_state.items()
+           if k.startswith("encoder.")}
+    if not sub:
+        raise ValueError("the state dict has no 'encoder.' subtree")
+    model.encoder.encoder.load_state_dict(sub, strict=True)
+    return model
+
+
+def _freeze_encoder_grads(model: nn.Module) -> None:
+    """Zero the latent encoder's conv-stack gradients
+    (``training.freeze_encoder``): it stays at its loaded initialisation
+    while the modulator and the SIREN train."""
+    for p in model.encoder.encoder.parameters():
+        if p.grad is not None:
+            p.grad.zero_()
+
+
+def step_seed(base_seed: int, step: int) -> int:
+    """The dropout seed of train step ``step``: an integer in [0, 2^23)
+    (exact in float32), a pure function of (base_seed, step)."""
+    return int(np.random.default_rng([int(base_seed), int(step)]).integers(0, 2**23))
+
+
+def _fused(model, use_pallas: bool) -> bool:
+    return bool(use_pallas) and not getattr(model, "residual", False)
+
+
+def make_train_step(model, loss_fn, outer: int, siren: int, *, use_pallas: bool = False,
+                    sin5: bool = False, freeze_encoder: bool = False):
+    """Build ``step(state, fully, under, base_seed) -> loss`` (a 0-d tensor
+    on the batch's device, detached). ``state`` is updated in place."""
+    fused = _fused(model, use_pallas)
+    dropout_layers = [m for m in model.modules() if isinstance(m, SirenLayer)]
+
+    def forward(under: torch.Tensor, seed: int) -> torch.Tensor:
+        if fused:
+            return stk.fused_train_apply(model, under, seed, sin5=sin5)
+        # module path: F.dropout-style masks from an explicit generator
+        gen = torch.Generator(device=under.device).manual_seed(seed)
+        for layer in dropout_layers:
+            layer.dropout_generator = gen
+        model.train()
+        try:
+            return model(under)
+        finally:
+            model.eval()
+            for layer in dropout_layers:
+                layer.dropout_generator = None
+
+    def step(state: TrainState, fully: torch.Tensor, under: torch.Tensor,
+             base_seed: int) -> torch.Tensor:
+        target = tiling.extract_center_batch(fully, outer, siren).float()
+        state.optimizer.zero_grad(set_to_none=True)
+        pred = forward(under, step_seed(base_seed, state.step))
+        loss = loss_fn(pred.float(), target)
+        loss.backward()
+        if freeze_encoder:
+            _freeze_encoder_grads(model)
+        state.optimizer.step()
+        state.step += 1
+        return loss.detach()
+
+    return step
+
+
+def make_eval_step(model, loss_fn, outer: int, siren: int, *, use_pallas: bool = False,
+                   sin5: bool = False, device: str | torch.device | None = None):
+    """Build ``eval_step(state, fully, under) -> loss`` through
+    :func:`make_apply_fn`: the fused eval forward when training runs fused,
+    with ``sin5`` following the trainer's choice. Dropout is off."""
+    apply_fn = make_apply_fn(model, use_pallas=use_pallas, sin5=sin5, device=device)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, fully: torch.Tensor, under: torch.Tensor):
+        target = tiling.extract_center_batch(fully, outer, siren).float()
+        return loss_fn(apply_fn(under).float(), target)
+
+    return eval_step
+
+
+def make_epoch_perm(n: int, batch_size: int, seed: int, shuffle: bool) -> np.ndarray:
+    """(num_batches, batch_size) int32 index matrix with the batch
+    composition of ``MRIDataset.batches`` (shuffled order, remainder wrapped
+    from the epoch's start): shared by the host loop and the device-resident
+    epoch."""
+    return np.stack(epoch_index_batches(n, batch_size, seed, shuffle)).astype(np.int32)
+
+
+class Trainer:
+    """Epoch loop + artifacts (checkpoints, snapshots, progress log)."""
+
+    def __init__(self, model, state: TrainState, loss_fn, train_dataset, val_dataset,
+                 run_dir: str | pathlib.Path, batch_size: int = 400,
+                 save_interval: int = 100, snapshot_slices: int = 2,
+                 outer_patch_size: int = 32, siren_patch_size: int = 24,
+                 base_seed: int = 0, log=print, tensorboard: bool = False,
+                 use_pallas: bool = False, device_data: bool = False, sin5: bool = False,
+                 freeze_encoder: bool = False,
+                 device: str | torch.device | None = None):
+        if tensorboard:
+            raise NotImplementedError(
+                "training.logging (TensorBoard scalars) is not ported yet "
+                "(ROADMAP queue 1, item 17)")
+        self.device = resolve_device(device)
+        if module_device(model) != self.device:
+            raise ValueError(f"model is on {module_device(model)}, not on {self.device}")
+        self.model = model
+        self.state = state
+        self.train_dataset = train_dataset
+        self.val_dataset = val_dataset
+        self.run_dir = pathlib.Path(run_dir)
+        self.batch_size = batch_size
+        self.save_interval = save_interval
+        self.snapshot_slices = snapshot_slices
+        self.base_seed = base_seed
+        self.log = log
+        self.outer = outer_patch_size
+        self.siren = siren_patch_size
+        self.device_data = device_data
+
+        self.train_step = make_train_step(
+            model, loss_fn, outer_patch_size, siren_patch_size, use_pallas=use_pallas,
+            sin5=sin5, freeze_encoder=freeze_encoder)
+        self.eval_step = make_eval_step(
+            model, loss_fn, outer_patch_size, siren_patch_size, use_pallas=use_pallas,
+            sin5=sin5, device=self.device)
+        self._dev_tiles: dict = {}
+        # snapshot rendering shares the fused eval path when training fused
+        self.reconstructor = SliceReconstructor(
+            make_apply_fn(model, use_pallas=use_pallas, sin5=sin5, device=self.device),
+            outer_patch_size=outer_patch_size,
+            inner_patch_size=getattr(model, "inner_patch_size", 16),
+            siren_patch_size=siren_patch_size, device=self.device)
+        self.initial_losses: tuple[float, float] | None = None
+        self._progress: list[dict] = []
+        self._start_time = time.time()
+        (self.run_dir / "snapshots").mkdir(parents=True, exist_ok=True)
+
+    # ------------------------------------------------------------------
+    def _run_batch(self, fully: torch.Tensor, under: torch.Tensor, train: bool):
+        if train:
+            return self.train_step(self.state, fully, under, self.base_seed)
+        return self.eval_step(self.state, fully, under)
+
+    def _epoch_loss(self, dataset, train: bool, epoch: int) -> float:
+        if self.device_data and hasattr(dataset, "fully_tiles"):
+            return self._device_epoch_loss(dataset, train, epoch)
+        losses = []
+        for fully, under in dataset.batches(self.batch_size, seed=epoch, shuffle=train,
+                                            prefetch=2):
+            fully = torch.from_numpy(fully).to(self.device)
+            under = torch.from_numpy(under).to(self.device)
+            losses.append(self._run_batch(fully, under, train))
+        return float(torch.stack(losses).mean())
+
+    def _device_epoch_loss(self, dataset, train: bool, epoch: int) -> float:
+        """An epoch over device-resident tiles: uploaded once per dataset,
+        batches gathered on the device by the epoch's index matrix (the host
+        loop's composition), one host synchronisation at the end."""
+        key = id(dataset)
+        if key not in self._dev_tiles:
+            self._dev_tiles[key] = (
+                torch.from_numpy(dataset.fully_tiles).to(self.device),
+                torch.from_numpy(dataset.under_tiles).to(self.device))
+        fully_all, under_all = self._dev_tiles[key]
+        perm = torch.from_numpy(
+            make_epoch_perm(len(dataset), self.batch_size, epoch, shuffle=train)
+        ).to(self.device, torch.int64)
+        losses = [self._run_batch(fully_all[idx], under_all[idx], train) for idx in perm]
+        return float(torch.stack(losses).mean())
+
+    def initial_errors(self) -> tuple[float, float]:
+        """Train and validation loss before training."""
+        train_loss = self._epoch_loss(self.train_dataset, train=False, epoch=0)
+        val_loss = self._epoch_loss(self.val_dataset, train=False, epoch=0)
+        self.log(f"initial losses: train={train_loss:.6f} val={val_loss:.6f}")
+        self.initial_losses = (train_loss, val_loss)
+        return self.initial_losses
+
+    def train(self, epochs: int, initial_epoch: int = 0) -> TrainState:
+        """Epoch loop. A SIGTERM (cluster preemption) finishes the current
+        epoch, saves a final checkpoint and the progress log, and returns;
+        with ``continue_training`` the next run resumes from there."""
+        preempted = []
+        try:  # signal handlers only install from the main thread
+            prev = signal.signal(signal.SIGTERM, lambda *_: preempted.append(True))
+        except ValueError:
+            prev = None
+        try:
+            for epoch in range(initial_epoch, epochs):
+                t0 = time.time()
+                train_loss = self._epoch_loss(self.train_dataset, train=True, epoch=epoch)
+                val_loss = self._epoch_loss(self.val_dataset, train=False, epoch=epoch)
+                self._post_epoch(epoch, train_loss, val_loss, time.time() - t0)
+                if preempted:
+                    self.log(f"SIGTERM: stopping after epoch {epoch}")
+                    break
+        finally:
+            if prev is not None:
+                signal.signal(signal.SIGTERM, prev)
+        ckpt_lib.save_state(self.run_dir, self.state.step, self.state)
+        self._write_progress_log()
+        return self.state
+
+    # ------------------------------------------------------------------
+    def _post_epoch(self, epoch: int, train_loss: float, val_loss: float, secs: float):
+        self._progress.append({
+            "epoch": epoch,
+            "train_loss": train_loss,
+            "val_loss": val_loss,
+            "epoch_seconds": secs,
+            "time_since_start": time.time() - self._start_time,
+        })
+        self.log(f"epoch {epoch}: train={train_loss:.6f} val={val_loss:.6f} ({secs:.2f}s)")
+        if (epoch + 1) % self.save_interval == 0:
+            ckpt_lib.save_state(self.run_dir, self.state.step, self.state)
+            self._render_snapshots(epoch)
+        if (epoch + 1) % 100 == 0:
+            self._write_progress_log()
+
+    def _render_snapshots(self, epoch: int):
+        out = self.run_dir / "snapshots"
+        for split, dataset in (("train", self.train_dataset), ("val", self.val_dataset)):
+            for i in range(self.snapshot_slices):
+                pair = dataset.get_slice(i)
+                recon, fully, under, _ = self.reconstructor(pair.fully_sampled,
+                                                            pair.undersampled)
+                visualization.save_image_comparison(
+                    [fully.cpu().numpy(), under.cpu().numpy(), recon.cpu().numpy()],
+                    ["fully sampled", "undersampled", "reconstruction"],
+                    f"{split}_{i}_epoch_{epoch:05d}", out)
+
+    def _write_progress_log(self):
+        with open(self.run_dir / "progress_log.csv", "w", newline="") as f:
+            writer = csv.DictWriter(f, fieldnames=[
+                "epoch", "train_loss", "val_loss", "epoch_seconds", "time_since_start"])
+            writer.writeheader()
+            writer.writerows(self._progress)
+        # human-readable subsampled view: every 20th epoch
+        rows = [r for r in self._progress if r["epoch"] % 20 == 0] or self._progress
+        lines = [f"{'epoch':>6} {'train_loss':>12} {'val_loss':>12} {'t_total':>10}"] + [
+            f"{r['epoch']:>6} {r['train_loss']:>12.6f} {r['val_loss']:>12.6f} "
+            f"{r['time_since_start']:>10.1f}"
+            for r in rows
+        ]
+        (self.run_dir / "progress_log.txt").write_text("\n".join(lines) + "\n")

@@ -61,3 +61,22 @@ def test_range_reduction_carries_no_gradient():
     core = np.abs(x.detach().numpy()) <= 3.0
     np.testing.assert_allclose(x.grad.numpy()[core], np.cos(x.detach().numpy()[core]),
                                rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("name", ["fast_cos", "fast_cos5"])
+def test_cosines_match_jax_bit_for_bit(name):
+    """``fast_sin(x + pi/2)`` in f32 on both sides: the same operations in
+    the same order, so the 4e5 results are identical."""
+    want = np.asarray(getattr(jfm, name)(jnp.asarray(X)))
+    got = getattr(tfm, name)(torch.from_numpy(X)).numpy()
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name,bound", [("fast_cos", 5e-5), ("fast_cos5", 7.5e-3)])
+def test_cosines_keep_input_dtype_and_are_accurate(name, bound):
+    x = torch.linspace(-50.0, 50.0, 10001)
+    got = getattr(tfm, name)(x)
+    assert got.dtype == torch.float32
+    assert (got.double() - torch.cos(x.double())).abs().max() < bound
+    assert getattr(tfm, name)(x.bfloat16()).dtype == torch.bfloat16

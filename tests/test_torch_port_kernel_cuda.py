@@ -1,5 +1,6 @@
-"""The hand-written CUDA kernel (``ops/csrc/siren_forward.cu``) against its
-plain PyTorch version, on the card. Skips without one.
+"""The hand-written CUDA kernels (``ops/csrc/siren_forward.cu``,
+``siren_train_fwd.cu``, ``siren_train_bwd.cu``) against their plain PyTorch
+versions, on the card. Skips without one.
 
 Imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -10,6 +11,12 @@ accumulate in f32 in a different order, so a pre-activation may differ in
 its last bits and, rarely, round to the neighbouring bf16 value; that moves
 an output by up to ~1e-4. Max 1e-3 / mean 1e-5 leaves a margin. The bf16
 polynomial (``sin_bf16``) amplifies such flips: 2e-2 / 1e-3.
+
+The train kernels regenerate the plain version's dropout masks bit for bit,
+so the forward keeps the same bars. The backward's outputs are sums over up
+to B*S rows taken in another order (atomics for the weight-space gradients),
+on top of the same rare bf16 flips: each output is held to
+``2e-3 * max(|plain|, 1)``.
 """
 
 import pytest
@@ -17,6 +24,7 @@ import torch
 
 from mri_inr_tpu_torch.models.modulated_siren import ModulatedSiren, coordinate_grid
 from mri_inr_tpu_torch.ops import siren_kernel
+from mri_inr_tpu_torch.ops import siren_train_kernel as stk
 
 pytestmark = pytest.mark.cuda
 
@@ -88,3 +96,101 @@ def test_kernel_rejects_bad_inputs(device):
     with pytest.raises(ValueError, match="mods"):
         siren_kernel.siren_forward_cuda(mods[:, ::2], kp.base, kp.s_w, kp.s_b,
                                         kp.last_b, num_layers=3)
+
+
+# ----------------------------------------------------------- train kernels
+def _train_inputs(device, hidden, layers, siren, batch, activation):
+    g = torch.Generator().manual_seed(1)
+    model = ModulatedSiren(dim_hidden=hidden, latent_dim=hidden, num_layers=layers,
+                           siren_patch_size=siren, activation=activation, generator=g,
+                           device=device)
+    tiles = torch.rand((batch, 32, 32), generator=g).to(device)
+    cot = torch.randn((batch, siren * siren), generator=g).to(device)
+    with torch.no_grad():
+        kp = siren_kernel.extract_kernel_params(model, coordinate_grid(siren, device))
+        mods = siren_kernel.compute_modulations(kp, model.encode(tiles),
+                                                num_layers=layers).contiguous()
+    seed = torch.tensor([4321.0], device=device)
+    return (seed, mods, kp.base, kp.s_w, kp.s_b, kp.last_w, kp.last_b), cot
+
+
+TRAIN_CASES = [
+    # (hidden, layers, siren, batch, activation, sin5, dropout)
+    (256, 5, 24, 24, "sine", True, 0.1),
+    (256, 5, 24, 24, "sine", False, 0.1),
+    (256, 5, 24, 24, "morlet", True, 0.1),
+    (256, 5, 24, 24, "sine", True, 0.0),
+    (64, 3, 20, 37, "sine", True, 0.1),  # S=400: ragged tile
+    (64, 5, 24, 9, "morlet", False, 0.0),
+    (128, 2, 24, 5, "morlet", False, 0.1),
+    (128, 4, 24, 7, "sine", False, 0.0),
+    (192, 4, 24, 9, "sine", True, 0.1),
+    (192, 3, 20, 6, "morlet", True, 0.0),
+]
+
+
+@pytest.mark.parametrize("hidden,layers,siren,batch,activation,sin5,rate", TRAIN_CASES)
+def test_train_forward_matches_plain_version(device, hidden, layers, siren, batch,
+                                             activation, sin5, rate):
+    args, _ = _train_inputs(device, hidden, layers, siren, batch, activation)
+    kw = dict(num_layers=layers, activation=activation, dropout_rate=rate, sin5=sin5)
+    before = stk.siren_chain_train_fwd_cuda.launches
+    got = stk.siren_chain_train_fwd_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert stk.siren_chain_train_fwd_cuda.launches == before + 1
+    want = stk.siren_chain_train_fwd_reference(*args, **kw)
+    assert got.shape == want.shape == (batch, siren * siren)
+    assert torch.isfinite(got).all()
+    err = (got - want).abs()
+    assert err.max().item() <= 1e-3
+    assert err.mean().item() <= 1e-5
+
+
+@pytest.mark.parametrize("hidden,layers,siren,batch,activation,sin5,rate", TRAIN_CASES)
+def test_train_backward_matches_plain_version(device, hidden, layers, siren, batch,
+                                              activation, sin5, rate):
+    args, cot = _train_inputs(device, hidden, layers, siren, batch, activation)
+    kw = dict(num_layers=layers, activation=activation, dropout_rate=rate, sin5=sin5)
+    before = stk.siren_chain_train_bwd_cuda.launches
+    got = stk.siren_chain_train_bwd_cuda(*args, cot, **kw)
+    torch.cuda.synchronize()
+    assert stk.siren_chain_train_bwd_cuda.launches == before + 1
+    want = stk.siren_chain_train_bwd_reference(*args, cot, **kw)
+    for name, a, b in zip(("dmods", "dbase", "dsw", "dsb", "dlw", "dlb"), got, want):
+        assert a.shape == b.shape, name
+        assert torch.isfinite(a).all(), name
+        gap = (a - b).abs().max().item()
+        assert gap <= 2e-3 * max(b.abs().max().item(), 1.0), (name, gap)
+
+
+def test_train_op_dispatches_to_both_kernels(device):
+    """autograd through the op on CUDA tensors launches each kernel once and
+    returns dsw in s_w's dtype."""
+    args, cot = _train_inputs(device, 64, 3, 24, 4, "sine")
+    seed, mods, base, s_w, s_b, last_w, last_b = args
+    leaves = [t.detach().clone().requires_grad_(True)
+              for t in (mods, base, s_w, s_b, last_w, last_b)]
+    kp = siren_kernel.SirenKernelParams(leaves[1], None, None, None, None, None,
+                                        leaves[2], leaves[3], leaves[4], leaves[5])
+    f0, b0 = stk.siren_chain_train_fwd_cuda.launches, stk.siren_chain_train_bwd_cuda.launches
+    out = stk.siren_chain_train(kp, leaves[0], seed, num_layers=3, dropout_rate=0.1, sin5=True)
+    (out * cot).sum().backward()
+    torch.cuda.synchronize()
+    assert stk.siren_chain_train_fwd_cuda.launches == f0 + 1
+    assert stk.siren_chain_train_bwd_cuda.launches == b0 + 1
+    assert leaves[2].grad.dtype == torch.bfloat16
+    for name, t in zip(("mods", "base", "s_w", "s_b", "last_w", "last_b"), leaves):
+        assert t.is_leaf and t.grad is not None, name
+        assert torch.isfinite(t.grad.float()).all(), name
+
+
+def test_train_kernels_reject_bad_inputs(device):
+    args, cot = _train_inputs(device, 64, 3, 24, 4, "sine")
+    seed, mods, base, s_w, s_b, last_w, last_b = args
+    with pytest.raises(ValueError, match="s_w"):
+        stk.siren_chain_train_fwd_cuda(seed, mods, base, s_w.float(), s_b, last_w, last_b,
+                                       num_layers=3)
+    with pytest.raises(ValueError, match="g"):
+        stk.siren_chain_train_bwd_cuda(*args, cot[:, ::2], num_layers=3)
+    with pytest.raises(ValueError, match="dropout_rate"):
+        stk.siren_chain_train_fwd_cuda(*args, num_layers=3, dropout_rate=1.0)

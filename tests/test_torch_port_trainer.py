@@ -1,0 +1,444 @@
+"""The port's training runtime on the CPU (``device="cpu"``: the kernels'
+plain PyTorch versions) against the JAX package's, and its artifacts.
+
+- train step: from transplanted weights, dropout off, ``optimizer: sgd``,
+  three steps at lr 1e-3; losses within 1e-5 and parameters within 1e-6 of
+  JAX's ``make_train_step(use_pallas=True, interpret=True)`` (measured 2.4e-6
+  and 9e-8 over three data seeds; at lr 1e-2 one bf16 rounding of a layer
+  input that falls the other way grows to 3.7e-5 and 1.7e-5 by step three,
+  with the first step, before any update, at 2.3e-6 either way). Adam is
+  held apart, on one numpy gradient sequence (1e-7): its first steps move
+  every element by about ``lr`` whatever the gradient's size, so an element
+  whose gradient is rounding noise would differ by ``2 * lr`` with nothing
+  wrong.
+- the device-resident epoch equals the host loop (the JAX bar, 1e-6).
+- ``Trainer`` artifacts, the SIGTERM contract, checkpoint round trip, resume
+  discovery equal to the JAX package's on one directory tree, the train CLI.
+"""
+
+import csv
+import os
+import pathlib
+import signal
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import optax
+import pytest
+import torch
+
+from mri_inr_tpu.data import synthetic as jsyn
+from mri_inr_tpu.data.preprocessing import process_files
+from mri_inr_tpu.models.modulated_siren import ModulatedSiren as JaxModel
+from mri_inr_tpu.train import checkpoint as jckpt
+from mri_inr_tpu.train import losses as jlosses
+from mri_inr_tpu.train import trainer as jtrainer
+from mri_inr_tpu_torch.cli import train as cli_train
+from mri_inr_tpu_torch.data.dataset import MRIDataset
+from mri_inr_tpu_torch.interop import load_flax_params, params_from_flax
+from mri_inr_tpu_torch.models.modulated_siren import ModulatedSiren
+from mri_inr_tpu_torch.ops import siren_train_kernel as tstk
+from mri_inr_tpu_torch.train import checkpoint as tckpt
+from mri_inr_tpu_torch.train import losses as tlosses
+from mri_inr_tpu_torch.train import trainer as ttrainer
+
+# the test workers share the cores: one torch thread each, so no idle
+# OpenMP pool spins against the other workers
+torch.set_num_threads(1)
+
+CONFIGS = pathlib.Path(__file__).resolve().parent.parent / "configs"
+WIDTHS = dict(dim_hidden=64, latent_dim=32, num_layers=3)
+
+
+@pytest.fixture(scope="module")
+def metadata(tmp_path_factory):
+    d = tmp_path_factory.mktemp("data")
+    jsyn.write_synthetic_h5(d, num_files=2, num_slices=2, height=64, width=64)
+    return process_files(d)
+
+
+@pytest.fixture(scope="module")
+def datasets(metadata):
+    return MRIDataset(metadata, max_slice_num=10), MRIDataset(metadata, max_slice_num=0)
+
+
+def _model(seed=0, **kw):
+    return ModulatedSiren(**{**WIDTHS, **kw}, device="cpu",
+                          generator=torch.Generator().manual_seed(seed))
+
+
+def _flat(model):
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()]).numpy()
+
+
+# ------------------------------------------------------------------ steps
+@pytest.mark.parametrize("sin5", [True, False], ids=["sin5", "deg9"])
+def test_three_sgd_steps_match_jax(sin5):
+    data = np.random.default_rng(0)
+    fully = data.uniform(size=(16, 32, 32)).astype(np.float32)
+    under = data.uniform(size=(16, 32, 32)).astype(np.float32)
+    jm = JaxModel(dropout=0.0, **WIDTHS)
+    jstate = jtrainer.create_train_state(jm, jax.random.key(0), jnp.zeros((4, 32, 32)),
+                                         "sgd", 1e-3)
+    tm = _model(dropout=0.0)
+    load_flax_params(tm, jax.device_get(jstate.params))
+    start = {n: p.detach().clone() for n, p in tm.named_parameters()}
+    tstate = ttrainer.create_train_state(tm, "sgd", 1e-3)
+
+    jstep = jtrainer.make_train_step(jm, jlosses.mse, 32, 24, use_pallas=True,
+                                     interpret=True, sin5=sin5)
+    tstep = ttrainer.make_train_step(tm, tlosses.mse, 32, 24, use_pallas=True, sin5=sin5)
+    rng = jax.random.key(1)
+    for i in range(3):
+        jstate, jloss = jstep(jstate, jnp.asarray(fully), jnp.asarray(under), rng)
+        tloss = tstep(tstate, torch.from_numpy(fully), torch.from_numpy(under), 1)
+        assert abs(float(tloss) - float(jloss)) <= 1e-5, i
+    assert tstate.step == int(jstate.step) == 3
+    want = params_from_flax(jax.device_get(jstate.params))
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), rtol=0,
+                                   atol=1e-6, err_msg=name)
+    # the three steps moved the weights far more than the bar they are held to
+    assert max((p.detach() - start[n]).abs().max().item()
+               for n, p in tm.named_parameters()) > 1e-4
+
+
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+def test_optimizers_match_optax_on_one_gradient_sequence(name):
+    rng = np.random.default_rng(0)
+    # weights of a layer's size (|p| < 0.5), where 1e-7 is a few f32 ulps; at
+    # |p| in [1, 2) one ulp alone is 1.19e-7
+    p0 = rng.uniform(-0.5, 0.5, size=(7, 5)).astype(np.float32)
+    grads = [(rng.normal(size=(7, 5)) * 10.0 ** rng.integers(-4, 2)).astype(np.float32)
+             for _ in range(10)]
+    tx = jtrainer.make_optimizer(name, 1e-3)
+    jp, jst = jnp.asarray(p0), None
+    jst = tx.init(jp)
+    tp = torch.nn.Parameter(torch.from_numpy(p0.copy()))
+    opt = ttrainer.make_optimizer(name, 1e-3, [tp])
+    for g in grads:
+        upd, jst = tx.update(jnp.asarray(g), jst, jp)
+        jp = optax.apply_updates(jp, upd)
+        tp.grad = torch.from_numpy(g.copy())
+        opt.step()
+    np.testing.assert_allclose(tp.detach().numpy(), np.asarray(jp), rtol=0, atol=1e-7)
+    with pytest.raises(ValueError):
+        ttrainer.make_optimizer("lion", 1e-3, [tp])
+
+
+def test_step_seed_is_a_pure_function_in_range():
+    seeds = [ttrainer.step_seed(1, s) for s in range(200)]
+    assert seeds == [ttrainer.step_seed(1, s) for s in range(200)]
+    assert all(0 <= s < 2**23 for s in seeds)
+    assert len(set(seeds)) > 190
+    assert ttrainer.step_seed(2, 0) != ttrainer.step_seed(1, 0)
+
+
+def test_fused_train_step_reduces_loss_with_dropout(datasets):
+    train, _ = datasets
+    model = _model(dropout=0.1)
+    state = ttrainer.create_train_state(model, "adam", 1e-3)
+    step = ttrainer.make_train_step(model, tlosses.mse, 32, 24, use_pallas=True, sin5=True)
+    fully, under = (torch.from_numpy(a) for a in next(train.batches(32, seed=0)))
+    first = float(step(state, fully, under, 1))
+    for _ in range(19):
+        loss = float(step(state, fully, under, 1))
+    assert loss < first * 0.9
+    assert state.step == 20
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(residual=True)], ids=["plain", "residual"])
+def test_module_path_step_draws_dropout_from_the_step_seed(datasets, kw):
+    """``use_pallas=False`` (and every residual model): dropout masks come
+    from a generator seeded per step, so two runs repeat and the model is
+    left in eval mode."""
+    train, _ = datasets
+    fully, under = (torch.from_numpy(a) for a in next(train.batches(32, seed=0)))
+
+    def run(use_pallas):
+        model = _model(dropout=0.1, **kw)
+        state = ttrainer.create_train_state(model, "sgd", 1e-2)
+        step = ttrainer.make_train_step(model, tlosses.mse, 32, 24, use_pallas=use_pallas)
+        before = torch.get_rng_state()
+        ls = [float(step(state, fully, under, 3)) for _ in range(3)]
+        assert torch.equal(before, torch.get_rng_state())  # global stream untouched
+        assert not model.training
+        return ls, _flat(model)
+
+    (l1, p1), (l2, p2) = run(False), run(False)
+    assert l1 == l2 and np.array_equal(p1, p2)
+    assert l1[0] != l1[1]
+    if kw:  # residual models are never fused, whatever use_pallas says
+        l3, p3 = run(True)
+        assert l3 == l1 and np.array_equal(p3, p1)
+
+
+def test_freeze_encoder_keeps_the_conv_stack(datasets):
+    train, _ = datasets
+    fully, under = (torch.from_numpy(a) for a in next(train.batches(32, seed=0)))
+    model = _model(dropout=0.0)
+    enc0 = [p.detach().clone() for p in model.encoder.encoder.parameters()]
+    net0 = model.net.layers[1].weight.detach().clone()
+    state = ttrainer.create_train_state(model, "adam", 1e-3)
+    step = ttrainer.make_train_step(model, tlosses.mse, 32, 24, use_pallas=True,
+                                    freeze_encoder=True)
+    for _ in range(2):
+        step(state, fully, under, 1)
+    for a, b in zip(enc0, model.encoder.encoder.parameters()):
+        assert torch.equal(a, b)
+    assert not torch.equal(net0, model.net.layers[1].weight)
+
+
+def test_splice_pretrained_encoder():
+    donor, model = _model(seed=5), _model(seed=0)
+    ae_state = {f"encoder.{k}": v for k, v in donor.encoder.encoder.state_dict().items()}
+    ae_state["decoder.fc.weight"] = torch.zeros(3, 3)
+    ttrainer.splice_pretrained_encoder(model, ae_state)
+    for a, b in zip(donor.encoder.encoder.parameters(), model.encoder.encoder.parameters()):
+        assert torch.equal(a, b)
+    assert not torch.equal(donor.net.layers[1].weight, model.net.layers[1].weight)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ttrainer.splice_pretrained_encoder(model, {"trunk.conv.weight": torch.zeros(1)})
+    with pytest.raises(ValueError):
+        ttrainer.splice_pretrained_encoder(model, {"decoder.w": torch.zeros(1)})
+
+
+def test_eval_step_follows_sin5_and_runs_without_dropout(datasets):
+    train, _ = datasets
+    fully, under = (torch.from_numpy(a) for a in next(train.batches(32, seed=0)))
+    model = _model(dropout=0.1)
+    state = ttrainer.create_train_state(model, "adam", 1e-3)
+    ev5 = ttrainer.make_eval_step(model, tlosses.mse, 32, 24, use_pallas=True, sin5=True,
+                                  device="cpu")
+    ev9 = ttrainer.make_eval_step(model, tlosses.mse, 32, 24, use_pallas=True, sin5=False,
+                                  device="cpu")
+    evm = ttrainer.make_eval_step(model, tlosses.mse, 32, 24, use_pallas=False, device="cpu")
+    a, b = float(ev5(state, fully, under)), float(ev5(state, fully, under))
+    assert a == b
+    assert a != float(ev9(state, fully, under))
+    assert abs(float(evm(state, fully, under)) - float(ev9(state, fully, under))) < 1e-2
+    assert all(p.grad is None for p in model.parameters())
+
+
+# ---------------------------------------------------------------- Trainer
+def _trainer(datasets, run_dir, **kw):
+    train, val = datasets
+    model = _model(dropout=0.1)
+    args = dict(batch_size=32, save_interval=1000, use_pallas=True, sin5=True, device="cpu",
+                log=lambda *_: None)
+    args.update(kw)
+    return ttrainer.Trainer(model, ttrainer.create_train_state(model, "adam", 1e-3),
+                            tlosses.mse, train, val, run_dir, **args)
+
+
+def test_device_resident_epoch_equals_host_loop(datasets, tmp_path):
+    train, val = datasets
+
+    def run(device_data, tmp):
+        t = _trainer(datasets, tmp, device_data=device_data)
+        ls = (t._epoch_loss(train, train=True, epoch=0),
+              t._epoch_loss(train, train=True, epoch=1),
+              t._epoch_loss(val, train=False, epoch=0))
+        return ls, _flat(t.model)
+
+    (lh, ph), (ld, pd) = run(False, tmp_path / "a"), run(True, tmp_path / "b")
+    for a, b in zip(lh, ld):
+        assert b == pytest.approx(a, rel=1e-5)
+    np.testing.assert_allclose(pd, ph, rtol=0, atol=1e-6)
+
+
+def test_trainer_writes_the_artifacts(datasets, tmp_path):
+    logs = []
+    t = _trainer(datasets, tmp_path / "run", save_interval=1, snapshot_slices=1,
+                 log=logs.append)
+    init = t.initial_errors()
+    assert t.initial_losses == init and all(np.isfinite(init))
+    state = t.train(2)
+    steps = 2 * (-(-len(datasets[0]) // 32))
+    assert state.step == steps
+    run = tmp_path / "run"
+    with open(run / "progress_log.csv") as f:
+        rows = list(csv.DictReader(f))
+    assert [r["epoch"] for r in rows] == ["0", "1"]
+    assert list(rows[0]) == ["epoch", "train_loss", "val_loss", "epoch_seconds",
+                             "time_since_start"]
+    assert (run / "progress_log.txt").read_text().splitlines()[0].split() == [
+        "epoch", "train_loss", "val_loss", "t_total"]
+    assert tckpt.find_latest_step(run) == steps
+    assert sorted(p.name for p in (run / "checkpoints").iterdir()) == [
+        f"step_{steps // 2:08d}", f"step_{steps:08d}"]
+    assert sorted(p.name for p in (run / "snapshots").iterdir()) == [
+        "train_0_epoch_00000.png", "train_0_epoch_00001.png",
+        "val_0_epoch_00000.png", "val_0_epoch_00001.png"]
+    assert any(m.startswith("initial losses") for m in logs)
+    assert float(rows[1]["train_loss"]) < init[0]
+
+
+def test_sigterm_finishes_the_epoch_and_saves(datasets, tmp_path):
+    t = _trainer(datasets, tmp_path / "run")
+    real = t._epoch_loss
+    calls = []
+
+    def epoch_loss(dataset, train, epoch):
+        if train and not calls:
+            os.kill(os.getpid(), signal.SIGTERM)
+        calls.append((train, epoch))
+        return real(dataset, train, epoch)
+
+    t._epoch_loss = epoch_loss
+    previous = signal.getsignal(signal.SIGTERM)
+    state = t.train(5)
+    assert signal.getsignal(signal.SIGTERM) == previous  # handler restored
+    assert calls == [(True, 0), (False, 0)]  # the epoch ran to its end, no second one
+    assert state.step == -(-len(datasets[0]) // 32)
+    assert tckpt.find_latest_step(tmp_path / "run") == state.step
+    assert (tmp_path / "run" / "progress_log.csv").is_file()
+
+
+def test_tensorboard_and_wrong_device_raise(datasets, tmp_path):
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        _trainer(datasets, tmp_path / "run", tensorboard=True)
+    with pytest.raises(RuntimeError):
+        _trainer(datasets, tmp_path / "run", device=None)  # cuda by default: no card here
+
+
+# ------------------------------------------------------------ checkpoints
+def test_checkpoint_round_trip(datasets, tmp_path):
+    t = _trainer(datasets, tmp_path / "run")
+    t._epoch_loss(datasets[0], train=True, epoch=0)
+    path = tckpt.save_state(tmp_path / "run", t.state.step, t.state)
+    assert path == tckpt.checkpoint_path(tmp_path / "run", t.state.step)
+    assert path.name == f"step_{t.state.step:08d}" and (path / tckpt.STATE_FILE).is_file()
+
+    other = _trainer(datasets, tmp_path / "other")
+    assert not np.array_equal(_flat(other.model), _flat(t.model))
+    tckpt.restore_state(tmp_path / "run", t.state.step, other.state)
+    assert other.state.step == t.state.step
+    assert np.array_equal(_flat(other.model), _flat(t.model))
+    # the optimizer's moments came along: one more identical step agrees
+    fully, under = (torch.from_numpy(a) for a in next(datasets[0].batches(32, seed=9)))
+    la = t.train_step(t.state, fully, under, t.base_seed)
+    lb = other.train_step(other.state, fully, under, other.base_seed)
+    assert float(la) == float(lb)
+    assert np.array_equal(_flat(other.model), _flat(t.model))
+
+
+def test_resume_discovery_matches_jax(tmp_path):
+    out = tmp_path / "output"
+    for name, steps in [("base_2026-01-01_00-00-00", [5, 50]),
+                        ("base_2026-03-01_10-00-00", [7, 12, 9]),
+                        ("base_2026-02-01_00-00-00", [999]),
+                        ("base_x_2026-12-01_00-00-00", [3]),
+                        ("other_2026-12-31_00-00-00", [1]),
+                        ("base_2026-04-01_00-00-00", []),  # newest, nothing saved
+                        ("base_notatimestamp", [4])]:
+        for s in steps:
+            (out / name / "checkpoints" / f"step_{s:08d}").mkdir(parents=True)
+        (out / name / "checkpoints").mkdir(parents=True, exist_ok=True)
+    (out / "base_2026-05-01_00-00-00").write_text("a file, not a run dir")
+    for name in ("base", "base_x", "other", "missing"):
+        assert tckpt.find_latest_run_dir(out, name) == jckpt.find_latest_run_dir(out, name)
+        assert tckpt.resolve_resume(out, name) == jckpt.resolve_resume(out, name)
+    assert tckpt.resolve_resume(out, "base") is None  # the newest run has no step
+    (out / "base_2026-04-01_00-00-00" / "checkpoints" / "step_00000002").mkdir()
+    assert tckpt.resolve_resume(out, "base") == jckpt.resolve_resume(out, "base") == (
+        out / "base_2026-04-01_00-00-00", 2)
+    run = out / "base_2026-03-01_10-00-00"
+    assert tckpt.find_latest_step(run) == jckpt.find_latest_step(run) == 12
+    assert tckpt.checkpoint_path(run, 12) == jckpt.checkpoint_path(run, 12)
+    assert tckpt.resolve_resume(tmp_path / "nowhere", "base") is None
+    assert (tckpt.RUN_DIR_RE, tckpt.STEP_DIR_RE) == (jckpt.RUN_DIR_RE, jckpt.STEP_DIR_RE)
+    made = tckpt.new_run_dir(out, "fresh", "2026-06-01_00-00-00")
+    assert made == jckpt.new_run_dir(out, "fresh", "2026-06-01_00-00-00") and made.is_dir()
+
+
+# -------------------------------------------------------------------- CLI
+def _cli_args(metadata, out, *extra):
+    sets = [f"data.train.dataset={metadata}", f"data.val.dataset={metadata}",
+            "data.val.max_slice_num=0", "model.dim_hidden=64", "model.latent_dim=32",
+            "model.num_layers=3", "training.batch_size=32", "training.save_interval=1000",
+            f"training.output_dir={out}", "training.output_name=tiny", *extra]
+    argv = ["--config", str(CONFIGS / "train.yaml"), "--device", "cpu"]
+    for s in sets:
+        argv += ["--set", s]
+    return argv
+
+
+def test_train_cli_two_epochs_then_a_resumed_third(metadata, tmp_path, capsys):
+    out = tmp_path / "out"
+    before = (tstk.siren_chain_train_fwd_cuda.launches,
+              tstk.siren_chain_train_bwd_cuda.launches)
+    first = cli_train.main(_cli_args(metadata, out, "training.epochs=2"))
+    per_epoch = -(-len(first.train_dataset) // 32)
+    assert first.state.step == 2 * per_epoch
+    run = first.run_dir
+    assert run.parent == out and run.name.startswith("tiny_")
+    for name in ("config.yaml", "processed_files.txt", "progress_log.csv",
+                 "progress_log.txt"):
+        assert (run / name).is_file(), name
+    assert tckpt.resolve_resume(out, "tiny") == (run, 2 * per_epoch)
+
+    capsys.readouterr()
+    again = cli_train.main(_cli_args(metadata, out, "training.epochs=3",
+                                     "training.continue_training=true",
+                                     "training.device_data=true"))
+    text = capsys.readouterr().out
+    assert f"resuming from {run} at step {2 * per_epoch}" in text
+    assert "continuing at epoch 2" in text
+    assert again.run_dir == run and again.state.step == 3 * per_epoch
+    assert [r["epoch"] for r in again._progress] == [2]
+    # the restored model starts where the first run's validation ended
+    assert again.initial_losses[1] == pytest.approx(first._progress[-1]["val_loss"], rel=1e-5)
+    assert tckpt.find_latest_step(run) == 3 * per_epoch
+    # on the CPU no kernel is launched
+    assert before == (tstk.siren_chain_train_fwd_cuda.launches,
+                      tstk.siren_chain_train_bwd_cuda.launches)
+
+
+def test_train_cli_pinned_model_path_and_fresh_start(metadata, tmp_path):
+    out = tmp_path / "out"
+    first = cli_train.main(_cli_args(metadata, out, "training.epochs=1"))
+    pinned = cli_train.main(_cli_args(metadata, tmp_path / "elsewhere", "training.epochs=2",
+                                      "training.continue_training=true",
+                                      f"training.model_path={first.run_dir}"))
+    assert pinned.run_dir == first.run_dir and pinned._progress[0]["epoch"] == 1
+    # continue_training with nothing to resume starts fresh
+    fresh = cli_train.main(_cli_args(metadata, tmp_path / "new", "training.epochs=1",
+                                     "training.continue_training=true"))
+    assert fresh.run_dir.parent == tmp_path / "new" and fresh._progress[0]["epoch"] == 0
+
+
+@pytest.mark.parametrize("override,match", [
+    ("data.train.online=true", "item 13"),
+    ("data.low_memory=true", "item 14"),
+    ("model.encoder_type=vgg", "item 15"),
+    ("training.criterion=perceptual", "item 15"),
+    ("training.logging=true", "item 17"),
+    ("training.data_axis_size=4", "item 17"),
+])
+def test_train_cli_names_what_is_not_ported(metadata, tmp_path, override, match):
+    with pytest.raises(NotImplementedError, match=match):
+        cli_train.main(_cli_args(metadata, tmp_path / "out", "training.epochs=1", override))
+
+
+def test_train_cli_encoder_path(metadata, tmp_path):
+    donor = _model(seed=5)
+    path = tmp_path / "ae.pt"
+    torch.save({f"encoder.{k}": v for k, v in donor.encoder.encoder.state_dict().items()},
+               path)
+    t = cli_train.main(_cli_args(metadata, tmp_path / "out", "training.epochs=0",
+                                 f"model.encoder_path={path}"))
+    for a, b in zip(donor.encoder.encoder.parameters(), t.model.encoder.encoder.parameters()):
+        assert torch.equal(a, b)
+    (tmp_path / "orbax_dir").mkdir()
+    with pytest.raises(NotImplementedError, match="item 18"):
+        cli_train.main(_cli_args(metadata, tmp_path / "out", "training.epochs=0",
+                                 f"model.encoder_path={tmp_path / 'orbax_dir'}"))
+
+
+def test_train_cli_defaults_to_the_card(metadata, tmp_path):
+    argv = [a for a in _cli_args(metadata, tmp_path / "out", "training.epochs=1")
+            if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_train.main(argv)
