@@ -9,9 +9,16 @@ reference images, and score PSNR / SSIM / NRMSE of fully-sampled vs
 reconstruction. Artifacts: ``metrics_error.csv`` (FILENAME,PSNR,SSIM,NRMSE)
 and a mean/std/min/max ``metrics_summary.txt``.
 
-Not carried over: the TPU mesh and halo fold, and the sweep's padding to a
-bucket of slices and its ``steady_probe``, which exist to reuse compiled TPU
-programs; PyTorch compiles nothing per shape.
+Three sweeps give the same rows: :func:`evaluate_files` (one slice at a
+time, also returns the images), :func:`evaluate_files_chunked` (``chunk``
+slices per upload, one copy back per chunk) and
+:func:`evaluate_files_device` (every slice uploaded once per shape group).
+``--shard I:N`` runs write ``metrics_shard*/`` directories that
+:func:`merge_shard_csvs` combines.
+
+Not carried over: the TPU mesh and halo fold, and the device sweep's padding
+to a bucket of slices and its ``steady_probe``, which exist to reuse compiled
+TPU programs; PyTorch compiles nothing per shape.
 """
 
 from __future__ import annotations
@@ -104,6 +111,21 @@ class SliceReconstructor:
             cols.append(torch.stack([m["psnr"], m["ssim"], m["nrmse"]]))
         return torch.stack(cols, dim=1)
 
+    def metrics_chunk_async(self, fully_stack: np.ndarray,
+                            under_stack: np.ndarray) -> torch.Tensor:
+        """(K, H, W) host stacks -> a device (3, K) tensor of (psnr, ssim,
+        nrmse) rows. Nothing here waits for the device: on the card the work
+        is enqueued on PyTorch's stream and the host goes on to stack the
+        next chunk; fetch with ``.cpu()`` when the values are needed."""
+        up = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(self.device)
+        return self.metrics_stack(up(fully_stack), up(under_stack))
+
+    def metrics_chunk(self, fully_stack: np.ndarray, under_stack: np.ndarray):
+        """(K, H, W) host stacks -> (psnr, ssim, nrmse) numpy arrays of length
+        K (blocking; one copy back)."""
+        out = self.metrics_chunk_async(fully_stack, under_stack).cpu().numpy()
+        return out[0], out[1], out[2]
+
 
 def evaluate_files(reconstructor: SliceReconstructor, sampler,
                    num_samples: int | None = None, progress_every: int = 100,
@@ -121,6 +143,57 @@ def evaluate_files(reconstructor: SliceReconstructor, sampler,
         if progress_every and (i + 1) % progress_every == 0:
             log(f"evaluated {i + 1}/{total} slices")
     return results
+
+
+def evaluate_files_chunked(reconstructor: SliceReconstructor, sampler,
+                           num_samples: int | None = None, chunk: int = 8,
+                           progress_every: int = 100, log=print,
+                           inflight: int = 4) -> list[SliceResult]:
+    """Metric sweep with ``chunk`` slices per upload and one (3, K) copy back
+    per chunk (metrics only; the visual pass keeps the per-slice path).
+    Slices are grouped by image shape; a trailing partial chunk is padded by
+    repeating its last slice and trimmed. The rows are those of
+    :func:`evaluate_files`, in the sampler's order.
+
+    Up to ``inflight`` chunks are enqueued before the oldest result is
+    fetched. The JAX package needs that to overlap host stacking with device
+    compute; PyTorch's stream is asynchronous already, so here the argument
+    only bounds how many chunks' stacks are alive on the device."""
+    total = len(sampler) if num_samples is None else min(num_samples, len(sampler))
+    pairs = [sampler.next_sample() for _ in range(total)]
+    results: dict[int, SliceResult] = {}
+    by_shape: dict[tuple[int, int], list[int]] = {}
+    for i, p in enumerate(pairs):
+        by_shape.setdefault(p.fully_sampled.shape, []).append(i)
+
+    pending: list[tuple[list[int], torch.Tensor]] = []
+    done = 0
+    t_start = time.perf_counter()
+
+    def drain_one():
+        nonlocal done
+        grp, fut = pending.pop(0)
+        vals = fut.cpu().numpy()
+        for j, i in enumerate(grp):
+            results[i] = SliceResult(pairs[i].slice_id, float(vals[0, j]),
+                                     float(vals[1, j]), float(vals[2, j]))
+        done += len(grp)
+        if progress_every and done % progress_every < len(grp):
+            dt = time.perf_counter() - t_start
+            log(f"evaluated {done}/{total} slices ({dt:.1f}s, {done / dt:.1f} slices/s)")
+
+    for idxs in by_shape.values():
+        for start in range(0, len(idxs), chunk):
+            grp = idxs[start : start + chunk]
+            padded = grp + [grp[-1]] * (chunk - len(grp))
+            fully = np.stack([pairs[i].fully_sampled for i in padded])
+            under = np.stack([pairs[i].undersampled for i in padded])
+            pending.append((grp, reconstructor.metrics_chunk_async(fully, under)))
+            while len(pending) >= max(1, inflight):
+                drain_one()
+    while pending:
+        drain_one()
+    return [results[i] for i in range(total)]
 
 
 def evaluate_files_device(reconstructor: SliceReconstructor, sampler,
@@ -180,6 +253,32 @@ def read_metrics_csv(path: str | pathlib.Path) -> list[SliceResult]:
         return [SliceResult(row["FILENAME"], float(row["PSNR"]), float(row["SSIM"]),
                             float(row["NRMSE"]))
                 for row in csv.DictReader(f)]
+
+
+def gather_shard_results(results: list[SliceResult]) -> list[SliceResult]:
+    """Combine the per-process rows of a multi-process sweep. One process:
+    identity. The all-gather across ``torch.distributed`` processes is not
+    ported yet."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
+        raise NotImplementedError(
+            "gathering eval rows across processes is not ported yet (ROADMAP queue 1, "
+            "item 17); run each shard with --shard I:N and merge with --merge-shards")
+    return list(results)
+
+
+def merge_shard_csvs(output_dir: str | pathlib.Path) -> list[SliceResult]:
+    """Merge the ``metrics_shard*/metrics_error.csv`` files written by
+    separate ``--shard I:N`` runs into one result list."""
+    output_dir = pathlib.Path(output_dir)
+    shard_csvs = sorted(output_dir.glob("metrics_shard*/metrics_error.csv"))
+    if not shard_csvs:
+        raise FileNotFoundError(f"no metrics_shard*/metrics_error.csv under {output_dir}")
+    results: list[SliceResult] = []
+    for p in shard_csvs:
+        results.extend(read_metrics_csv(p))
+    return results
 
 
 def write_metrics_artifacts(results: list[SliceResult],

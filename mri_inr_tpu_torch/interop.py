@@ -14,6 +14,13 @@ numpy with ``jax.device_get``. The mapping:
 ``torch.optim.Adam``'s ``state_dict`` by the same rules
 (:func:`adam_state_from_optax`, :func:`adam_state_to_optax`), so a resume
 test can start both sides from one state.
+
+Nothing else needs carrying. The int8 chain's parameters
+(``ops.siren_kernel.Int8SirenParams``) are derived from the transplanted
+model by the port's own ``quantize_kernel_params``, which the tests hold to
+the JAX derivation (the int8 weights equal as integers, the scales within
+1e-7 relative). The DFT matrices of ``ops.fft_kernel`` are derived from the
+size ``n`` alone.
 """
 
 from __future__ import annotations

@@ -1,8 +1,9 @@
 // Device code shared by the fused modulated-SIREN kernels (siren_forward.cu,
-// siren_train_fwd.cu, siren_train_bwd.cu): the polynomial sines and cosines
-// of ops/fast_math.py, the counter-hash dropout of ops/siren_train_kernel.py,
-// and thin wrappers over the PTX the kernels are built from (cp.async,
-// ldmatrix, mma.sync m16n8k16 bf16 -> f32).
+// siren_forward_int8.cu, siren_train_fwd.cu, siren_train_bwd.cu): the
+// polynomial sines and cosines of ops/fast_math.py, the counter-hash dropout
+// of ops/siren_train_kernel.py, and thin wrappers over the PTX the kernels
+// are built from (cp.async, ldmatrix, mma.sync m16n8k16 bf16 -> f32 and
+// m16n8k32 int8 -> int32).
 
 #pragma once
 
@@ -122,6 +123,15 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
       "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 

@@ -24,13 +24,19 @@ bf16; the output sine is degree 7 when any of the three is set, else 9.
 are TPU schedule knobs that only change the order of summation; they are
 validated as in the JAX package and otherwise ignored.
 
-Not in this port yet: the int8 kernel (``quantized=True`` raises).
+``quantized=True`` takes the int8 chain instead
+(:func:`fused_siren_forward_int8`): per-output-channel symmetric int8
+weights, per-patch dynamic activation scales folded into the modulations,
+int8 x int8 -> int32 products, f32 degree-9 sines. On the card it is the
+hand-written kernel ``csrc/siren_forward_int8.cu``, on the CPU its plain
+version :func:`siren_forward_int8_reference`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import warnings
 from typing import NamedTuple
 
 import torch
@@ -260,26 +266,245 @@ def fused_siren_forward(
     return out[:batch]
 
 
+# ------------------------------------------------------------- int8 chain
+class Int8SirenParams(NamedTuple):
+    """Weights repacked for the int8 chain: per-output-channel symmetric
+    int8; the per-patch activation scales are dynamic
+    (:func:`compute_quant_factors`)."""
+
+    base: torch.Tensor  # (S, H) f32: sin(w0_init * (coords @ W0 + b0))
+    swq: torch.Tensor  # (L-1, H, H) int8: quantised SIREN hidden weights, (in, out)
+    sw_scale: torch.Tensor  # (L-1, 1, H) f32: per-output-channel dequant scale
+    s_b: torch.Tensor  # (L-1, 1, H) f32
+    last_w: torch.Tensor  # (1, H) f32
+    last_b: torch.Tensor  # (1, 1) f32
+    # (L-1, H, H) int8, (out, in): ``swq`` as the CUDA kernel reads it, made
+    # once here so that no launch transposes it again
+    swq_t: torch.Tensor | None = None
+
+
+def quantize_kernel_params(model, kp: SirenKernelParams) -> Int8SirenParams:
+    """Quantise the SIREN hidden weights from the model's f32 parameters
+    (not the bf16 copies in ``kp``): scale = max|w| over the input axis /
+    127, ``round`` to nearest even."""
+    net = model.net
+    w = torch.stack([net.layers[i].weight.t() for i in range(1, model.num_layers)]).float()
+    scale = w.abs().amax(dim=1, keepdim=True) / 127.0  # (L-1, 1, H)
+    swq = torch.round(w / scale).to(torch.int8)
+    return Int8SirenParams(kp.base, swq, scale, kp.s_b, kp.last_w, kp.last_b,
+                           swq.transpose(1, 2).contiguous())
+
+
+def compute_quant_factors(kp: SirenKernelParams, ikp: Int8SirenParams,
+                          latents: torch.Tensor, *, num_layers: int = 5):
+    """Per-patch dynamic activation quantisation, folded into the
+    modulations. Layer i's product input is ``x = sin(pre) * m_i[b]`` with
+    ``|sin| <= 1`` and ``m_i >= 0`` (ReLU), so ``max|x| <= max_h m_i[b, h]``.
+    With ``scale_i[b] = max_h m_i[b, h] / 127``:
+
+    - ``fq_i[b, h] = m_i[b, h] / scale_i[b]`` (quantise: ``round(sin * fq)``),
+    - ``gd_i[b, h'] = scale_i[b] * sw_scale_i[h']`` (dequantise the int32 sum),
+    - ``ls[b] = scale_{L-1}[b]`` (the last layer's rescale).
+
+    Returns ``fq`` (B, L*H), ``gd`` (B, (L-1)*H), ``ls`` (B, 1)."""
+    mods = compute_modulations(kp, latents, num_layers=num_layers)
+    batch = mods.shape[0]
+    hidden = ikp.base.shape[1]
+    m = mods.reshape(batch, num_layers, hidden)
+    scale = m.amax(dim=2).clamp_min(1e-12) / 127.0  # (B, L)
+    fq = (m / scale[:, :, None]).reshape(batch, num_layers * hidden)
+    gd = scale[:, : num_layers - 1, None] * ikp.sw_scale[:, 0, :][None]
+    gd = gd.reshape(batch, (num_layers - 1) * hidden)
+    ls = scale[:, num_layers - 1 :].contiguous()
+    return fq, gd, ls
+
+
+def siren_forward_int8_reference(
+    fq: torch.Tensor, gd: torch.Tensor, ls: torch.Tensor, base: torch.Tensor,
+    swq: torch.Tensor, s_b: torch.Tensor, last_w: torch.Tensor,
+    last_b: torch.Tensor, *, num_layers: int = 5, w0: float = 1.0,
+    activation: str = "sine",
+) -> torch.Tensor:
+    """Plain PyTorch version of the int8 kernel.
+
+    fq (B, L*H), gd (B, (L-1)*H), ls (B, >=1; column 0 is read), base (S, H),
+    swq (L-1, H, H) int8 (in, out), s_b (L-1, 1, H), last_w (1, H), last_b
+    (1, 1) -> (B, S) f32.
+
+    The integer products are exact: the quantised operands are held as
+    float32 (float64 above H = 1040), and every partial sum of H products of
+    magnitude <= 127^2 is an integer below 2^24, which float32 holds exactly
+    in any order of summation. So no integer matmul routine is needed, on the
+    CPU or on the card."""
+    batch = fq.shape[0]
+    hidden = base.shape[1]
+    exact = torch.float32 if hidden * 127 * 127 < 2 ** 24 else torch.float64
+
+    def act(pre):
+        out = fast_sin(w0 * pre)
+        if activation == "morlet":
+            out = out * torch.exp(-0.5 * torch.square(pre))
+        return out
+
+    def rows(t, layer):  # (B, 1, H) per-patch factor slice
+        return t[:, layer * hidden : (layer + 1) * hidden].reshape(batch, 1, hidden)
+
+    def quantize(s3, layer):  # integer-valued, in [-127, 127]
+        return torch.floor(s3 * rows(fq, layer) + 0.5).to(exact)
+
+    xq = quantize(base[None], 0)
+    for i in range(num_layers - 1):
+        acc = (xq @ swq[i].to(exact)).float()
+        s3 = act(acc * rows(gd, i) + s_b[i].reshape(1, 1, hidden))
+        if i < num_layers - 2:
+            xq = quantize(s3, i + 1)
+    xlast = s3 * rows(fq, num_layers - 1)
+    r = (xlast * last_w.reshape(1, 1, hidden)).sum(-1)  # (B, S)
+    return fast_sin(w0 * (r * ls[:, :1] + last_b[0, 0]))
+
+
+@functools.lru_cache(maxsize=None)
+def _library_int8() -> ctypes.CDLL:
+    lib = _build.load("siren_forward_int8")
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.siren_forward_int8_launch.argtypes = [p, p, p, p, p, p, p, p, p, i, i, i, i, i,
+                                              ctypes.c_float, i, p]
+    lib.siren_forward_int8_launch.restype = i
+    lib.siren_forward_int8_error_string.argtypes = [i]
+    lib.siren_forward_int8_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def siren_forward_int8_cuda(
+    fq: torch.Tensor, gd: torch.Tensor, ls: torch.Tensor, base: torch.Tensor,
+    swq: torch.Tensor, s_b: torch.Tensor, last_w: torch.Tensor,
+    last_b: torch.Tensor, *, num_layers: int = 5, w0: float = 1.0,
+    activation: str = "sine", swq_t: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Launch ``csrc/siren_forward_int8.cu`` on PyTorch's current stream; same
+    contract as :func:`siren_forward_int8_reference`. ``swq`` comes in the
+    (in, out) layout; the kernel reads (out, in), which is ``swq_t`` where the
+    caller keeps that copy (``Int8SirenParams.swq_t``) and is made here
+    otherwise. Counts its launches in ``siren_forward_int8_cuda.launches``."""
+    batch = fq.shape[0]
+    seq, hidden = base.shape
+    layers = num_layers
+    dev = fq.device
+    if dev.type != "cuda":
+        raise ValueError(f"siren_forward_int8_cuda needs CUDA tensors, got {dev}")
+    if hidden not in KERNEL_WIDTHS:
+        raise ValueError(f"the CUDA kernel takes H in {KERNEL_WIDTHS}, got {hidden}")
+    if layers < 2:
+        raise ValueError(f"num_layers must be at least 2, got {layers}")
+    if ls.ndim != 2 or ls.shape[1] < 1:
+        raise ValueError(f"ls: expected (B, >=1), got {tuple(ls.shape)}")
+    _check("fq", fq, (batch, layers * hidden), torch.float32, dev)
+    _check("gd", gd, (batch, (layers - 1) * hidden), torch.float32, dev)
+    _check("ls", ls, (batch, ls.shape[1]), torch.float32, dev)
+    _check("base", base, (seq, hidden), torch.float32, dev)
+    _check("swq", swq, (layers - 1, hidden, hidden), torch.int8, dev)
+    _check("s_b", s_b, (layers - 1, 1, hidden), torch.float32, dev)
+    _check("last_w", last_w, (1, hidden), torch.float32, dev)
+    _check("last_b", last_b, (1, 1), torch.float32, dev)
+    if swq_t is None:
+        swq_t = swq.transpose(1, 2).contiguous()  # (out, in): K-contiguous rows
+    _check("swq_t", swq_t, (layers - 1, hidden, hidden), torch.int8, dev)
+    out = torch.empty((batch, seq), dtype=torch.float32, device=dev)
+    lib = _library_int8()
+    with torch.cuda.device(dev):
+        err = lib.siren_forward_int8_launch(
+            fq.data_ptr(), gd.data_ptr(), ls.data_ptr(), base.data_ptr(),
+            swq_t.data_ptr(), s_b.data_ptr(), last_w.data_ptr(), last_b.data_ptr(),
+            out.data_ptr(), batch, seq, hidden, layers, ls.shape[1], float(w0),
+            int(activation == "morlet"), torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        msg = lib.siren_forward_int8_error_string(err).decode()
+        raise RuntimeError(f"siren_forward_int8 launch failed: {msg} ({err})")
+    siren_forward_int8_cuda.launches += 1
+    return out
+
+
+siren_forward_int8_cuda.launches = 0
+
+
+def siren_forward_int8(fq: torch.Tensor, *args, swq_t: torch.Tensor | None = None,
+                       **kwargs) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors (which
+    reads ``swq`` alone and has no use for ``swq_t``)."""
+    if fq.device.type == "cuda":
+        return siren_forward_int8_cuda(fq, *args, swq_t=swq_t, **kwargs)
+    if fq.device.type == "cpu":
+        return siren_forward_int8_reference(fq, *args, **kwargs)
+    raise ValueError(f"unsupported device {fq.device}")
+
+
+def fused_siren_forward_int8(
+    kp: SirenKernelParams, ikp: Int8SirenParams, latents: torch.Tensor, *,
+    num_layers: int = 5, w0: float = 1.0, activation: str = "sine",
+    block_b: int = 8,
+) -> torch.Tensor:
+    """(B, latent) latents -> (B, S) SIREN outputs through the int8 chain.
+    ``block_b`` pads the batch as the TPU grid does."""
+    batch = latents.shape[0]
+    if block_b < 1:
+        raise ValueError(f"{block_b=} must be positive")
+    padded = -(-batch // block_b) * block_b
+    if padded != batch:
+        latents = F.pad(latents, (0, 0, 0, padded - batch))
+    fq, gd, ls = compute_quant_factors(kp, ikp, latents, num_layers=num_layers)
+    out = siren_forward_int8(
+        fq.contiguous(), gd.contiguous(), ls, ikp.base, ikp.swq, ikp.s_b, ikp.last_w,
+        ikp.last_b, num_layers=num_layers, w0=w0, activation=activation,
+        swq_t=ikp.swq_t,
+    )
+    return out[:batch]
+
+
 @torch.no_grad()
 def fused_forward(model, tiles: torch.Tensor, *, block_b: int = 8,
                   quantized: bool = False, sin7: bool = True,
                   sin_bf16: bool = False, sin5: bool = False,
-                  ksplit: int = 1) -> torch.Tensor:
+                  ksplit: int = 1,
+                  packed: tuple[SirenKernelParams, Int8SirenParams] | None = None,
+                  ) -> torch.Tensor:
     """Full forward: conv encoder -> fused modulator + SIREN ->
-    (B, siren, siren). Drop-in for ``model(tiles)`` in eval mode."""
-    if quantized:
-        raise NotImplementedError(
-            "the int8 kernel is not ported yet (ROADMAP queue 2, item 5)"
-        )
+    (B, siren, siren). Drop-in for ``model(tiles)`` in eval mode. ``packed``:
+    the result of :func:`pack_quantized`, for a caller whose weights stay
+    fixed over many calls; without it the weights are repacked and quantised
+    on every call."""
     latent = model.encode(tiles)
     s = model.siren_patch_size
-    kp = extract_kernel_params(model, coordinate_grid(s, tiles.device))
-    out = fused_siren_forward(
-        kp, latent.float(), num_layers=model.num_layers, w0=model.w0,
-        activation=model.activation, block_b=block_b, sin7=sin7,
-        sin_bf16=sin_bf16, sin5=sin5, ksplit=ksplit,
-    )
+    if quantized and packed is not None:
+        kp, ikp = packed
+    else:
+        kp = extract_kernel_params(model, coordinate_grid(s, tiles.device))
+        ikp = quantize_kernel_params(model, kp) if quantized else None
+    common = dict(num_layers=model.num_layers, w0=model.w0,
+                  activation=model.activation, block_b=block_b)
+    if quantized:
+        # sin5 is not in this check: it is the eval default, and the int8
+        # chain evaluates no polynomial tail it could shorten
+        if sin_bf16 or ksplit != 1 or not sin7:
+            warnings.warn(
+                "quantized=True uses the int8 kernel, which has no "
+                "sin7/sin_bf16/ksplit knobs: those settings are ignored",
+                stacklevel=2,
+            )
+        out = fused_siren_forward_int8(kp, ikp, latent.float(), **common)
+    else:
+        out = fused_siren_forward(kp, latent.float(), sin7=sin7, sin_bf16=sin_bf16,
+                                  sin5=sin5, ksplit=ksplit, **common)
     return out.reshape(tiles.shape[0], s, s)
+
+
+@torch.no_grad()
+def pack_quantized(model) -> tuple[SirenKernelParams, Int8SirenParams]:
+    """The repacked and the int8 weights of ``model`` as they are now, for
+    ``fused_forward(quantized=True, packed=...)``."""
+    kp = extract_kernel_params(
+        model, coordinate_grid(model.siren_patch_size, module_device(model)))
+    return kp, quantize_kernel_params(model, kp)
 
 
 @torch.no_grad()
@@ -295,7 +520,8 @@ def make_apply_fn(model, *, use_pallas: bool = True, block_b: int = 16,
     fused forward when ``use_pallas`` (the name is the config key's), else
     the module path. Residual models always take the module path. Puts the
     model in eval mode (dropout off). ``device`` (default ``cuda``) must be
-    where the model lives."""
+    where the model lives. With ``quantized`` the weights are quantised here,
+    once: the function returned evaluates the model as it is now."""
     dev = resolve_device(device)
     if module_device(model) != dev:
         raise ValueError(f"model is on {module_device(model)}, not on {dev}")
@@ -304,5 +530,6 @@ def make_apply_fn(model, *, use_pallas: bool = True, block_b: int = 16,
         return functools.partial(
             fused_forward, model, block_b=block_b, quantized=quantized,
             sin7=sin7, sin_bf16=sin_bf16, sin5=sin5, ksplit=ksplit,
+            packed=pack_quantized(model) if quantized else None,
         )
     return functools.partial(_module_apply, model)

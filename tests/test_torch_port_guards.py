@@ -18,6 +18,9 @@ from mri_inr_tpu_torch.data import dataset as tds
 from mri_inr_tpu_torch.data import synthetic as tsyn
 from mri_inr_tpu_torch.eval.evaluate import SliceReconstructor
 from mri_inr_tpu_torch.models.modulated_siren import ModulatedSiren
+from mri_inr_tpu_torch.cli import preprocess as cli_preprocess
+from mri_inr_tpu_torch.cli import test as cli_test
+from mri_inr_tpu_torch.data import preprocessing as tpre
 from mri_inr_tpu_torch.ops import siren_kernel
 from mri_inr_tpu_torch.utils.device import resolve_device
 
@@ -48,6 +51,45 @@ def test_importing_the_port_loads_no_jax():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+BLOCKED_IMPORT = """
+import sys
+
+sys.modules["h5py"] = sys.modules["matplotlib"] = None  # importing either now raises
+import importlib, pkgutil
+import mri_inr_tpu_torch as pkg
+import mri_inr_tpu_torch.data.preprocessing
+
+for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+    importlib.import_module(mod.name)
+assert not any(m.split(".")[0] in ("h5py", "matplotlib") and sys.modules[m] is not None
+               for m in sys.modules)
+
+import numpy as np, tempfile
+from mri_inr_tpu_torch.data import preprocessing, synthetic
+from mri_inr_tpu_torch.utils import visualization
+assert not visualization.have_matplotlib()
+with tempfile.TemporaryDirectory() as d:
+    rows = preprocessing.process_kspace_volume(
+        synthetic.synthetic_kspace(0, 2, 32, 32), "file_brain_AXFLAIR_000000", d,
+        device="cpu")
+    assert len(rows) == 2
+    try:
+        preprocessing.load_h5(d + "/x.h5")
+    except ImportError:
+        print("ok")
+"""
+
+
+def test_port_imports_and_preprocesses_without_h5py_and_matplotlib():
+    """``h5py`` and ``matplotlib`` are imported inside the functions that need
+    them: every module imports, and a k-space array is preprocessed, on a
+    machine that has neither."""
+    proc = subprocess.run([sys.executable, "-c", BLOCKED_IMPORT], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
 
 
 def _imports(path):
@@ -81,6 +123,16 @@ def test_default_device_entry_points_raise_without_cuda(no_cuda):
     with pytest.raises(RuntimeError):
         siren_kernel.make_apply_fn(model)
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+def test_new_entry_points_raise_without_cuda(no_cuda, tmp_path):
+    k = tsyn.synthetic_kspace(0, 1, 32, 32)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tpre.process_kspace_volume(k, "stem", tmp_path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_preprocess.main(["--path", str(tmp_path)])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cli_test.main(["--set", f"data.dataset={tmp_path}/metadata.csv"])
 
 
 def test_cuda_wrapper_refuses_cpu_tensors():

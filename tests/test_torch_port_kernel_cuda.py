@@ -1,6 +1,7 @@
 """The hand-written CUDA kernels (``ops/csrc/siren_forward.cu``,
-``siren_train_fwd.cu``, ``siren_train_bwd.cu``) against their plain PyTorch
-versions, on the card. Skips without one.
+``siren_forward_int8.cu``, ``siren_train_fwd.cu``, ``siren_train_bwd.cu``,
+``dft2c.cu``) against their plain PyTorch versions, on the card. Skips
+without one.
 
 Imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -17,13 +18,21 @@ so the forward keeps the same bars. The backward's outputs are sums over up
 to B*S rows taken in another order (atomics for the weight-space gradients),
 on top of the same rare bf16 flips: each output is held to
 ``2e-3 * max(|plain|, 1)``.
+
+The int8 kernel's products are exact in both versions, so they differ only
+where a sine's last bits (the kernel fuses multiply-adds, the plain version
+does not) move a ``floor`` across an integer: one quantum in one
+pre-activation, rarely. Max 1e-3 / mean 1e-5.
+
+The DFT kernel sums f32 products in another order than ``torch.matmul``:
+2e-5 * max(|plain|, 1), the JAX package's bar against the FFT.
 """
 
 import pytest
 import torch
 
 from mri_inr_tpu_torch.models.modulated_siren import ModulatedSiren, coordinate_grid
-from mri_inr_tpu_torch.ops import siren_kernel
+from mri_inr_tpu_torch.ops import fft_kernel, siren_kernel
 from mri_inr_tpu_torch.ops import siren_train_kernel as stk
 
 pytestmark = pytest.mark.cuda
@@ -194,3 +203,102 @@ def test_train_kernels_reject_bad_inputs(device):
         stk.siren_chain_train_bwd_cuda(*args, cot[:, ::2], num_layers=3)
     with pytest.raises(ValueError, match="dropout_rate"):
         stk.siren_chain_train_fwd_cuda(*args, num_layers=3, dropout_rate=1.0)
+
+
+# ------------------------------------------------------------- int8 kernel
+def _int8_inputs(device, hidden, layers, siren, batch, activation):
+    g = torch.Generator().manual_seed(2)
+    model = ModulatedSiren(dim_hidden=hidden, latent_dim=hidden, num_layers=layers,
+                           dropout=0.0, siren_patch_size=siren, activation=activation,
+                           generator=g, device=device).eval()
+    tiles = torch.rand((batch, 32, 32), generator=g).to(device)
+    with torch.no_grad():
+        kp = siren_kernel.extract_kernel_params(model, coordinate_grid(siren, device))
+        ikp = siren_kernel.quantize_kernel_params(model, kp)
+        fq, gd, ls = siren_kernel.compute_quant_factors(kp, ikp, model.encode(tiles),
+                                                        num_layers=layers)
+    return (fq.contiguous(), gd.contiguous(), ls, ikp.base, ikp.swq, ikp.s_b, ikp.last_w,
+            ikp.last_b)
+
+
+INT8_CASES = [
+    # (hidden, layers, siren, batch, activation)
+    (256, 5, 24, 96, "sine"),
+    (256, 5, 24, 96, "morlet"),
+    (64, 3, 20, 37, "sine"),  # S=400: ragged tile
+    (128, 2, 24, 5, "morlet"),
+    (192, 4, 24, 9, "sine"),
+]
+
+
+@pytest.mark.parametrize("hidden,layers,siren,batch,activation", INT8_CASES)
+def test_int8_kernel_matches_plain_version(device, hidden, layers, siren, batch, activation):
+    args = _int8_inputs(device, hidden, layers, siren, batch, activation)
+    kw = dict(num_layers=layers, activation=activation)
+    before = siren_kernel.siren_forward_int8_cuda.launches
+    got = siren_kernel.siren_forward_int8_cuda(*args, **kw)
+    torch.cuda.synchronize()
+    assert siren_kernel.siren_forward_int8_cuda.launches == before + 1
+    want = siren_kernel.siren_forward_int8_reference(*args, **kw)
+    assert got.shape == want.shape == (batch, siren * siren)
+    assert torch.isfinite(got).all()
+    err = (got - want).abs()
+    assert err.max().item() <= 1e-3
+    assert err.mean().item() <= 1e-5
+
+
+def test_int8_dispatch_and_bad_inputs(device):
+    args = _int8_inputs(device, 64, 3, 24, 4, "sine")
+    before = siren_kernel.siren_forward_int8_cuda.launches
+    wide_ls = args[2].expand(-1, 128).contiguous()  # the TPU layout of ls
+    a = siren_kernel.siren_forward_int8(*args, num_layers=3)
+    b = siren_kernel.siren_forward_int8(*args[:2], wide_ls, *args[3:], num_layers=3)
+    assert siren_kernel.siren_forward_int8_cuda.launches == before + 2
+    assert torch.equal(a, b)
+    c = siren_kernel.siren_forward_int8(
+        *args, num_layers=3, swq_t=args[4].transpose(1, 2).contiguous())
+    assert siren_kernel.siren_forward_int8_cuda.launches == before + 3
+    assert torch.equal(a, c)
+    with pytest.raises(ValueError, match="swq"):
+        siren_kernel.siren_forward_int8_cuda(*args[:4], args[4].float(), *args[5:],
+                                             num_layers=3)
+    with pytest.raises(ValueError, match="swq_t"):
+        siren_kernel.siren_forward_int8_cuda(*args, num_layers=3,
+                                             swq_t=args[4].transpose(1, 2))
+
+
+# -------------------------------------------------------------- DFT kernel
+DFT_SHAPES = [(3, 64, 64), (3, 96, 64), (3, 63, 33), (2, 320, 320), (2, 640, 320),
+              (1, 17, 640), (5, 1, 1)]
+
+
+@pytest.mark.parametrize("shape", DFT_SHAPES, ids=str)
+@pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
+@pytest.mark.parametrize("magnitude", [False, True], ids=["complex", "magnitude"])
+def test_dft_kernel_matches_plain_version_and_fft(device, shape, inverse, magnitude):
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((*shape, 2), generator=g).to(device)
+    before = fft_kernel.dft2c_ri_cuda.launches
+    got = fft_kernel.dft2c_ri(x, inverse=inverse, magnitude=magnitude)
+    torch.cuda.synchronize()
+    assert fft_kernel.dft2c_ri_cuda.launches == before + 1
+    want = fft_kernel.dft2c_ri_reference(x, inverse=inverse, magnitude=magnitude)
+    assert got.shape == want.shape == ((*shape,) if magnitude else (*shape, 2))
+    bar = 2e-5 * max(want.abs().max().item(), 1.0)
+    assert (got - want).abs().max().item() <= bar
+    c = torch.fft.ifftshift(torch.view_as_complex(x), dim=(-2, -1))
+    c = (torch.fft.ifft2 if inverse else torch.fft.fft2)(c, norm="ortho")
+    c = torch.fft.fftshift(c, dim=(-2, -1))
+    lib = c.abs() if magnitude else torch.view_as_real(c)
+    assert (got - lib).abs().max().item() <= bar
+
+
+def test_dft_kernel_takes_views_and_refuses_large_sizes(device):
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((2, 4, 32, 48, 2), generator=g).to(device)
+    got = fft_kernel.dft2c_ri_cuda(x[:, 1:3], magnitude=True)  # not contiguous
+    want = fft_kernel.dft2c_ri_reference(x[:, 1:3], magnitude=True)
+    assert got.shape == (2, 2, 32, 48)
+    assert (got - want).abs().max().item() <= 2e-5 * max(want.abs().max().item(), 1.0)
+    with pytest.raises(ValueError, match="DFT_MAX_DIM"):
+        fft_kernel.dft2c_ri_cuda(torch.zeros((1, 8, 641, 2), device=device))
