@@ -14,8 +14,11 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
 3. each kernel against its plain PyTorch version at full width, seeded
    inputs: the eval forward (bf16 and int8) at H=256, L=5, S=576, B=1024 (one
    320x320 slice's patch bucket), the train forward and backward at B=400
-   (one train batch) with dropout 0.1, the centred DFT at (16, 640, 320),
-   (16, 320, 320), (8, 320, 320) and (3, 63, 33), also against ``torch.fft``;
+   (one train batch) with dropout 0.1 (the backward also called twice: dmods
+   and dsw must repeat bit for bit), the centred DFT (an FFT) at (16, 640,
+   320), (16, 320, 320), (8, 320, 320), fastMRI's knee widths (2, 640, 368)
+   and (2, 640, 372), and the odd and prime sizes (3, 63, 33) and (2, 37,
+   41), also against ``torch.fft``;
 4. the preprocessing path: phantom volumes (320x320, texture 0.2) ->
    synthetic.volume_to_kspace -> preprocessing.process_kspace_volume on the
    card with the preprocess CLI's default masks -> the ``metadata.csv`` files
@@ -40,7 +43,9 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    rows against a bf16 run of the same command and two slices against the
    CPU run through the plain int8 version;
 8. times with CUDA events (warm-up, then the median): every kernel and its
-   plain version per call, for the DFT also the ``torch.fft`` route, one
+   plain version per call, for the DFT also the ``torch.fft`` route, for the
+   backward also its chain and weight-gradient kernels apart (device time
+   from ``torch.profiler``), one
    volume's preprocessing, the steady bf16 and int8 sweep rates, and one
    whole train step (fused, with its host enqueue time and its device time
    by kernel, and on the module path under autograd for comparison).
@@ -238,11 +243,12 @@ def fft_route(x: torch.Tensor, inverse: bool = True, magnitude: bool = True) -> 
     return c.abs() if magnitude else torch.view_as_real(c)
 
 
-# Bar for |kernel - other| <= bar * max(|other|, 1): f32 sums of up to 640
-# products in another order. 2e-5 is the JAX package's bar against its FFT;
-# the first run on an H100 showed at most 1.6e-6 against the plain version and
-# 1.7e-6 against torch.fft (both at (8, 320, 320), phantom k-space), so the
-# bar is about twelve times the reading.
+# Bar for |kernel - other| <= bar * max(|other|, 1): the same FFT stages in
+# f32 with fused multiply-adds and written-out butterflies where the plain
+# version multiplies by its length-R DFT matrices; torch.fft is another FFT.
+# 2e-5 is the JAX package's bar against its FFT; on an H100 the FFT kernel
+# read at most 1.4e-6 against the plain version and 1.9e-6 against torch.fft
+# over these shapes, so the bar is about ten times the reading.
 DFT_BAR = 2e-5
 
 
@@ -254,7 +260,10 @@ def compare_dft_kernel(fk, synthetic, kspace, device) -> dict:
         FASTMRI_SHAPE: torch.randn((*FASTMRI_SHAPE, 2), generator=g),
         (16, 320, 320): torch.randn((16, 320, 320, 2), generator=g),
         (SLICES_PER_VOLUME, SLICE_SIZE, SLICE_SIZE): torch.from_numpy(phantom_k),
+        (2, 640, 368): torch.randn((2, 640, 368, 2), generator=g),  # fastMRI knee widths
+        (2, 640, 372): torch.randn((2, 640, 372, 2), generator=g),
         (3, 63, 33): torch.randn((3, 63, 33, 2), generator=g),
+        (2, 37, 41): torch.randn((2, 37, 41, 2), generator=g),  # primes: generic stages
     }
     modes = [("inverse, magnitude (the preprocessing call)", True, True),
              ("inverse", True, False), ("forward", False, False)]
@@ -557,6 +566,7 @@ def compare_train_kernels(sk, stk, ms, device) -> dict:
             same = [bool(torch.equal(x, y)) for x, y in zip(got_b, again)]
             print("train bwd, two runs bit for bit: " + " ".join(
                 f"{n}={'same' if v else 'differs'}" for n, v in zip(BWD_BARS, same)))
+            check(same[0] and same[2], "dmods or dsw differ between two backward calls")
             first = {"fwd_err": mx, "bwd_err": worst}
     return {"inputs": inputs["sine"], **first}
 
@@ -761,6 +771,21 @@ def profile_device(fn, reps: int = 5) -> dict | None:
     return {"wall_ms": wall, "busy_ms": sum(ms for _, ms in rows), "kernels": rows}
 
 
+def bwd_parts_ms(fn, card: str) -> dict:
+    """Device time per call of the backward's kernels (chain, weight
+    gradient, its fixed-order sum), from torch.profiler."""
+    prof = profile_device(fn)
+    if prof is None:
+        print("train bwd kernels apart: not measured (the profiler recorded no device "
+              "activity)")
+        return {}
+    keys = {"chain_ms": "chain_kernel", "dw_ms": "dw_kernel", "dw_sum_ms": "dw_reduce_kernel"}
+    out = {k: sum(ms_ for n, ms_ in prof["kernels"] if key in n) for k, key in keys.items()}
+    print("train bwd kernels apart (torch.profiler, device ms per call): " + ", ".join(
+        f"{k[:-3]} {v:.4f}" for k, v in out.items()) + f" [{card}]")
+    return out
+
+
 def kernel_record(name, replaces, launches, err, ms, plain_ms, flops, nbytes,
                   card, executed_flops=None, peak=PEAK_BF16_FLOPS, unit="bf16 FLOP",
                   library_ms=None, **extra) -> dict:
@@ -884,8 +909,10 @@ def main() -> int:
                        warmup=1),
         2 * chain, nbytes_of(*targs) + TRAIN_BATCH * seq * 4, card))
     grads = stk.siren_chain_train_bwd_cuda(*targs, cot, **tkw)
+    parts = bwd_parts_ms(lambda: stk.siren_chain_train_bwd_cuda(*targs, cot, **tkw), card)
     # the gradient needs the forward's product, dW and dx per hidden layer:
-    # 6 * chain; the kernel recomputes, 4(L-1) - 1 products in all
+    # 6 * chain; the chain kernel recomputes, 3L - 4 products, and the dW
+    # kernel runs L - 1
     records.append(kernel_record(
         "siren_train_bwd", "mri_inr_tpu/ops/siren_train_kernel.py:199", trn["bwd"],
         cmp_train["bwd_err"],
@@ -893,7 +920,8 @@ def main() -> int:
         cuda_median_ms(lambda: stk.siren_chain_train_bwd_reference(*targs, cot, **tkw),
                        reps=5, warmup=1),
         6 * chain, nbytes_of(*targs, cot, *grads), card,
-        executed_flops=2 * chain * (4 * (layers - 1) - 1) // (layers - 1)))
+        executed_flops=2 * chain * (3 * layers - 4 + layers - 1) // (layers - 1), **parts))
+
     # ---- DFT kernel: the preprocessing call (inverse, magnitude) at one
     # fastMRI brain volume; the other shapes beside it
     def dft_times(x):
@@ -902,30 +930,25 @@ def main() -> int:
                 cuda_median_ms(lambda: fft_route(x)))
 
     # The function (a centred 2-D DFT with magnitude) needs an FFT's operations,
-    # about 5 * N * HW * log2(HW), and is bound by its bytes; the kernel's dense
-    # products run 8 * N * HW * (H + W), printed apart as the f32 time of the
-    # algorithm chosen, which is no bound of the function.
+    # about 5 * N * HW * log2(HW), and reads its input once and writes its
+    # output once: it is bound by those bytes.
     for shape, x in cmp_dft["inputs"].items():
         n, h, w = shape
         t_kernel, t_plain, t_lib = dft_times(x)
         fft_ops = 5 * n * h * w * math.log2(h * w)
-        dense_ms = 8 * n * h * w * (h + w) / PEAK_F32_FLOPS * 1e3
-        nbytes = nbytes_of(x) + n * h * w * 4 + 8 * (h * h + w * w)
+        nbytes = nbytes_of(x) + n * h * w * 4
         if shape != FASTMRI_SHAPE:
             bound_ms = max(fft_ops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES) * 1e3
             print(f"dft2c {shape}, inverse + magnitude: kernel {t_kernel:.4f} ms/call, plain "
                   f"version {t_plain:.4f}, torch.fft route {t_lib:.4f}; bound {bound_ms:.4f} "
-                  f"ms, dense products at the f32 rate {dense_ms:.4f} ms [{card}]")
+                  f"ms [{card}]")
             continue
         records.append(kernel_record(
             "dft2c", "mri_inr_tpu/ops/fft_kernel.py:50", pre["launches"],
             cmp_dft["max_abs_err"], t_kernel, t_plain, fft_ops, nbytes, card,
-            peak=PEAK_F32_FLOPS, unit="f32 FLOP", library_ms=t_lib,
-            dense_algorithm_ms=dense_ms))
-        print(f"dft2c {shape}: the hand-written kernel takes {t_kernel / t_lib:.1f}x the "
-              f"torch.fft route's time; its dense products (8*N*H*W*(H+W) f32 FLOP) would "
-              f"take {dense_ms:.4f} ms at the f32 rate, so it runs at {dense_ms / t_kernel:.1%} "
-              f"of that rate for the algorithm chosen [{card}]")
+            peak=PEAK_F32_FLOPS, unit="f32 FLOP", library_ms=t_lib))
+        print(f"dft2c {shape}: the FFT kernel takes {t_kernel / t_lib:.2f}x the torch.fft "
+              f"route's time [{card}]")
     print(f"train step, batch {TRAIN_BATCH}, configs/train.yaml (bf16, Adam): fused "
           f"{step_ms['fused']:.4f} ms, module path under autograd {step_ms['module']:.4f} ms "
           f"(median of 10) [{card}]")
@@ -942,7 +965,8 @@ def main() -> int:
             print(f"  {ms_:8.4f} ms  {name[:100]}")
         rest = sum(ms_ for _, ms_ in prof["kernels"][12:])
         print(f"  {rest:8.4f} ms  ({len(prof['kernels']) - 12} more kernels)")
-        groups = {"backward kernel": "siren_train_bwd", "forward kernel": "siren_train_fwd",
+        groups = {"backward chain kernel": "chain_kernel", "backward dW kernel and sum": "dw_",
+                  "forward kernel": "siren_train_fwd",
                   "Adam (multi_tensor_apply kernels)": "multi_tensor_apply"}
         share = {g: sum(ms_ for n, ms_ in prof["kernels"] if key in n)
                  for g, key in groups.items()}

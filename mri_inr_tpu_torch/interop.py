@@ -19,8 +19,8 @@ Nothing else needs carrying. The int8 chain's parameters
 (``ops.siren_kernel.Int8SirenParams``) are derived from the transplanted
 model by the port's own ``quantize_kernel_params``, which the tests hold to
 the JAX derivation (the int8 weights equal as integers, the scales within
-1e-7 relative). The DFT matrices of ``ops.fft_kernel`` are derived from the
-size ``n`` alone.
+1e-7 relative). The FFT plans and twiddle tables of ``ops.fft_kernel`` are
+derived from the size ``n`` alone.
 """
 
 from __future__ import annotations

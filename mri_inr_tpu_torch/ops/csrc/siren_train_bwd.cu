@@ -1,13 +1,13 @@
-// Fused modulated-SIREN TRAINING backward for Hopper (sm_90a).
+// Fused modulated-SIREN TRAINING backward for Hopper (sm_90a): a chain
+// kernel and a weight-gradient kernel, launched together by one call.
 //
 // Replaces the Pallas TPU kernel
 // mri_inr_tpu/ops/siren_train_kernel.py:_bwd_kernel. Given the forward's
 // inputs and the cotangent g (B, S) of its output, it recomputes the forward
-// chain (siren_train_fwd.cu) keeping the bf16 layer inputs x_0 .. x_{L-2} of
-// its row tile in shared memory, then walks the chain in reverse. With
-// drop_i the layer-i dropout mask regenerated from the seed, act / dact the
-// activation and its derivative (dact = w0 * cos_poly(w0 * p), or
-// env * (w0 * cos - p * sin) for Morlet):
+// chain (siren_train_fwd.cu) and walks it in reverse. With drop_i the
+// layer-i dropout mask regenerated from the seed, act / dact the activation
+// and its derivative (dact = w0 * cos_poly(w0 * p), or env * (w0 * cos -
+// p * sin) for Morlet):
 //
 //   last layer : r = sum_h x_{L-1} * last_w + last_b
 //                dpl = g * w0 * cos_poly(w0 * r)
@@ -22,77 +22,90 @@
 //   layer 0    : dmods[0] = sum_rows dx * drop_0(base)
 //                dbase   += drop_0(dx * mod_0)
 //
-// Every product of the TPU kernel's body is computed here with mma.sync
-// m16n8k16 (bf16 inputs, f32 accumulation).
-//
 // What bounds it: the gradient needs three H x H products per hidden layer
 // and row (the forward's, dW and dx), 6 * B * S * H^2 * (L-1) bf16
-// tensor-core operations (3.6e11 at B=400, S=576, H=256, L=5); the bytes are
-// far below that. Because no activation is kept between forward and
-// backward, this kernel executes 4(L-1) - 1 products (15 at L=5): L-1 in the
-// recomputed forward, L-2 for `pre` again (the last hidden product is
-// shared), L-1 for dW and L-1 for dx.
+// tensor-core operations (3.6e11 at B=400, S=576, H=256, L=5): 0.37 ms at
+// 989 TFLOP/s; its own inputs and outputs are a few MB. No activation is
+// kept between forward and backward, so the chain recomputes: it runs
+// 3L - 4 products (11 at L=5), the forward's L-1, `pre` again for L-3 layers
+// (the last hidden product is shared) and dx for L-1.
 //
-// Design (simple and correct first):
-// - one block per (patch, 64-row tile of S), 8 warps, one block per SM: the
-//   tile's L-1 stored layer inputs and the bf16(dpre) tile take
-//   L * 64 * (H + 8) * 2 bytes (168,960 at H=256, L=5), the weight ring
-//   2 * 20,480, the per-patch rows ~15 KB: 226 KB of the 227 KB a block may
-//   use. The last layer input x_{L-1} never leaves registers: the last
-//   hidden product of the recomputed forward is also the first `pre` of the
-//   reverse sweep, so it is not computed twice;
-// - products 1 and 3 stream W_i through a 2-stage cp.async ring: product 1
-//   as 32-row slabs (ldmatrix.trans, as in the forward), product 3 as
-//   32-column slabs of all H rows, because dx contracts with W_i^T and the
-//   B operand is then read untransposed. Their accumulators share one
-//   (row, column) layout (a warp owns 32 rows x H/4 columns), so `pre` and
-//   `dx` meet element by element in registers: 128 accumulators a thread;
-// - product 2 contracts over the tile's rows: x_i is read transposed from
-//   shared memory (ldmatrix.trans on the A operand); a warp owns 32 rows of
-//   dW_i and walks it in 64-column chunks. dW_i (H x H f32) fits neither
-//   registers nor shared memory across tiles and blocks run in no order,
-//   so each chunk is added to the zeroed global buffer with 8-byte
-//   atomicAdd(float2) (red.global.add.v2.f32 on sm_90);
-// - dsb, dlw, dlb and dbase are likewise reduced with atomics after a warp
-//   shuffle reduction; the per-patch dmods sum over the tile's rows is
-//   reduced in shared memory and written to a (B, tiles, L*H) buffer that
-//   the wrapper sums over tiles, so dmods repeats bit for bit while the
-//   weight-space gradients depend on the order of the atomics. Finishing
-//   dmods in the kernel measured slower than that 9-term sum: a counter per
-//   patch whose last block adds the partials needs a __threadfence() behind
-//   the dW atomics, and atomics into dmods lose the repeatability.
+// Design:
+// - chain kernel, one block per (patch, 64-row tile of S): four warpgroups
+//   split the H output columns (64 x H/4 accumulators each for `pre` and
+//   for `dx`, so both meet element by element in registers; 512 threads of
+//   up to 128 registers, so 16 warps hide the epilogues' latencies). The
+//   weights come through a ring of 3-4 slabs (at least one product's)
+//   filled with TMA loads by thread 0 at the end of each product, so the
+//   next product's weights arrive while its epilogue runs; loads issued
+//   between a warpgroup's wgmma instructions made ptxas serialise them, and
+//   a separate producer warp (17 warps) cut the registers to 96 and spilled.
+//   Full / empty mbarriers pace the ring; the warpgroups meet at a named
+//   barrier only around their shared-memory tiles. Products are wgmma
+//   m64n(H/4)k16 with both operands K-major in shared memory (128-byte
+//   swizzle): the A tile (x_i or bf16(dpre)) and a slab of 64 contraction
+//   values of all H output rows, taken from W^T for x . W and from W for
+//   dpre . W^T (the wrapper passes both), so one box shape and one
+//   descriptor form serve both products;
+// - the chain keeps two A tiles (x_i and bf16(dpre)) instead of all L
+//   layer inputs: the recomputed forward writes each bf16 x_i (i <= L-2)
+//   to a workspace, the reverse sweep loads x_i back with cp.async while
+//   the layer before finishes (a tile written moments before, in L2) and
+//   writes each bf16(dpre_i); 16-byte stores and loads by all threads,
+//   rows past S skipped on the way out and zero on the way back. Shared
+//   memory grows with L only by a few H-wide vectors a layer;
+// - it computes everything but dW: dmods, dsb, dlw and dlb as one partial
+//   record per (patch, tile), summed over the tile's rows in a fixed order
+//   (written straight to device memory; the wrapper sums the records, so
+//   they repeat bit for bit), dbase with atomics (one add per patch);
+// - the activation (sine or Morlet) is a template argument: the epilogues
+//   are unrolled over a thread's elements, and the kernel is larger than
+//   the instruction cache, so a run-time switch would cost in every block;
+// - weight-gradient kernel: dW_i = X_i^T . dP_i over all B*S rows from the
+//   workspace, a split-K wgmma product: blocks over (layer, 128 rows of dW,
+//   split of the rows), two consumer warpgroups of 64 x H each, a producer
+//   warp feeding a 4-stage TMA ring; both operands are read MN-major (the
+//   contraction runs down the rows), rows past S load as zeros. Each block
+//   writes its f32 partial; a reduction kernel sums the partials in a
+//   fixed order, so dW repeats bit for bit.
 //
 // Rows past S in the last tile carry g = 0 and zero x_0, so they add exact
-// zeros everywhere and are never stored.
+// zeros everywhere.
+//
+// Built with nvcc into a shared library with a plain C interface; the
+// Python wrapper (ops/siren_train_kernel.py) checks every tensor, allocates
+// the workspace and the partials, and calls siren_train_bwd_launch through
+// ctypes on PyTorch's current stream.
 
+#include "hopper.cuh"
 #include "siren_common.cuh"
 
 namespace {
 
 using namespace siren;
+using namespace hopper;
 
-constexpr int TM = 64;        // rows of S per block
-constexpr int KS = 32;        // weight rows (or columns) per pipeline stage
-constexpr int STAGES = 2;     // cp.async ring depth
-constexpr int THREADS = 256;  // 8 warps: 2 row groups x 4 column groups
-constexpr int PAD = 8;        // bf16 padding per shared row (16 bytes)
-constexpr int CLDS = KS + PAD;  // row stride of a column slab
+constexpr int TM = 64;                           // rows of S per chain block
+constexpr int CHAIN_WGS = 4;                     // chain warpgroups: H / 4 columns each
+constexpr int CHAIN_THREADS = 128 * CHAIN_WGS;
+constexpr int CHAIN_BLOCK = CHAIN_THREADS;       // thread 0 also feeds the ring
+constexpr int DW_CONSUMERS = 256;                // two dW warpgroups
+constexpr int DW_THREADS = DW_CONSUMERS + 32;    // and a producer warp
+constexpr int BOX = 64 * 64 * 2;                 // bytes of one 64 x 64 bf16 TMA box
+constexpr int CONSUMER_BAR = 1;                  // named barrier of the consumers
 
 struct Args {
-  const float* seed;           // (1,) f32 holding an integer
-  const float* mods;           // (B, L*H) f32
-  const float* base;           // (S, H) f32
-  const __nv_bfloat16* sw;     // (L-1, H, H) bf16, (in, out) per layer
-  const float* sb;             // (L-1, H) f32
-  const float* last_w;         // (H,) f32
-  const float* last_b;         // (1,) f32
-  const float* g;              // (B, S) f32
-  float* dmods_part;           // (B, tiles, L*H) f32, every element written
-  float* dbase;                // (S, H) f32, zeroed by the caller
-  float* dsw;                  // (L-1, H, H) f32, zeroed
-  float* dsb;                  // (L-1, H) f32, zeroed
-  float* dlw;                  // (H,) f32, zeroed
-  float* dlb;                  // (1,) f32, zeroed
+  const float* seed;       // (1,) f32 holding an integer
+  const float* mods;       // (B, L*H) f32
+  const float* base;       // (S, H) f32
+  const float* sb;         // (L-1, H) f32
+  const float* last_w;     // (H,) f32
+  const float* last_b;     // (1,) f32
+  const float* g;          // (B, S) f32
+  float* part;             // (B * tiles, record) f32, every element written
+  float* dbase;            // (S, H) f32, zeroed by the caller
+  __nv_bfloat16* work;     // (2, L-1, B, S, H) bf16: x_i, then bf16(dpre_i)
+  int B;
   int S;
   int L;
   float w0;
@@ -100,33 +113,16 @@ struct Args {
   int32_t thresh;
   float inv_keep;
   int dropout;
+  int stages;  // weight ring depth
 };
-
-template <int H>
-__host__ __device__ constexpr int row_stride() {
-  return H + PAD;
-}
-
-template <int H>
-__host__ __device__ constexpr int stage_elems() {
-  return KS * row_stride<H>() > H * CLDS ? KS * row_stride<H>() : H * CLDS;
-}
-
-// Bytes of dynamic shared memory for width H and depth L.
-template <int H>
-size_t smem_bytes(int L) {
-  return sizeof(__nv_bfloat16) *
-             ((size_t)L * TM * row_stride<H>() + (size_t)STAGES * stage_elems<H>()) +
-         sizeof(float) * ((size_t)2 * L * H + (size_t)(L - 1) * H + H + 5 * TM);
-}
 
 // act(p) and dact(p) together: they share the range-reduced argument's
 // polynomial pair and, for Morlet, the envelope.
-template <int DEG>
-__device__ __forceinline__ void act_pair(float p, float w0, int morlet, float& a, float& da) {
+template <int DEG, bool MORLET>
+__device__ __forceinline__ void act_pair(float p, float w0, float& a, float& da) {
   const float z = w0 * p;
   const float s = poly_sin<DEG>(z), c = poly_cos<DEG>(z);
-  if (morlet) {
+  if (MORLET) {
     const float env = expf(-0.5f * (p * p));
     a = s * env;
     da = env * (w0 * c - p * s);
@@ -136,170 +132,16 @@ __device__ __forceinline__ void act_pair(float p, float w0, int morlet, float& a
   }
 }
 
-template <int DEG>
-__device__ __forceinline__ float act_only(float p, float w0, int morlet) {
+template <int DEG, bool MORLET>
+__device__ __forceinline__ float act_only(float p, float w0) {
   float a = poly_sin<DEG>(w0 * p);
-  if (morlet) a *= expf(-0.5f * (p * p));
+  if (MORLET) a *= expf(-0.5f * (p * p));
   return a;
 }
 
-// rows k0 .. k0+KS of W (H x H, row-major) -> stage[KS][H + PAD]
-template <int H>
-__device__ __forceinline__ void load_row_slab(__nv_bfloat16* stage, const __nv_bfloat16* w,
-                                              int slab, int tid) {
-  constexpr int CHUNKS_PER_ROW = H / 8;  // 16-byte chunks
-  const __nv_bfloat16* src = w + (size_t)slab * KS * H;
-  for (int c = tid; c < KS * CHUNKS_PER_ROW; c += THREADS) {
-    const int r = c / CHUNKS_PER_ROW, col = (c % CHUNKS_PER_ROW) * 8;
-    cp_async16(stage + r * row_stride<H>() + col, src + (size_t)r * H + col);
-  }
-}
-
-// columns n0 .. n0+KS of every row of W -> stage[H][KS + PAD]
-template <int H>
-__device__ __forceinline__ void load_col_slab(__nv_bfloat16* stage, const __nv_bfloat16* w,
-                                              int slab, int tid) {
-  constexpr int CHUNKS_PER_ROW = KS / 8;
-  const __nv_bfloat16* src = w + (size_t)slab * KS;
-  for (int c = tid; c < H * CHUNKS_PER_ROW; c += THREADS) {
-    const int r = c / CHUNKS_PER_ROW, col = (c % CHUNKS_PER_ROW) * 8;
-    cp_async16(stage + r * CLDS + col, src + (size_t)r * H + col);
-  }
-}
-
-template <int H>
-struct Tile {
-  static constexpr int LDS = row_stride<H>();
-  static constexpr int WN = H / 4;   // columns per warp
-  static constexpr int NT = WN / 8;  // n-tiles of 8 per warp
-  static constexpr int NSLAB = H / KS;
-  static constexpr int STAGE = stage_elems<H>();
-};
-
-// acc = a_s (TM x H, bf16 in shared memory) @ W, or @ W^T when TRANS.
-// Starts and ends with the ring idle; the leading barrier also publishes
-// whatever the caller wrote to a_s.
-template <int H, bool TRANS>
-__device__ __forceinline__ void product(float (&acc)[2][Tile<H>::NT][4],
-                                        const __nv_bfloat16* a_s, const __nv_bfloat16* w,
-                                        __nv_bfloat16* ws, int tid) {
-  using T = Tile<H>;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp >> 2, warp_n = warp & 3;
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < T::NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  __syncthreads();  // a_s written, ring free
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (TRANS) load_col_slab<H>(ws + s * T::STAGE, w, s, tid);
-    else load_row_slab<H>(ws + s * T::STAGE, w, s, tid);
-    cp_async_commit();
-  }
-  for (int slab = 0; slab < T::NSLAB; ++slab) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slab arrived for all threads; the other stage is free
-    {
-      const int next = slab + STAGES - 1;
-      if (next < T::NSLAB) {
-        if (TRANS) load_col_slab<H>(ws + (next % STAGES) * T::STAGE, w, next, tid);
-        else load_row_slab<H>(ws + (next % STAGES) * T::STAGE, w, next, tid);
-      }
-      cp_async_commit();
-    }
-    const __nv_bfloat16* wst = ws + (slab % STAGES) * T::STAGE;
-    const int kbase = slab * KS;
-#pragma unroll
-    for (int kk = 0; kk < KS; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = warp_m * 32 + mt * 16 + (lane & 15);
-        ldmatrix_x4(a[mt], a_s + r * T::LDS + kbase + kk + 8 * (lane >> 4));
-      }
-#pragma unroll
-      for (int np = 0; np < T::NT / 2; ++np) {
-        uint32_t bfr[4];
-        const int n0 = warp_n * T::WN + np * 16;
-        if (TRANS) {
-          // stage[out column][contraction]: untransposed 8x8 blocks
-          ldmatrix_x4(bfr, wst + (n0 + (lane & 7) + 8 * (lane >> 4)) * CLDS + kk +
-                               8 * ((lane >> 3) & 1));
-        } else {
-          ldmatrix_x4_trans(bfr, wst + (kk + (lane & 15)) * T::LDS + n0 + 8 * (lane >> 4));
-        }
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], bfr[0], bfr[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], bfr[2], bfr[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-}
-
-// p[0] += a, p[1] += b in global memory; p is 8-byte aligned. One vector
-// reduction on sm_90 (atomicAdd on float2 compiles to red.global.add.v2.f32
-// when the result is unused).
+// p[0] += a, p[1] += b in global memory; p is 8-byte aligned.
 __device__ __forceinline__ void add2(float* p, float a, float b) {
   atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
-}
-
-// dW (H x H f32, global) += x_s^T @ p_s, both TM x H bf16 in shared memory.
-template <int H>
-__device__ __forceinline__ void weight_grad(float* dw, const __nv_bfloat16* x_s,
-                                            const __nv_bfloat16* p_s, int tid) {
-  using T = Tile<H>;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int m_base = warp * 32;  // this warp's rows of dW
-  if (m_base >= H) return;
-  for (int chunk = 0; chunk < H / 64; ++chunk) {
-    float acc[2][8][4];
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < TM; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        // A = x^T: 8x8 blocks stored [tile row][hidden], read transposed
-        const int m0 = m_base + mt * 16;
-        ldmatrix_x4_trans(a[mt], x_s + (kk + (lane & 7) + 8 * (lane >> 4)) * T::LDS + m0 +
-                                     8 * ((lane >> 3) & 1));
-      }
-#pragma unroll
-      for (int np = 0; np < 4; ++np) {
-        uint32_t bfr[4];
-        const int n0 = chunk * 64 + np * 16;
-        ldmatrix_x4_trans(bfr, p_s + (kk + (lane & 15)) * T::LDS + n0 + 8 * (lane >> 4));
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], bfr[0], bfr[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], bfr[2], bfr[3]);
-        }
-      }
-    }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < 8; ++nt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int m = m_base + mt * 16 + g + 8 * half;
-          const int n = chunk * 64 + nt * 8 + 2 * t;
-          add2(dw + (size_t)m * H + n, acc[mt][nt][2 * half], acc[mt][nt][2 * half + 1]);
-        }
-  }
 }
 
 // sum over the 8 lanes that share a column pair (same t, all g)
@@ -310,327 +152,663 @@ __device__ __forceinline__ float reduce_rows(float v) {
   return v;
 }
 
-template <int H, int DEG>
-__global__ void __launch_bounds__(THREADS, 1) siren_train_bwd_kernel(Args args) {
-  static_assert(H % 64 == 0 && H <= 256, "H must be a multiple of 64, at most 256");
-  using T = Tile<H>;
-  constexpr int LDS = T::LDS;
-  constexpr int WN = T::WN;
-  constexpr int NT = T::NT;
-  const int L = args.L;
+// bf16 pair (a, b) to columns c, c+1 of row r of a K-major swizzled tile
+// (64 rows; 64-column blocks of 8 KB).
+__device__ __forceinline__ void st_pair(unsigned char* tile, int r, int c, float a, float b) {
+  const int kc = c & 63;
+  const int off = (c >> 6) * BOX + r * 128 + ((((kc >> 3) ^ (r & 7))) << 4) + (kc & 7) * 2;
+  *reinterpret_cast<__nv_bfloat162*>(tile + off) = __floats2bfloat162_rn(a, b);
+}
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // (L-1) x TM x LDS
-  __nv_bfloat16* ps = xs + (size_t)(L - 1) * TM * LDS;         // TM x LDS: bf16(dpre)
-  __nv_bfloat16* ws = ps + TM * LDS;                           // STAGES x STAGE
-  float* mod_s = reinterpret_cast<float*>(ws + STAGES * T::STAGE);  // L x H
-  float* dm_s = mod_s + L * H;                                      // L x H
-  float* bias_s = dm_s + L * H;                                     // (L-1) x H
-  float* lw_s = bias_s + (L - 1) * H;                               // H
-  float* red_s = lw_s + H;                                          // 4 x TM
-  float* dpl_s = red_s + 4 * TM;                                    // TM
+// Rows of a swizzled 64 x H tile <-> rows row0.. (those below S) of slab z
+// of the (., S, H) workspace, in 16-byte chunks by all chain threads.
+template <int H>
+__device__ __forceinline__ void tile_to_global(const unsigned char* tile, __nv_bfloat16* ws,
+                                               size_t z, int row0, int S, int tid) {
+  for (int i = tid; i < TM * (H / 8); i += CHAIN_THREADS) {
+    const int r = i / (H / 8), ch = i % (H / 8);
+    if (row0 + r >= S) continue;
+    const uint4 v = *reinterpret_cast<const uint4*>(tile + (ch >> 3) * BOX + r * 128 +
+                                                    (((ch & 7) ^ (r & 7)) << 4));
+    *reinterpret_cast<uint4*>(ws + (z * S + row0 + r) * H + ch * 8) = v;
+  }
+}
+
+template <int H>
+__device__ __forceinline__ void global_to_tile(unsigned char* tile, const __nv_bfloat16* ws,
+                                               size_t z, int row0, int S, int tid) {
+  for (int i = tid; i < TM * (H / 8); i += CHAIN_THREADS) {
+    const int r = i / (H / 8), ch = i % (H / 8);
+    unsigned char* dst = tile + (ch >> 3) * BOX + r * 128 + (((ch & 7) ^ (r & 7)) << 4);
+    if (row0 + r < S)
+      cp_async16(dst, ws + (z * S + row0 + r) * H + ch * 8);
+    else
+      *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+  }
+  cp_async_commit();
+}
+
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// Product p of a chain block's sequence -> (layer, reads W^T). The
+// recomputed forward's L-1 products read W^T (x . W); then dx of layer
+// L-2 reads W (dpre . W^T); then for i = L-3..0, `pre` again (W^T) and dx
+// (W).
+__device__ __forceinline__ void product_of(int p, int L, int& layer, bool& wt) {
+  if (p < L - 1) {
+    layer = p;
+    wt = true;
+  } else if (p == L - 1) {
+    layer = L - 2;
+    wt = false;
+  } else {
+    layer = L - 3 - (p - L) / 2;
+    wt = ((p - L) & 1) == 0;
+  }
+}
+
+template <int H>
+struct Chain {
+  static constexpr int NW = H / CHAIN_WGS;  // output columns per warpgroup
+  static constexpr int NA = NW / 2;         // accumulator floats per thread
+  static constexpr int KB = H / 64;         // 64-wide contraction slabs per product
+  static constexpr int TILE = KB * BOX;     // one 64 x H A tile
+  static constexpr int STAGE = KB * BOX;    // one slab: H rows x 64
+  // a tile's partial sums: dmods (L*H), dsb ((L-1)*H), dlw (H), dlb (1),
+  // padded to a multiple of 4
+  __host__ __device__ static constexpr int record(int L) { return 2 * L * H + 4; }
+
+  static size_t smem_bytes(int L, int stages) {
+    return 1024 + 2 * (size_t)TILE + (size_t)stages * STAGE +
+           sizeof(float) * ((size_t)L * H + (size_t)(L - 1) * H + 9 * H +
+                            (CHAIN_WGS + 1) * TM) +
+           sizeof(uint64_t) * 2 * stages;
+  }
+};
+
+// The weight ring of a chain block. Slab n of the block's sequence
+// (product n / KB, 64 contraction values n % KB of all H output rows) goes
+// to stage n % stages. Thread 0 issues the TMA loads; every thread waits on
+// `full`, and each warpgroup releases a stage on `empty` once its products
+// have read it.
+template <int H>
+struct Ring {
+  unsigned char* base;
+  uint64_t* full;
+  uint64_t* empty;
+  const CUtensorMap* w_map;   // W: rows (layer, out), columns in
+  const CUtensorMap* wt_map;  // W^T: rows (layer, in), columns out
+  int stages, L;
+  int t = 0;     // slabs consumed
+  int next = 0;  // thread 0: the next slab to load
+
+  // thread 0, outside any product: load slabs up to `last` as their stages
+  // are released
+  __device__ void load_upto(int last) {
+    constexpr int KB = Chain<H>::KB;
+    for (; next <= last && next < KB * (3 * L - 4); ++next) {
+      const int st = next % stages, use = next / stages;
+      if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+      int layer;
+      bool wt;
+      product_of(next / KB, L, layer, wt);
+      mbar_expect_tx(&full[st], Chain<H>::STAGE);
+      for (int q = 0; q < KB; ++q)
+        tma_load_2d(base + st * Chain<H>::STAGE + q * BOX, wt ? wt_map : w_map,
+                    64 * (next % KB), layer * H + 64 * q, &full[st]);
+    }
+  }
+};
+
+// acc = a_tile (64 x H) . B, B the ring's next KB slabs.
+template <int H>
+__device__ __forceinline__ void chain_product(float (&acc)[Chain<H>::NA],
+                                              const unsigned char* a_tile, Ring<H>& ring,
+                                              int tid) {
+  using C = Chain<H>;
+  const int wg = tid >> 7, wtid = tid & 127, nst = ring.stages;
+#pragma unroll
+  for (int i = 0; i < C::NA; ++i) acc[i] = 0.f;
+  wgmma_fence();
+  const uint32_t a0 = smem_u32(a_tile);
+#pragma unroll
+  for (int s = 0; s < C::KB; ++s, ++ring.t) {
+    const int t = ring.t, st = t % nst;
+    mbar_wait(&ring.full[st], (t / nst) & 1);
+    const uint32_t b0 = smem_u32(ring.base + st * C::STAGE + wg * C::NW * 128);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma<C::NW, 0, 0>(acc, desc(a0 + s * BOX + kk * 32, 16, 1024),
+                         desc(b0 + kk * 32, 16, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous slab's products are done
+    if (s > 0 && wtid == 0) mbar_arrive(&ring.empty[(t - 1) % nst]);
+  }
+  wgmma_wait<0>();
+  if (wtid == 0) mbar_arrive(&ring.empty[(ring.t - 1) % nst]);
+  // the next product's slabs load while this one's epilogue runs
+  if (tid == 0) ring.load_upto(ring.t + nst - 1);
+  __syncwarp();
+}
+
+template <int H, int DEG, bool MORLET>
+__global__ void __launch_bounds__(CHAIN_BLOCK, 1)
+    chain_kernel(const __grid_constant__ CUtensorMap w_map,
+                 const __grid_constant__ CUtensorMap wt_map, Args args) {
+  static_assert(H % 64 == 0 && H <= 256, "H must be a multiple of 64, at most 256");
+  using C = Chain<H>;
+  constexpr int NW = C::NW, NA = C::NA;
+  const int L = args.L, S = args.S, nst = args.stages;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ax = align1024(smem_raw);  // x_i tile
+  unsigned char* ap = ax + C::TILE;         // bf16(dpre) tile
+  unsigned char* ring_s = ap + C::TILE;     // nst weight slabs
+  float* mod_s = reinterpret_cast<float*>(ring_s + nst * C::STAGE);  // L x H
+  float* bias_s = mod_s + L * H;                                   // (L-1) x H
+  float* lw_s = bias_s + (L - 1) * H;                              // H
+  float* red_a = lw_s + H;                                         // 4 x H
+  float* red_b = red_a + 4 * H;                                    // 4 x H
+  float* red_r = red_b + 4 * H;                                    // CHAIN_WGS x TM
+  float* dpl_s = red_r + CHAIN_WGS * TM;                           // TM
+  uint64_t* full = reinterpret_cast<uint64_t*>(dpl_s + TM);        // nst
+  uint64_t* empty = full + nst;                                    // nst
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp >> 2, warp_n = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-
-  const int tiles = (args.S + TM - 1) / TM;
+  const int tiles = (S + TM - 1) / TM;
   const int b = blockIdx.x / tiles;
   const int tile = blockIdx.x % tiles;
   const int row0 = tile * TM;
 
-  const Dropout dp{(uint32_t)(int)args.seed[0], args.thresh, args.inv_keep, args.dropout};
-  const uint32_t idx0 = ((uint32_t)b * (uint32_t)args.S + (uint32_t)row0) * (uint32_t)H;
-
   const float* mrow = args.mods + (size_t)b * L * H;
-  for (int i = tid; i < L * H; i += THREADS) {
-    mod_s[i] = mrow[i];
-    dm_s[i] = 0.f;
+  for (int i = tid; i < L * H; i += CHAIN_BLOCK) mod_s[i] = mrow[i];
+  for (int i = tid; i < (L - 1) * H; i += CHAIN_BLOCK) bias_s[i] = args.sb[i];
+  for (int i = tid; i < H; i += CHAIN_BLOCK) lw_s[i] = args.last_w[i];
+  Ring<H> ring{ring_s, full, empty, &w_map, &wt_map, nst, L};
+  if (tid == 0) {
+    for (int i = 0; i < nst; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], CHAIN_WGS);
+    }
+    mbar_init_fence();
+    ring.load_upto(nst - 1);  // every stage starts empty
   }
-  for (int i = tid; i < (L - 1) * H; i += THREADS) bias_s[i] = args.sb[i];
-  for (int i = tid; i < H; i += THREADS) lw_s[i] = args.last_w[i];
   __syncthreads();
+
+  const int wg = tid >> 7, wtid = tid & 127;
+  const int warp = wtid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rbase = warp * 16 + g;  // rows rbase and rbase + 8 of the tile
+  const int cbase = wg * NW + 2 * t4;  // + 8j: this thread's column pairs
+  const Dropout dp{(uint32_t)(int)args.seed[0], args.thresh, args.inv_keep, args.dropout};
+  const uint32_t idx0 = ((uint32_t)b * (uint32_t)S + (uint32_t)row0) * (uint32_t)H;
+  const size_t xz = b, pz = (size_t)(L - 1) * args.B + b;  // workspace slabs of x_0, dpre_0
+  float* dm_g = args.part + (size_t)blockIdx.x * C::record(L);  // this tile's record
+  float* db_g = dm_g + L * H;
+  float* dlw_g = db_g + (L - 1) * H;
+
+  float acc[NA];  // pre of the current layer (without its bias)
+  float dxr[NA];  // dx, same (row, column) layout
 
   // x_0 = bf16(drop_0(base) * mod_0); rows past S are zero
   {
     const uint32_t off = layer_offset(dp, 0);
-    for (int i = tid; i < TM * (H / 4); i += THREADS) {
-      const int r = i / (H / 4), c = (i % (H / 4)) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row0 + r < args.S)
-        v = *reinterpret_cast<const float4*>(args.base + (size_t)(row0 + r) * H + c);
+    for (int i = tid; i < TM * (H / 2); i += CHAIN_THREADS) {
+      const int r = i / (H / 2), c = (i % (H / 2)) * 2;
+      float2 v = make_float2(0.f, 0.f);
+      if (row0 + r < S) v = *reinterpret_cast<const float2*>(args.base + (size_t)(row0 + r) * H + c);
       const uint32_t e = idx0 + (uint32_t)(r * H + c);
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(xs + r * LDS + c);
-      dst[0] = __floats2bfloat162_rn(__fmul_rn(drop(dp, v.x, e, off), mod_s[c]),
-                                     __fmul_rn(drop(dp, v.y, e + 1, off), mod_s[c + 1]));
-      dst[1] = __floats2bfloat162_rn(__fmul_rn(drop(dp, v.z, e + 2, off), mod_s[c + 2]),
-                                     __fmul_rn(drop(dp, v.w, e + 3, off), mod_s[c + 3]));
+      st_pair(ax, r, c, __fmul_rn(drop(dp, v.x, e, off), mod_s[c]),
+              __fmul_rn(drop(dp, v.y, e + 1, off), mod_s[c + 1]));
     }
   }
+  fence_async_shared();
+  bar_sync(CONSUMER_BAR, CHAIN_THREADS);
+  tile_to_global<H>(ax, args.work, xz, row0, S, tid);
 
-  float acc[2][NT][4];  // pre of the current layer (without its bias)
-  float dxr[2][NT][4];  // dx, same (row, column) layout
-
-  // ---- recomputed forward: x_1 .. x_{L-2} to shared memory ----
+  // ---- recomputed forward: x_1 .. x_{L-2}, each to ax and the workspace
   for (int layer = 0; layer < L - 2; ++layer) {
-    product<H, false>(acc, xs + (size_t)layer * TM * LDS, args.sw + (size_t)layer * H * H, ws,
-                      tid);
+    chain_product<H>(acc, ax, ring, tid);
+    bar_sync(CONSUMER_BAR, CHAIN_THREADS);  // ax read by every product and store
     const float* bias = bias_s + layer * H;
     const float* mod = mod_s + (layer + 1) * H;
     const uint32_t off = layer_offset(dp, layer + 1);
-    __nv_bfloat16* xn = xs + (size_t)(layer + 1) * TM * LDS;
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int j = 0; j < NW / 8; ++j) {
+      const int c = cbase + 8 * j;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int c = warp_n * WN + nt * 8 + 2 * t;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = warp_m * 32 + mt * 16 + g + 8 * half;
-          const uint32_t e = idx0 + (uint32_t)(r * H + c);
-          const float a0 = act_only<DEG>(acc[mt][nt][2 * half] + bias[c], args.w0, args.morlet);
-          const float a1 =
-              act_only<DEG>(acc[mt][nt][2 * half + 1] + bias[c + 1], args.w0, args.morlet);
-          *reinterpret_cast<__nv_bfloat162*>(xn + r * LDS + c) = __floats2bfloat162_rn(
-              __fmul_rn(drop(dp, a0, e, off), mod[c]),
-              __fmul_rn(drop(dp, a1, e + 1, off), mod[c + 1]));
-        }
+      for (int h = 0; h < 2; ++h) {
+        const int r = rbase + 8 * h;
+        const uint32_t e = idx0 + (uint32_t)(r * H + c);
+        const float a0 = act_only<DEG, MORLET>(acc[4 * j + 2 * h] + bias[c], args.w0);
+        const float a1 = act_only<DEG, MORLET>(acc[4 * j + 2 * h + 1] + bias[c + 1], args.w0);
+        st_pair(ax, r, c, __fmul_rn(drop(dp, a0, e, off), mod[c]),
+                __fmul_rn(drop(dp, a1, e + 1, off), mod[c + 1]));
       }
+    }
+    fence_async_shared();
+    bar_sync(CONSUMER_BAR, CHAIN_THREADS);
+    tile_to_global<H>(ax, args.work, (size_t)(layer + 1) * args.B + b, row0, S, tid);
   }
 
-  // ---- last hidden product: pre_{L-1} stays in acc for the reverse sweep ----
-  product<H, false>(acc, xs + (size_t)(L - 2) * TM * LDS, args.sw + (size_t)(L - 2) * H * H, ws,
-                    tid);
+  // ---- last hidden product: pre_{L-1} stays in acc for the reverse sweep
+  chain_product<H>(acc, ax, ring, tid);
   {
     const float* bias = bias_s + (L - 2) * H;
     const float* mod = mod_s + (L - 1) * H;
     const uint32_t off = layer_offset(dp, L - 1);
-    float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+    float part[2] = {0.f, 0.f};
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
+    for (int j = 0; j < NW / 8; ++j) {
+      const int c = cbase + 8 * j;
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int c = warp_n * WN + nt * 8 + 2 * t;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = warp_m * 32 + mt * 16 + g + 8 * half;
-          const uint32_t e = idx0 + (uint32_t)(r * H + c);
-          const float a0 = act_only<DEG>(acc[mt][nt][2 * half] + bias[c], args.w0, args.morlet);
-          const float a1 =
-              act_only<DEG>(acc[mt][nt][2 * half + 1] + bias[c + 1], args.w0, args.morlet);
-          // x_{L-1}, rounded to bf16 as the forward does, kept as f32
-          const float x0 = bf16_round(__fmul_rn(drop(dp, a0, e, off), mod[c]));
-          const float x1 = bf16_round(__fmul_rn(drop(dp, a1, e + 1, off), mod[c + 1]));
-          dxr[mt][nt][2 * half] = x0;
-          dxr[mt][nt][2 * half + 1] = x1;
-          part[mt][half] += x0 * lw_s[c] + x1 * lw_s[c + 1];
-        }
+      for (int h = 0; h < 2; ++h) {
+        const int r = rbase + 8 * h;
+        const uint32_t e = idx0 + (uint32_t)(r * H + c);
+        const float a0 = act_only<DEG, MORLET>(acc[4 * j + 2 * h] + bias[c], args.w0);
+        const float a1 = act_only<DEG, MORLET>(acc[4 * j + 2 * h + 1] + bias[c + 1], args.w0);
+        // x_{L-1}, rounded to bf16 as the forward does, kept as f32
+        const float x0 = bf16_round(__fmul_rn(drop(dp, a0, e, off), mod[c]));
+        const float x1 = bf16_round(__fmul_rn(drop(dp, a1, e + 1, off), mod[c + 1]));
+        dxr[4 * j + 2 * h] = x0;
+        dxr[4 * j + 2 * h + 1] = x1;
+        part[h] += x0 * lw_s[c] + x1 * lw_s[c + 1];
       }
+    }
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float p = part[mt][half];
-        p += __shfl_xor_sync(0xffffffffu, p, 1);
-        p += __shfl_xor_sync(0xffffffffu, p, 2);
-        if (t == 0) red_s[warp_n * TM + warp_m * 32 + mt * 16 + g + 8 * half] = p;
-      }
-    __syncthreads();
+    for (int h = 0; h < 2; ++h) {
+      float p = part[h];
+      p += __shfl_xor_sync(0xffffffffu, p, 1);
+      p += __shfl_xor_sync(0xffffffffu, p, 2);
+      if (t4 == 0) red_r[wg * TM + rbase + 8 * h] = p;
+    }
+    bar_sync(CONSUMER_BAR, CHAIN_THREADS);
     if (tid < TM) {
       float dpl = 0.f;
-      if (row0 + tid < args.S) {
-        const float r = red_s[tid] + red_s[TM + tid] + red_s[2 * TM + tid] +
-                        red_s[3 * TM + tid] + args.last_b[0];
-        dpl = args.g[(size_t)b * args.S + row0 + tid] *
-              (args.w0 * poly_cos<DEG>(args.w0 * r));
+      if (row0 + tid < S) {
+        float r = red_r[tid];
+        for (int w = 1; w < CHAIN_WGS; ++w) r += red_r[w * TM + tid];
+        r += args.last_b[0];
+        dpl = args.g[(size_t)b * S + row0 + tid] * (args.w0 * poly_cos<DEG>(args.w0 * r));
       }
       dpl_s[tid] = dpl;
-      // dlb: TM threads are warps 0 and 1, whole warps
-      float s = dpl;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) s += __shfl_xor_sync(0xffffffffu, s, o);
-      if (lane == 0) atomicAdd(args.dlb, s);
     }
-    __syncthreads();
+    bar_sync(CONSUMER_BAR, CHAIN_THREADS);
     // dlw += sum_rows dpl * x_{L-1};  dx = dpl (x) last_w
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = warp_n * WN + nt * 8 + 2 * t;
+    for (int j = 0; j < NW / 8; ++j) {
+      const int c = cbase + 8 * j;
       float s0 = 0.f, s1 = 0.f;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const float dpl = dpl_s[warp_m * 32 + mt * 16 + g + 8 * half];
-          s0 += dpl * dxr[mt][nt][2 * half];
-          s1 += dpl * dxr[mt][nt][2 * half + 1];
-          dxr[mt][nt][2 * half] = dpl * lw_s[c];
-          dxr[mt][nt][2 * half + 1] = dpl * lw_s[c + 1];
-        }
+      for (int h = 0; h < 2; ++h) {
+        const float dpl = dpl_s[rbase + 8 * h];
+        s0 += dpl * dxr[4 * j + 2 * h];
+        s1 += dpl * dxr[4 * j + 2 * h + 1];
+        dxr[4 * j + 2 * h] = dpl * lw_s[c];
+        dxr[4 * j + 2 * h + 1] = dpl * lw_s[c + 1];
+      }
       s0 = reduce_rows(s0);
       s1 = reduce_rows(s1);
       if (g == 0) {
-        atomicAdd(args.dlw + c, s0);
-        atomicAdd(args.dlw + c + 1, s1);
+        red_a[warp * H + c] = s0;
+        red_a[warp * H + c + 1] = s1;
       }
+    }
+    bar_sync(CONSUMER_BAR, CHAIN_THREADS);
+    for (int c = tid; c < H; c += CHAIN_THREADS)  // the tile's sums, in a fixed order
+      dlw_g[c] = ((red_a[c] + red_a[H + c]) + red_a[2 * H + c]) + red_a[3 * H + c];
+    if (tid == 0) {
+      float s = 0.f;
+      for (int r = 0; r < TM; ++r) s += dpl_s[r];
+      dlw_g[H] = s;  // dlb
     }
   }
 
-  // ---- reverse sweep over the hidden layers ----
+  // ---- reverse sweep over the hidden layers
   for (int i = L - 2; i >= 0; --i) {
-    const __nv_bfloat16* xi = xs + (size_t)i * TM * LDS;
-    const __nv_bfloat16* wi = args.sw + (size_t)i * H * H;
-    if (i < L - 2) product<H, false>(acc, xi, wi, ws, tid);  // pre_{i+1} again
+    if (i < L - 2) {  // pre_{i+1} again, from x_i brought back
+      cp_async_wait<0>();
+      fence_async_shared();
+      bar_sync(CONSUMER_BAR, CHAIN_THREADS);
+      chain_product<H>(acc, ax, ring, tid);
+    }
+    bar_sync(CONSUMER_BAR, CHAIN_THREADS);  // ap stored, ax read by both warpgroups
+    if (i > 0)  // x_{i-1} back into ax while this layer finishes
+      global_to_tile<H>(ax, args.work, (size_t)(i - 1) * args.B + b, row0, S, tid);
 
     const float* bias = bias_s + i * H;
     const float* mod = mod_s + (i + 1) * H;
     const uint32_t off = layer_offset(dp, i + 1);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = warp_n * WN + nt * 8 + 2 * t;
+    for (int j = 0; j < NW / 8; ++j) {
+      const int c = cbase + 8 * j;
       float dm0 = 0.f, dm1 = 0.f, db0 = 0.f, db1 = 0.f;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = warp_m * 32 + mt * 16 + g + 8 * half;
-          const uint32_t e = idx0 + (uint32_t)(r * H + c);
-          float a0, a1, da0, da1;
-          act_pair<DEG>(acc[mt][nt][2 * half] + bias[c], args.w0, args.morlet, a0, da0);
-          act_pair<DEG>(acc[mt][nt][2 * half + 1] + bias[c + 1], args.w0, args.morlet, a1, da1);
-          const float dx0 = dxr[mt][nt][2 * half], dx1 = dxr[mt][nt][2 * half + 1];
-          dm0 += dx0 * drop(dp, a0, e, off);
-          dm1 += dx1 * drop(dp, a1, e + 1, off);
-          const float dp0 = drop(dp, dx0 * mod[c], e, off) * da0;
-          const float dp1 = drop(dp, dx1 * mod[c + 1], e + 1, off) * da1;
-          db0 += dp0;
-          db1 += dp1;
-          *reinterpret_cast<__nv_bfloat162*>(ps + r * LDS + c) = __floats2bfloat162_rn(dp0, dp1);
-        }
+      for (int h = 0; h < 2; ++h) {
+        const int r = rbase + 8 * h;
+        const uint32_t e = idx0 + (uint32_t)(r * H + c);
+        float a0, a1, da0, da1;
+        act_pair<DEG, MORLET>(acc[4 * j + 2 * h] + bias[c], args.w0, a0, da0);
+        act_pair<DEG, MORLET>(acc[4 * j + 2 * h + 1] + bias[c + 1], args.w0, a1, da1);
+        const float dx0 = dxr[4 * j + 2 * h], dx1 = dxr[4 * j + 2 * h + 1];
+        dm0 += dx0 * drop(dp, a0, e, off);
+        dm1 += dx1 * drop(dp, a1, e + 1, off);
+        const float dp0 = drop(dp, dx0 * mod[c], e, off) * da0;
+        const float dp1 = drop(dp, dx1 * mod[c + 1], e + 1, off) * da1;
+        db0 += dp0;
+        db1 += dp1;
+        st_pair(ap, r, c, dp0, dp1);
+      }
       dm0 = reduce_rows(dm0);
       dm1 = reduce_rows(dm1);
       db0 = reduce_rows(db0);
       db1 = reduce_rows(db1);
       if (g == 0) {
-        atomicAdd(dm_s + (i + 1) * H + c, dm0);
-        atomicAdd(dm_s + (i + 1) * H + c + 1, dm1);
-        atomicAdd(args.dsb + i * H + c, db0);
-        atomicAdd(args.dsb + i * H + c + 1, db1);
+        red_a[warp * H + c] = dm0;
+        red_a[warp * H + c + 1] = dm1;
+        red_b[warp * H + c] = db0;
+        red_b[warp * H + c + 1] = db1;
       }
     }
-    // product() starts with a barrier, which publishes ps for both uses
-    product<H, true>(dxr, ps, wi, ws, tid);
-    weight_grad<H>(args.dsw + (size_t)i * H * H, xi, ps, tid);
-    // the next step's product() barrier keeps ps until every warp is here
+    fence_async_shared();
+    bar_sync(CONSUMER_BAR, CHAIN_THREADS);
+    tile_to_global<H>(ap, args.work, (size_t)pz + i * args.B, row0, S, tid);
+    for (int c = tid; c < H; c += CHAIN_THREADS) {  // the tile's sums, in a fixed order
+      dm_g[(i + 1) * H + c] = ((red_a[c] + red_a[H + c]) + red_a[2 * H + c]) + red_a[3 * H + c];
+      db_g[i * H + c] = ((red_b[c] + red_b[H + c]) + red_b[2 * H + c]) + red_b[3 * H + c];
+    }
+    chain_product<H>(dxr, ap, ring, tid);  // dx = dpre . W_i^T
   }
 
-  // ---- layer 0: dmods[0] and dbase ----
+  // ---- layer 0: dmods[0] and dbase
+  bar_sync(CONSUMER_BAR, CHAIN_THREADS);  // red_a read by every thread above
   {
     const uint32_t off = layer_offset(dp, 0);
 #pragma unroll
-    for (int nt = 0; nt < NT; ++nt) {
-      const int c = warp_n * WN + nt * 8 + 2 * t;
+    for (int j = 0; j < NW / 8; ++j) {
+      const int c = cbase + 8 * j;
       float dm0 = 0.f, dm1 = 0.f;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = warp_m * 32 + mt * 16 + g + 8 * half;
-          if (row0 + r >= args.S) continue;  // dx is zero there
-          const uint32_t e = idx0 + (uint32_t)(r * H + c);
-          const float2 bv =
-              *reinterpret_cast<const float2*>(args.base + (size_t)(row0 + r) * H + c);
-          const float dx0 = dxr[mt][nt][2 * half], dx1 = dxr[mt][nt][2 * half + 1];
-          dm0 += dx0 * drop(dp, bv.x, e, off);
-          dm1 += dx1 * drop(dp, bv.y, e + 1, off);
-          add2(args.dbase + (size_t)(row0 + r) * H + c, drop(dp, dx0 * mod_s[c], e, off),
-               drop(dp, dx1 * mod_s[c + 1], e + 1, off));
-        }
+      for (int h = 0; h < 2; ++h) {
+        const int r = rbase + 8 * h;
+        if (row0 + r >= S) continue;  // dx is zero there
+        const uint32_t e = idx0 + (uint32_t)(r * H + c);
+        const float2 bv = *reinterpret_cast<const float2*>(args.base + (size_t)(row0 + r) * H + c);
+        const float dx0 = dxr[4 * j + 2 * h], dx1 = dxr[4 * j + 2 * h + 1];
+        dm0 += dx0 * drop(dp, bv.x, e, off);
+        dm1 += dx1 * drop(dp, bv.y, e + 1, off);
+        add2(args.dbase + (size_t)(row0 + r) * H + c, drop(dp, dx0 * mod_s[c], e, off),
+             drop(dp, dx1 * mod_s[c + 1], e + 1, off));
+      }
       dm0 = reduce_rows(dm0);
       dm1 = reduce_rows(dm1);
       if (g == 0) {
-        atomicAdd(dm_s + c, dm0);
-        atomicAdd(dm_s + c + 1, dm1);
+        red_a[warp * H + c] = dm0;
+        red_a[warp * H + c + 1] = dm1;
       }
     }
   }
-  __syncthreads();
-  float* dst = args.dmods_part + ((size_t)b * tiles + tile) * L * H;
-  for (int i = tid; i < L * H; i += THREADS) dst[i] = dm_s[i];
+  bar_sync(CONSUMER_BAR, CHAIN_THREADS);
+  for (int c = tid; c < H; c += CHAIN_THREADS)
+    dm_g[c] = ((red_a[c] + red_a[H + c]) + red_a[2 * H + c]) + red_a[3 * H + c];
 }
 
-template <int H, int DEG>
-cudaError_t launch(const Args& args, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<H>(args.L);
-  int dev = 0, limit = 0;
+// ------------------------------------------------------------ dW kernel
+constexpr int DW_STAGES = 4;
+
+template <int H>
+struct Dw {
+  static constexpr int NB = H / 64;            // 64-wide blocks of dP per stage
+  static constexpr int STAGE = (2 + NB) * BOX;  // 128 columns of X, all H of dP
+  static constexpr size_t SMEM = 1024 + (size_t)DW_STAGES * STAGE + 2 * DW_STAGES * 8;
+};
+
+// partial[layer][split] (H x H f32) = sum over the split's row tiles of
+// X_layer^T . dP_layer, for 128 rows of dW (64 per consumer warpgroup).
+template <int H>
+__global__ void __launch_bounds__(DW_THREADS, 1)
+    dw_kernel(const __grid_constant__ CUtensorMap ws_map, float* __restrict__ partial, int B,
+              int S, int L, int splits) {
+  using D = Dw<H>;
+  constexpr int NA = H / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(ring + DW_STAGES * D::STAGE);
+  uint64_t* empty = full + DW_STAGES;
+
+  constexpr int MTILES = (H + 127) / 128;
+  int bid = blockIdx.x;
+  const int mt = bid % MTILES;
+  bid /= MTILES;
+  const int layer = bid % (L - 1);
+  const int split = bid / (L - 1);
+  const int m0 = mt * 128;
+  const int xblocks = m0 + 64 < H ? 2 : 1;
+  const int tpp = (S + TM - 1) / TM;
+  const long long ktiles = (long long)B * tpp;
+  const int k0 = (int)(ktiles * split / splits), k1 = (int)(ktiles * (split + 1) / splits);
+  const int tid = threadIdx.x;
+
+  if (tid == DW_CONSUMERS) {
+    for (int i = 0; i < DW_STAGES; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid >= DW_CONSUMERS) {
+    if (tid != DW_CONSUMERS) return;
+    for (int k = k0, t = 0; k < k1; ++k, ++t) {
+      const int st = t % DW_STAGES, use = t / DW_STAGES;
+      if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+      mbar_expect_tx(&full[st], (xblocks + D::NB) * BOX);
+      const int pb = k / tpp, s0 = (k % tpp) * TM;
+      unsigned char* stage = ring + st * D::STAGE;
+      for (int a = 0; a < xblocks; ++a)
+        tma_load_3d(stage + a * BOX, &ws_map, m0 + 64 * a, s0, layer * B + pb, &full[st]);
+      for (int n = 0; n < D::NB; ++n)
+        tma_load_3d(stage + (2 + n) * BOX, &ws_map, 64 * n, s0, (L - 1 + layer) * B + pb,
+                    &full[st]);
+    }
+    return;
+  }
+
+  const int wg = tid >> 7, wtid = tid & 127;
+  const bool active = wg < xblocks;
+  float acc[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0.f;
+  wgmma_fence();
+  int t = 0;
+  for (int k = k0; k < k1; ++k, ++t) {
+    const int st = t % DW_STAGES;
+    mbar_wait(&full[st], (t / DW_STAGES) & 1);
+    if (!active) {
+      if (wtid == 0) mbar_arrive(&empty[st]);
+      continue;
+    }
+    const uint32_t a0 = smem_u32(ring + st * D::STAGE + wg * BOX);
+    const uint32_t b0 = smem_u32(ring + st * D::STAGE + 2 * BOX);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma<H, 1, 1>(acc, desc(a0 + kk * 2048, BOX, 1024), desc(b0 + kk * 2048, BOX, 1024));
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (t > 0 && wtid == 0) mbar_arrive(&empty[(t - 1) % DW_STAGES]);
+  }
+  if (!active) return;
+  wgmma_wait<0>();
+
+  const int warp = wtid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  float* out = partial + ((size_t)(layer * splits + split) * H + m0 + 64 * wg) * H;
+#pragma unroll
+  for (int j = 0; j < H / 8; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = warp * 16 + g + 8 * h;
+      *reinterpret_cast<float2*>(out + (size_t)r * H + 8 * j + 2 * t4) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    }
+}
+
+// dsw = sum over splits of partial, in split order.
+__global__ void dw_reduce_kernel(const float4* __restrict__ partial, float4* __restrict__ dsw,
+                                 int layers, int splits, int hh4) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= layers * hh4) return;
+  const int layer = i / hh4, e = i - layer * hh4;
+  const float4* p = partial + (size_t)layer * splits * hh4 + e;
+  float4 s = p[0];
+  for (int k = 1; k < splits; ++k) {
+    const float4 v = p[(size_t)k * hh4];
+    s.x += v.x;
+    s.y += v.y;
+    s.z += v.z;
+    s.w += v.w;
+  }
+  dsw[i] = s;
+}
+
+cudaError_t smem_limit(int& limit) {
+  int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+}
+
+int sm_count() {
+  int dev = 0, n = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+// splits of the rows of dW's product: about one block per SM in all
+int dw_splits(int B, int S, int H, int L) {
+  const int per_split = (L - 1) * ((H + 127) / 128);
+  const long long ktiles = (long long)B * ((S + TM - 1) / TM);
+  long long s = sm_count() / per_split;
+  if (s < 1) s = 1;
+  if (s > ktiles) s = ktiles;
+  return (int)s;
+}
+
+template <int H, int DEG, bool MORLET>
+cudaError_t launch(Args args, const void* sw, const void* swt, void* work, float* partial,
+                   float* dsw, cudaStream_t stream) {
+  const int L = args.L, B = args.B, S = args.S;
+  CUtensorMap w_map, wt_map, ws_map;
+  const uint64_t wdims[2] = {(uint64_t)H, (uint64_t)(L - 1) * H};
+  const uint64_t sdims[3] = {(uint64_t)H, (uint64_t)S, (uint64_t)2 * (L - 1) * B};
+  if (!bf16_map(&w_map, sw, 2, wdims) || !bf16_map(&wt_map, swt, 2, wdims) ||
+      !bf16_map(&ws_map, work, 3, sdims))
+    return cudaErrorNotSupported;
+
+  int limit = 0;
+  cudaError_t err = smem_limit(limit);
   if (err != cudaSuccess) return err;
-  if (smem > (size_t)limit) return cudaErrorInvalidConfiguration;  // too many layers
-  err = cudaFuncSetAttribute(siren_train_bwd_kernel<H, DEG>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  args.stages = 4;
+  // thread 0 loads a product's slabs at the end of the one before, so the
+  // ring holds at least one product
+  while (args.stages > Chain<H>::KB && Chain<H>::smem_bytes(L, args.stages) > (size_t)limit)
+    --args.stages;
+  const size_t smem = Chain<H>::smem_bytes(L, args.stages);
+  if (smem > (size_t)limit || Dw<H>::SMEM > (size_t)limit) return cudaErrorInvalidConfiguration;
+  err = cudaFuncSetAttribute(chain_kernel<H, DEG, MORLET>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)B * ((args.S + TM - 1) / TM);
+  const long long blocks = (long long)B * ((S + TM - 1) / TM);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  siren_train_bwd_kernel<H, DEG><<<(unsigned)blocks, THREADS, smem, stream>>>(args);
+  chain_kernel<H, DEG, MORLET><<<(unsigned)blocks, CHAIN_BLOCK, smem, stream>>>(w_map, wt_map,
+                                                                               args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+
+  const int splits = dw_splits(B, S, H, L);
+  err = cudaFuncSetAttribute(dw_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)Dw<H>::SMEM);
+  if (err != cudaSuccess) return err;
+  dw_kernel<H><<<(L - 1) * ((H + 127) / 128) * splits, DW_THREADS, Dw<H>::SMEM, stream>>>(
+      ws_map, partial, B, S, L, splits);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int n4 = (L - 1) * H * H / 4;
+  dw_reduce_kernel<<<(n4 + 255) / 256, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(partial), reinterpret_cast<float4*>(dsw), L - 1, splits,
+      H * H / 4);
   return cudaGetLastError();
 }
 
 template <int H>
-cudaError_t launch_deg(const Args& args, int B, int deg, cudaStream_t stream) {
+cudaError_t launch_deg(const Args& args, int deg, const void* sw, const void* swt, void* work,
+                       float* partial, float* dsw, cudaStream_t stream) {
   switch (deg) {
-    case 5: return launch<H, 5>(args, B, stream);
-    case 9: return launch<H, 9>(args, B, stream);
+    case 5:
+      return args.morlet ? launch<H, 5, true>(args, sw, swt, work, partial, dsw, stream)
+                         : launch<H, 5, false>(args, sw, swt, work, partial, dsw, stream);
+    case 9:
+      return args.morlet ? launch<H, 9, true>(args, sw, swt, work, partial, dsw, stream)
+                         : launch<H, 9, false>(args, sw, swt, work, partial, dsw, stream);
     default: return cudaErrorInvalidValue;
   }
 }
 
 }  // namespace
 
-// Returns a cudaError_t (0 = launched; cudaErrorInvalidConfiguration when
-// L layer tiles of width H do not fit a block's shared memory). Pointers are
-// device pointers to contiguous tensors; dbase, dsw, dsb, dlw and dlb must
-// be zero on entry (the kernel adds to them); dmods_part is (B, tiles, L*H)
-// with tiles = ceil(S / 64) and is written in full. deg is 5 or 9.
+// Returns a cudaError_t (0 = launched). Pointers are device pointers to
+// contiguous tensors: sw (L-1, H, H) bf16 (in, out) and swt its per-layer
+// transpose; work (2, L-1, B, S, H) bf16 and partial (L-1, splits, H, H)
+// f32 scratch (splits from siren_train_bwd_dw_splits), overwritten; dsw
+// (L-1, H, H) f32 and part (B * tiles, 2*L*H + 4) f32, tiles = ceil(S / 64),
+// written in full: per (patch, tile) its dmods (L*H), dsb ((L-1)*H), dlw (H)
+// and dlb (1) partial sums; dbase (S, H) must be zero on entry (the chain
+// kernel adds to it). deg is 5 or 9.
 extern "C" int siren_train_bwd_launch(const void* seed, const void* mods, const void* base,
-                                      const void* sw, const void* sb, const void* last_w,
-                                      const void* last_b, const void* g, void* dmods_part,
-                                      void* dbase, void* dsw, void* dsb, void* dlw, void* dlb,
-                                      int B, int S, int H, int L, float w0, int morlet,
-                                      int deg, int dropout, int thresh, float inv_keep,
-                                      void* stream) {
+                                      const void* sw, const void* swt, const void* sb,
+                                      const void* last_w, const void* last_b, const void* g,
+                                      void* part, void* dbase, void* dsw, void* work,
+                                      void* partial, int B, int S, int H, int L, float w0,
+                                      int morlet, int deg, int dropout, int thresh,
+                                      float inv_keep, void* stream) {
   if (B <= 0 || S <= 0 || L < 2) return (int)cudaErrorInvalidValue;
   Args args{static_cast<const float*>(seed),
             static_cast<const float*>(mods),
             static_cast<const float*>(base),
-            static_cast<const __nv_bfloat16*>(sw),
             static_cast<const float*>(sb),
             static_cast<const float*>(last_w),
             static_cast<const float*>(last_b),
             static_cast<const float*>(g),
-            static_cast<float*>(dmods_part),
+            static_cast<float*>(part),
             static_cast<float*>(dbase),
-            static_cast<float*>(dsw),
-            static_cast<float*>(dsb),
-            static_cast<float*>(dlw),
-            static_cast<float*>(dlb),
+            static_cast<__nv_bfloat16*>(work),
+            B,
             S,
             L,
             w0,
             morlet,
             (int32_t)thresh,
             inv_keep,
-            dropout};
+            dropout,
+            4};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  auto* dw_part = static_cast<float*>(partial);
+  auto* dw = static_cast<float*>(dsw);
   switch (H) {
-    case 64: return (int)launch_deg<64>(args, B, deg, st);
-    case 128: return (int)launch_deg<128>(args, B, deg, st);
-    case 192: return (int)launch_deg<192>(args, B, deg, st);
-    case 256: return (int)launch_deg<256>(args, B, deg, st);
+    case 64: return (int)launch_deg<64>(args, deg, sw, swt, work, dw_part, dw, st);
+    case 128: return (int)launch_deg<128>(args, deg, sw, swt, work, dw_part, dw, st);
+    case 192: return (int)launch_deg<192>(args, deg, sw, swt, work, dw_part, dw, st);
+    case 256: return (int)launch_deg<256>(args, deg, sw, swt, work, dw_part, dw, st);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+extern "C" int siren_train_bwd_dw_splits(int B, int S, int H, int L) {
+  return dw_splits(B, S, H, L);
 }
 
 extern "C" const char* siren_train_bwd_error_string(int err) {

@@ -1,24 +1,45 @@
-"""Centred 2-D DFT as dense complex products (counterpart of
+"""Centred 2-D DFT as a two-pass mixed-radix FFT (counterpart of
 ``mri_inr_tpu/ops/fft_kernel.py``).
 
-``Y = A_H @ X @ A_W^T`` per slice, where ``A_n`` is the centred orthonormal
-1-D (i)DFT matrix: ``A @ x == fftshift((i)fft(ifftshift(x), norm="ortho"))``.
-Both shifts are folded into the matrices once on the host, in float64, then
-rounded to float32: bit for bit the JAX package's matrices. An optional
-epilogue writes ``|Y|`` (the reconstruction path's ``complex_abs``).
+The function is the JAX kernel's: ``fftshift((i)fft2(ifftshift(x),
+norm="ortho"))`` per slice, or its magnitude ``|Y|`` (the reconstruction
+path's ``complex_abs``). Complex data is float32 real/imag pairs in the last
+axis, ``(..., H, W, 2)``. The JAX kernel computes it as dense products
+``A_H @ X @ A_W^T`` because a TPU's matrix unit cannot run butterflies; a GPU
+can, so the port computes the same function as an FFT:
 
-Complex data is float32 real/imag pairs in the last axis, ``(..., H, W, 2)``.
+- pass 1, along W: each row is loaded with both ``ifftshift`` index maps
+  folded in (the row's, and the column's within the row), transformed, and
+  written to a workspace with the W axis's ``fftshift`` folded into the
+  store;
+- pass 2, along H: each column of the workspace is transformed and written
+  with the H axis's ``fftshift`` folded into the store, as ``Y`` or ``|Y|``.
 
-- :func:`dft2c_ri_reference` is the plain PyTorch version: the eight real
-  ``torch.matmul`` products in float32 and ``sqrt(yr^2 + yi^2)``.
-- :func:`dft2c_ri_cuda` launches the hand-written kernel
-  ``csrc/dft2c.cu`` (f32 FMA on the CUDA cores, one launch, no workspace)
-  and counts its launches.
+Each 1-D transform is a Stockham autosort FFT over the radix plan of its
+length (:func:`radices`): radix 8, 4 and 2 for the powers of two, 3 and 5,
+then one generic radix-p stage per remaining prime factor (a length-p DFT
+per butterfly), so every length is taken. Stage ``s`` with radix ``R`` after
+stages whose radices multiply to ``ns`` reads ``v[r] = in[j + r*n/R]``
+(``j < n/R``), multiplies by the twiddle ``w^(r*(j % ns))`` (``w = exp(+-2 pi
+i / (ns*R))``), takes the length-R DFT and writes ``out[(j - j % ns)*R + j %
+ns + q*ns]``. Each pass scales by ``1/sqrt(n)`` of its axis.
+
+The twiddles and the radix roots are built in float64 on the host, rounded
+to float32 once and cached per ``(n, inverse, device)`` (:func:`tables`):
+
+    stage s: R*ns twiddles  tw[r*ns + k] = exp(sign * 2 pi i r k / (ns*R))
+             R roots        root[q]      = exp(sign * 2 pi i q / R)
+
+concatenated stage after stage; ``csrc/dft2c.cu`` recomputes ``ns`` and the
+offsets from the radix list by the same rule.
+
+- :func:`dft2c_ri_reference` is the plain PyTorch version: the same plan,
+  tables, shift index maps and pass order in float32 operations.
+- :func:`dft2c_ri_cuda` launches the hand-written kernel ``csrc/dft2c.cu``
+  (both passes, f32 on the CUDA cores, a workspace of N*H*W complex) and
+  counts one launch per call.
 - :func:`dft2c_ri` and :func:`reconstruct_magnitude_ri_dft` take the kernel
   for CUDA tensors and the plain version for CPU tensors.
-
-The matrices are cached per ``(n, inverse, device)``, so no call uploads
-them twice.
 """
 
 from __future__ import annotations
@@ -31,37 +52,90 @@ import torch
 
 from mri_inr_tpu_torch.ops import _build
 
-#: largest H or W the CUDA kernel takes (MAX_DIM in csrc/dft2c.cu): its row
-#: strips of A_H and of the intermediate product live in shared memory
+#: largest H or W the CUDA kernel takes (MAX_DIM in csrc/dft2c.cu): pass 2
+#: holds H x 8 complex columns twice in shared memory
 DFT_MAX_DIM = 640
 
 
 @functools.lru_cache(maxsize=None)
-def _centered_dft_matrix_np(n: int, inverse: bool):
-    """(real, imag) float32 (n, n) matrices of the centred orthonormal 1-D
-    (i)DFT, built by pushing the identity through the reference pipeline
-    (which gets the odd-n shift asymmetry right)."""
-    eye = np.eye(n, dtype=np.complex128)
-    shifted = np.fft.ifftshift(eye, axes=0)
-    f = (np.fft.ifft if inverse else np.fft.fft)(shifted, axis=0, norm="ortho")
-    a = np.fft.fftshift(f, axes=0)
-    return a.real.astype(np.float32), a.imag.astype(np.float32)
+def radices(n: int) -> tuple[int, ...]:
+    """The radix plan of length ``n``: 8s, then a 4 or a 2 for the powers of
+    two, then the odd prime factors in ascending order (3 and 5 have their
+    own butterflies in the kernel; any other prime is one generic stage)."""
+    if n < 1:
+        raise ValueError(f"length must be positive, got {n}")
+    twos = (n & -n).bit_length() - 1
+    odd = n >> twos
+    plan = [8] * (twos // 3) + {0: [], 1: [2], 2: [4]}[twos % 3]
+    p = 3
+    while odd > 1:
+        while odd % p == 0:
+            plan.append(p)
+            odd //= p
+        p += 2
+    return tuple(plan)
+
+
+def _stages(n: int):
+    """(radix, ns, table offset) per stage."""
+    ns, off = 1, 0
+    for r in radices(n):
+        yield r, ns, off
+        off += r * ns + r
+        ns *= r
 
 
 @functools.lru_cache(maxsize=None)
-def _matrices(n: int, inverse: bool, device: torch.device):
-    """(real, imag) of ``A_n`` on ``device``."""
-    return tuple(torch.from_numpy(m).to(device) for m in _centered_dft_matrix_np(n, inverse))
+def _tables_np(n: int, inverse: bool) -> np.ndarray:
+    sign = 1.0 if inverse else -1.0
+    parts = []
+    for r, ns, _ in _stages(n):
+        k = np.arange(ns)
+        tw = np.exp(sign * 2j * np.pi * np.outer(np.arange(r), k) / (ns * r)).ravel()
+        parts += [tw, np.exp(sign * 2j * np.pi * np.arange(r) / r)]
+    t = np.concatenate(parts) if parts else np.zeros(0, np.complex128)
+    return np.stack([t.real, t.imag], axis=-1).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=None)
-def _matrix_ri(n: int, inverse: bool, transpose: bool, device: torch.device) -> torch.Tensor:
-    """``A_n`` (or its transpose) as interleaved (n, n, 2) f32, the kernel's
-    layout."""
-    re, im = _matrices(n, inverse, device)
-    if transpose:
-        re, im = re.t(), im.t()
-    return torch.stack([re, im], dim=-1).contiguous()
+def tables(n: int, inverse: bool, device: torch.device) -> torch.Tensor:
+    """Twiddles and roots of the plan of ``n`` as (T, 2) float32 on
+    ``device``, in the layout of the module docstring."""
+    return torch.from_numpy(_tables_np(n, inverse)).to(device)
+
+
+def _cmul(ar, ai, br, bi):
+    return ar * br - ai * bi, ar * bi + ai * br
+
+
+def _fft_last(re: torch.Tensor, im: torch.Tensor, inverse: bool, shift_in: bool):
+    """Centred orthonormal 1-D (i)DFT of ``re + i im`` along the last axis,
+    stage by stage as the kernel runs it; ``shift_in=False`` leaves out the
+    ``ifftshift`` of the input (pass 2 gets it from pass 1's row map)."""
+    n = re.shape[-1]
+    lead = re.shape[:-1]
+    idx = torch.arange(n, device=re.device)
+    if shift_in:
+        src = (idx + n // 2) % n
+        re, im = re[..., src], im[..., src]
+    tab = tables(n, inverse, re.device)
+    for r, ns, off in _stages(n):
+        m = n // r
+        tw = tab[off:off + r * ns].view(r, ns, 2)[:, torch.arange(m, device=re.device) % ns]
+        root = tab[off + r * ns:off + r * ns + r]
+        q = torch.arange(r, device=re.device)
+        dft = root[(q[:, None] * q[None, :]) % r]  # (R, R, 2): [q, r]
+        vr, vi = _cmul(re.reshape(*lead, r, m), im.reshape(*lead, r, m), tw[..., 0], tw[..., 1])
+        yr = dft[..., 0] @ vr - dft[..., 1] @ vi
+        yi = dft[..., 0] @ vi + dft[..., 1] @ vr
+
+        def place(y):
+            return y.reshape(*lead, r, m // ns, ns).transpose(-3, -2).reshape(*lead, n)
+
+        re, im = place(yr), place(yi)
+    dst = (idx - n // 2) % n  # fftshift: position p takes Z[(p - n//2) mod n]
+    scale = float(np.float32(1.0 / np.sqrt(n)))
+    return re[..., dst] * scale, im[..., dst] * scale
 
 
 def _split(kspace_ri: torch.Tensor):
@@ -79,14 +153,11 @@ def dft2c_ri_reference(kspace_ri: torch.Tensor, *, inverse: bool = True,
     """Plain PyTorch version of the kernel: (..., H, W, 2) f32 ->
     (..., H, W, 2), or (..., H, W) magnitudes."""
     lead, h, w, x = _split(kspace_ri)
-    ar, ai = _matrices(h, inverse, x.device)
-    br, bi = _matrices(w, inverse, x.device)
-    btr, bti = br.t(), bi.t()
-    xr, xi = x[..., 0], x[..., 1]
-    tr = ar @ xr - ai @ xi
-    ti = ar @ xi + ai @ xr
-    yr = tr @ btr - ti @ bti
-    yi = tr @ bti + ti @ btr
+    rows = (torch.arange(h, device=x.device) + h // 2) % h  # pass 1's row map
+    re, im = x[:, rows, :, 0], x[:, rows, :, 1]
+    re, im = _fft_last(re, im, inverse, shift_in=True)  # pass 1, along W
+    re, im = _fft_last(re.transpose(1, 2), im.transpose(1, 2), inverse, shift_in=False)
+    yr, yi = re.transpose(1, 2), im.transpose(1, 2)  # pass 2, along H
     if magnitude:
         return torch.sqrt(yr * yr + yi * yi).reshape(*lead, h, w)
     return torch.stack([yr, yi], dim=-1).reshape(*lead, h, w, 2)
@@ -96,18 +167,24 @@ def dft2c_ri_reference(kspace_ri: torch.Tensor, *, inverse: bool = True,
 def _library() -> ctypes.CDLL:
     lib = _build.load("dft2c")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.dft2c_launch.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.dft2c_launch.argtypes = [p, p, p, p, p, i, i, i, p, i, p, i, i, i, p]
     lib.dft2c_launch.restype = i
     lib.dft2c_error_string.argtypes = [i]
     lib.dft2c_error_string.restype = ctypes.c_char_p
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def _radix_array(n: int):
+    plan = radices(n)
+    return (ctypes.c_int * max(len(plan), 1))(*plan), len(plan)
+
+
 def dft2c_ri_cuda(kspace_ri: torch.Tensor, *, inverse: bool = True,
                   magnitude: bool = False) -> torch.Tensor:
-    """Launch ``csrc/dft2c.cu`` on PyTorch's current stream; same contract as
-    :func:`dft2c_ri_reference`. Counts its launches in
-    ``dft2c_ri_cuda.launches``."""
+    """Launch ``csrc/dft2c.cu`` (both passes) on PyTorch's current stream;
+    same contract as :func:`dft2c_ri_reference`. Counts one launch per call
+    in ``dft2c_ri_cuda.launches``."""
     dev = kspace_ri.device
     if dev.type != "cuda":
         raise ValueError(f"dft2c_ri_cuda needs CUDA tensors, got {dev}")
@@ -117,16 +194,18 @@ def dft2c_ri_cuda(kspace_ri: torch.Tensor, *, inverse: bool = True,
                          f"got ({h}, {w})")
     if x.shape[0] == 0:
         raise ValueError("empty batch")
-    if not x.is_contiguous() or x.data_ptr() % 8:  # the kernel reads float2
+    if not x.is_contiguous() or x.data_ptr() % 16:  # the kernel reads float4
         x = x.clone(memory_format=torch.contiguous_format)
-    a = _matrix_ri(h, inverse, False, dev)
-    bt = _matrix_ri(w, inverse, True, dev)
+    tab_h, tab_w = tables(h, inverse, dev), tables(w, inverse, dev)
+    (rad_h, n_h), (rad_w, n_w) = _radix_array(h), _radix_array(w)
+    work = torch.empty((x.shape[0], h, w, 2), dtype=torch.float32, device=dev)
     shape = (x.shape[0], h, w) if magnitude else (x.shape[0], h, w, 2)
     out = torch.empty(shape, dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
-        err = lib.dft2c_launch(x.data_ptr(), a.data_ptr(), bt.data_ptr(), out.data_ptr(),
-                               x.shape[0], h, w, int(magnitude),
+        err = lib.dft2c_launch(x.data_ptr(), tab_h.data_ptr(), tab_w.data_ptr(), work.data_ptr(),
+                               out.data_ptr(), x.shape[0], h, w, rad_h, n_h, rad_w, n_w,
+                               int(inverse), int(magnitude),
                                torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         msg = lib.dft2c_error_string(err).decode()
@@ -151,5 +230,5 @@ def dft2c_ri(kspace_ri: torch.Tensor, *, inverse: bool = True,
 
 def reconstruct_magnitude_ri_dft(kspace_ri: torch.Tensor) -> torch.Tensor:
     """f32 (..., H, W, 2) k-space -> (..., H, W) magnitude image through the
-    DFT products; drop-in for ``kspace.reconstruct_magnitude_ri``."""
+    FFT kernel; drop-in for ``kspace.reconstruct_magnitude_ri``."""
     return dft2c_ri(kspace_ri, inverse=True, magnitude=True)

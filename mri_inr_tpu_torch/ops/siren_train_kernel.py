@@ -2,10 +2,11 @@
 of ``mri_inr_tpu/ops/siren_train_kernel.py``).
 
 The modulator + SIREN chain of the train step is one differentiable op,
-:func:`siren_chain_train`, whose forward and backward are each a single
-hand-written CUDA kernel (``csrc/siren_train_fwd.cu``,
-``csrc/siren_train_bwd.cu``) for tensors on the card and a plain PyTorch
-version for tensors on the CPU. The backward recomputes the forward from
+:func:`siren_chain_train`, whose forward is one hand-written CUDA kernel
+(``csrc/siren_train_fwd.cu``) and whose backward is one call of
+``csrc/siren_train_bwd.cu`` (a chain kernel, then a split-K weight-gradient
+kernel over its workspace) for tensors on the card, and a plain PyTorch
+version of each for tensors on the CPU. The backward recomputes the forward from
 the op's inputs, so no layer activation is kept between the two.
 
 Dropout masks come from a counter hash of (seed, layer, element index)
@@ -226,6 +227,8 @@ def _bwd_library() -> ctypes.CDLL:
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.siren_train_bwd_launch.argtypes = [p] * 14 + [i, i, i, i, f, i, i, i, i, f, p]
     lib.siren_train_bwd_launch.restype = i
+    lib.siren_train_bwd_dw_splits.argtypes = [i, i, i, i]
+    lib.siren_train_bwd_dw_splits.restype = i
     lib.siren_train_bwd_error_string.argtypes = [i]
     lib.siren_train_bwd_error_string.restype = ctypes.c_char_p
     lib.siren_train_bwd_tile_rows.argtypes = []
@@ -301,43 +304,48 @@ def siren_chain_train_bwd_cuda(
     num_layers: int = 5, w0: float = 1.0, activation: str = "sine",
     dropout_rate: float = 0.0, sin5: bool = False,
 ) -> tuple[torch.Tensor, ...]:
-    """Launch ``csrc/siren_train_bwd.cu`` on PyTorch's current stream; same
-    contract as :func:`siren_chain_train_bwd_reference` with bf16 ``s_w``.
-    The kernel adds its weight-space gradients with atomics into one zeroed
-    workspace, which the returned dbase, dsw, dsb, dlw and dlb are views of,
-    and writes one dmods partial per 64-row tile, summed here.
-    Counts its launches in ``siren_chain_train_bwd_cuda.launches``."""
+    """Launch ``csrc/siren_train_bwd.cu`` (the chain kernel, the
+    weight-gradient kernel and its fixed-order sum) on PyTorch's current
+    stream; same contract as :func:`siren_chain_train_bwd_reference` with
+    bf16 ``s_w``. The chain kernel writes the bf16 layer inputs and
+    bf16(dpre) of every hidden layer to a workspace of 2 * (L-1) * B * S * H
+    bf16, which the weight-gradient kernel reads; it adds dbase with atomics
+    and writes dmods, dsb, dlw and dlb as one partial record per 64-row
+    tile, summed here. dsw, dmods, dsb, dlw and dlb repeat bit for bit from
+    call to call. Counts one launch per call in
+    ``siren_chain_train_bwd_cuda.launches``."""
     batch, seq, hidden, dev = _check_chain_inputs(
         "siren_chain_train_bwd_cuda", seed, mods, base, s_w, s_b, last_w, last_b, num_layers)
     _check("g", g, (batch, seq), torch.float32, dev)
     on, thresh, inv_keep = _dropout_args(dropout_rate)
     lib = _bwd_library()
     tiles = -(-seq // lib.siren_train_bwd_tile_rows())
+    splits = lib.siren_train_bwd_dw_splits(batch, seq, hidden, num_layers)
     f32 = dict(dtype=torch.float32, device=dev)
-    dmods_part = torch.empty((batch, tiles, num_layers * hidden), **f32)
-    # everything the kernel adds to, zeroed by one fill (sizes even but the
-    # last, so the 8-byte vector adds stay aligned)
-    shapes = ((num_layers - 1, hidden, hidden), (seq, hidden), (num_layers - 1, 1, hidden),
-              (1, hidden), (1, 1))
-    work = torch.zeros(sum(int(np.prod(s)) for s in shapes), **f32)
-    dsw, dbase, dsb, dlw, dlb = (
-        w.view(s) for w, s in zip(work.split([int(np.prod(s)) for s in shapes]), shapes))
+    layers, lh = num_layers - 1, num_layers * hidden
+    s_wt = s_w.transpose(1, 2).contiguous()  # x . W reads W^T's rows
+    work = torch.empty((2, layers, batch, seq, hidden), dtype=torch.bfloat16, device=dev)
+    partial = torch.empty((layers, splits, hidden, hidden), **f32)
+    dsw = torch.empty((layers, hidden, hidden), **f32)
+    part = torch.empty((batch, tiles, 2 * lh + 4), **f32)
+    dbase = torch.zeros((seq, hidden), **f32)
     with torch.cuda.device(dev):
         err = lib.siren_train_bwd_launch(
             seed.data_ptr(), mods.data_ptr(), base.data_ptr(), s_w.data_ptr(),
-            s_b.data_ptr(), last_w.data_ptr(), last_b.data_ptr(), g.data_ptr(),
-            dmods_part.data_ptr(), dbase.data_ptr(), dsw.data_ptr(), dsb.data_ptr(),
-            dlw.data_ptr(), dlb.data_ptr(), batch, seq, hidden, num_layers, float(w0),
+            s_wt.data_ptr(), s_b.data_ptr(), last_w.data_ptr(), last_b.data_ptr(),
+            g.data_ptr(), part.data_ptr(), dbase.data_ptr(), dsw.data_ptr(), work.data_ptr(),
+            partial.data_ptr(), batch, seq, hidden, num_layers, float(w0),
             int(activation == "morlet"), 5 if sin5 else 9, on, thresh, inv_keep,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
         msg = lib.siren_train_bwd_error_string(err).decode()
-        raise RuntimeError(
-            f"siren_train_bwd launch failed: {msg} ({err}); the kernel keeps "
-            f"num_layers tiles of width H in shared memory (H=256 fits 5 layers)")
+        raise RuntimeError(f"siren_train_bwd launch failed: {msg} ({err})")
     siren_chain_train_bwd_cuda.launches += 1
-    return dmods_part.sum(1), dbase, dsw, dsb, dlw, dlb
+    rest = part[:, :, lh:].sum((0, 1))
+    dsb = rest[:layers * hidden].view(layers, 1, hidden)
+    dlw = rest[layers * hidden:lh].view(1, hidden)
+    return part[:, :, :lh].sum(1), dbase, dsw, dsb, dlw, rest[lh:lh + 1].view(1, 1)
 
 
 siren_chain_train_bwd_cuda.launches = 0

@@ -1,12 +1,14 @@
-"""The port's DFT module (``mri_inr_tpu_torch/ops/fft_kernel.py``) against
-the JAX package's: the transform matrices bit for bit, and the plain PyTorch
-version of the CUDA kernel against the Pallas kernel in interpret mode on
-the same seeded inputs.
+"""The port's centred 2-D DFT (``mri_inr_tpu_torch/ops/fft_kernel.py``, a
+mixed-radix FFT) against the JAX package's (dense DFT products, a Pallas
+kernel run in interpret mode) on the same seeded inputs, and its 1-D radix
+plans against numpy's FFT in float64.
 
-Tolerance: both multiply the same float32 matrices and sum in float32 in
-another order, atol 2e-5 on unit-variance data (the JAX package's own bar
-against its FFT, tests/test_fft_kernel.py); the round trip 3e-5. On the CPU
-the wrapper takes the plain version and counts no launch.
+Tolerance: float32 FFT against float32 dense products, atol 2e-5 on
+unit-variance data (the JAX package's own bar against its FFT,
+tests/test_fft_kernel.py); the round trip 3e-5; one plan's 1-D transform
+against numpy's float64 FFT 1e-6 (float32 rounding over log n stages of
+unit-variance data). On the CPU the wrapper takes the plain version and
+counts no launch.
 """
 
 import jax.numpy as jnp
@@ -20,7 +22,7 @@ from mri_inr_tpu_torch.ops import fft_kernel as tfk
 
 torch.set_num_threads(1)
 
-SHAPES = [(3, 64, 64), (3, 96, 64), (3, 63, 33)]
+SHAPES = [(3, 64, 64), (3, 96, 64), (3, 63, 33), (2, 37, 41), (1, 48, 368)]
 
 
 def _ri(shape, seed=0):
@@ -28,20 +30,25 @@ def _ri(shape, seed=0):
     return rng.normal(size=(*shape, 2)).astype(np.float32)
 
 
-@pytest.mark.parametrize("n", [64, 63, 33, 320])
+@pytest.mark.parametrize("n", [1, 2, 33, 37, 63, 320, 368, 640, 641])
 @pytest.mark.parametrize("inverse", [True, False], ids=["inverse", "forward"])
-def test_matrices_are_bit_identical(n, inverse):
-    want = jfk._centered_dft_matrix_np(n, inverse)
-    got = tfk._centered_dft_matrix_np(n, inverse)
-    for g, w in zip(got, want):
-        assert g.dtype == np.float32
-        np.testing.assert_array_equal(g, w)
-    re, im = tfk._matrices(n, inverse, torch.device("cpu"))
-    np.testing.assert_array_equal(re.numpy(), want[0])
-    assert tfk._matrices(n, inverse, torch.device("cpu"))[0] is re  # cached, not rebuilt
-    ri = tfk._matrix_ri(n, inverse, True, torch.device("cpu"))
-    np.testing.assert_array_equal(ri[..., 0].numpy(), want[0].T)
-    np.testing.assert_array_equal(ri[..., 1].numpy(), want[1].T)
+def test_radix_plan_gives_the_centred_fft(n, inverse):
+    plan = tfk.radices(n)
+    assert int(np.prod(plan)) == n
+    assert all(r in (2, 3, 4, 5, 8) or all(r % p for p in range(2, r)) for r in plan)
+    rng = np.random.default_rng(n)
+    v = rng.normal(size=(3, n)) + 1j * rng.normal(size=(3, n))
+    re = torch.from_numpy(v.real.astype(np.float32))
+    im = torch.from_numpy(v.imag.astype(np.float32))
+    gr, gi = tfk._fft_last(re, im, inverse, shift_in=True)
+    f = (np.fft.ifft if inverse else np.fft.fft)(np.fft.ifftshift(v, axes=-1), axis=-1,
+                                                 norm="ortho")
+    want = np.fft.fftshift(f, axes=-1)
+    np.testing.assert_allclose(gr.numpy(), want.real, rtol=0, atol=1e-6)
+    np.testing.assert_allclose(gi.numpy(), want.imag, rtol=0, atol=1e-6)
+    tab = tfk.tables(n, inverse, torch.device("cpu"))
+    assert tab is tfk.tables(n, inverse, torch.device("cpu"))  # cached, not rebuilt
+    assert tab.shape == (sum(r * ns + r for r, ns, _ in tfk._stages(n)), 2)
 
 
 @pytest.mark.parametrize("shape", SHAPES, ids=str)

@@ -15,17 +15,20 @@ polynomial (``sin_bf16``) amplifies such flips: 2e-2 / 1e-3.
 
 The train kernels regenerate the plain version's dropout masks bit for bit,
 so the forward keeps the same bars. The backward's outputs are sums over up
-to B*S rows taken in another order (atomics for the weight-space gradients),
-on top of the same rare bf16 flips: each output is held to
-``2e-3 * max(|plain|, 1)``.
+to B*S rows taken in another order (split-K partials for dW, atomics for
+dbase, dsb, dlw and dlb), on top of the same rare bf16 flips: each output is
+held to ``2e-3 * max(|plain|, 1)``; dmods and dsw, summed in a fixed order,
+must repeat bit for bit across two calls.
 
 The int8 kernel's products are exact in both versions, so they differ only
 where a sine's last bits (the kernel fuses multiply-adds, the plain version
 does not) move a ``floor`` across an integer: one quantum in one
 pre-activation, rarely. Max 1e-3 / mean 1e-5.
 
-The DFT kernel sums f32 products in another order than ``torch.matmul``:
-2e-5 * max(|plain|, 1), the JAX package's bar against the FFT.
+The FFT kernel runs the plain version's stages with fused multiply-adds
+and another radix-R butterfly than its length-R DFT products: 2e-5 *
+max(|plain|, 1), the JAX package's bar against the FFT, against both the
+plain version and ``torch.fft``.
 """
 
 import pytest
@@ -135,6 +138,7 @@ TRAIN_CASES = [
     (128, 4, 24, 7, "sine", False, 0.0),
     (192, 4, 24, 9, "sine", True, 0.1),
     (192, 3, 20, 6, "morlet", True, 0.0),
+    (256, 7, 24, 8, "sine", True, 0.1),  # deeper than a whole-chain tile ring held
 ]
 
 
@@ -170,6 +174,9 @@ def test_train_backward_matches_plain_version(device, hidden, layers, siren, bat
         assert torch.isfinite(a).all(), name
         gap = (a - b).abs().max().item()
         assert gap <= 2e-3 * max(b.abs().max().item(), 1.0), (name, gap)
+    again = stk.siren_chain_train_bwd_cuda(*args, cot, **kw)
+    assert torch.equal(again[0], got[0]), "dmods differs between two calls"
+    assert torch.equal(again[2], got[2]), "dsw differs between two calls"
 
 
 def test_train_op_dispatches_to_both_kernels(device):
@@ -269,7 +276,7 @@ def test_int8_dispatch_and_bad_inputs(device):
 
 # -------------------------------------------------------------- DFT kernel
 DFT_SHAPES = [(3, 64, 64), (3, 96, 64), (3, 63, 33), (2, 320, 320), (2, 640, 320),
-              (1, 17, 640), (5, 1, 1)]
+              (1, 17, 640), (5, 1, 1), (2, 640, 368), (2, 640, 372), (2, 37, 41)]
 
 
 @pytest.mark.parametrize("shape", DFT_SHAPES, ids=str)
