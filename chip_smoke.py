@@ -65,6 +65,7 @@ import importlib.util
 import json
 import math
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -120,6 +121,28 @@ def cuda_median_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
 
 
 # ---------------------------------------------------------------- phase 2
+def warpgroup_registers(build_mod) -> str:
+    """The register split of the forward kernels' warpgroups (setmaxnreg),
+    as siren_fwd.cuh sets it."""
+    text = (build_mod.SRC_DIR / "siren_fwd.cuh").read_text()
+    regs = {k: re.search(rf"{k} = (\d+)", text).group(1)
+            for k in ("PRODUCER_REGS", "CONSUMER_REGS")}
+    return (f"producer warpgroup {regs['PRODUCER_REGS']}, two consumer warpgroups "
+            f"{regs['CONSUMER_REGS']} registers a thread (setmaxnreg)")
+
+
+def kernel_label(entry: str) -> str:
+    """A mangled kernel name, shortened; the forward kernels' template
+    arguments spelled out."""
+    m = re.search(r"forward_kernelILi(\d+)E.*?(Eval|Train)EpilogueILi(\d+)ELb([01])E", entry)
+    if m is None:
+        return entry[-32:]
+    h, kind, deg, morlet = m.groups()
+    sine = "bf16 degree 7" if deg == "0" else f"degree {deg}"
+    return (f"forward_kernel<H={h}, {kind.lower()}, {sine}, "
+            f"{'morlet' if morlet == '1' else 'sine'}>")
+
+
 def build_kernels(build_mod, names: list[str]) -> None:
     if build_mod.BUILD_DIR.is_dir():  # build from the checkout's sources, never a leftover
         for lib in build_mod.BUILD_DIR.glob("lib*.so"):
@@ -129,6 +152,7 @@ def build_kernels(build_mod, names: list[str]) -> None:
         outs = list(pool.map(lambda n: build_mod.build(n)[1], names))
     print(f"build: {len(names)} kernel source(s) in {time.perf_counter() - t0:.1f} s")
     logs = dict(zip(names, outs))
+    roles = warpgroup_registers(build_mod)
     for name, log in logs.items():
         entry, spill = "", ""
         for line in log.splitlines():
@@ -136,9 +160,14 @@ def build_kernels(build_mod, names: list[str]) -> None:
                 entry = line.split("'")[1]
             elif "spill stores" in line:
                 spill = line.strip()
+            elif "warning" in line.lower() or "Performance Loss" in line:
+                print(f"  ptxas {name} {kernel_label(entry)}: {line.strip()}")
             elif "Used" in line and "registers" in line:
-                print(f"  ptxas {name} {entry[-32:]}: {line.split(':', 1)[1].strip()}; "
-                      f"{spill}")
+                # the forward kernels' entries: the launch's count, then the
+                # warpgroups' own split
+                split = f"; {roles}" if "forward_kernel" in entry else ""
+                print(f"  ptxas {name} {kernel_label(entry)}: "
+                      f"{line.split(':', 1)[1].strip()}; {spill}{split}")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -872,13 +901,15 @@ def main() -> int:
     # ---- eval forward kernel
     mods, kp = cmp["inputs"]
     args = (mods, kp.base, kp.s_w, kp.s_b, kp.last_b)
-    kw = dict(num_layers=5, sin7=True, sin5=True)
+    # W^T as the main path hands it over (packed once by make_apply_fn)
+    kw = dict(num_layers=5, sin7=True, sin5=True, s_wt=kp.s_w.transpose(1, 2).contiguous())
     batch, seq, hidden, layers = mods.shape[0], kp.base.shape[0], kp.base.shape[1], 5
     records = [kernel_record(
         "siren_forward", "mri_inr_tpu/ops/siren_kernel.py:156", e2e["launches"],
         cmp["max_abs_err"],
         cuda_median_ms(lambda: sk.siren_forward_cuda(*args, **kw)),
-        cuda_median_ms(lambda: sk.siren_forward_reference(*args, **kw)),
+        cuda_median_ms(lambda: sk.siren_forward_reference(
+            *args, **{k: v for k, v in kw.items() if k != "s_wt"})),
         2 * batch * seq * hidden * hidden * (layers - 1),
         nbytes_of(*args) + batch * seq * 4, card, launches_train_path=trn["eval"])]
     print(f"evaluate_files_device steady: bf16 chain {e2e['bf16_slices_per_sec']:.2f} "
@@ -900,11 +931,13 @@ def main() -> int:
     # ---- train kernels, B=400, dropout 0.1, sin5 (the training default)
     targs, cot = cmp_train["inputs"]
     tkw = dict(num_layers=5, dropout_rate=0.1, sin5=True)
+    # W^T as the train op hands it to the forward (made once a step)
+    s_wt = targs[3].transpose(1, 2).contiguous()
     chain = TRAIN_BATCH * seq * hidden * hidden * (layers - 1)
     records.append(kernel_record(
         "siren_train_fwd", "mri_inr_tpu/ops/siren_train_kernel.py:140", trn["fwd"],
         cmp_train["fwd_err"],
-        cuda_median_ms(lambda: stk.siren_chain_train_fwd_cuda(*targs, **tkw)),
+        cuda_median_ms(lambda: stk.siren_chain_train_fwd_cuda(*targs, **tkw, s_wt=s_wt)),
         cuda_median_ms(lambda: stk.siren_chain_train_fwd_reference(*targs, **tkw), reps=5,
                        warmup=1),
         2 * chain, nbytes_of(*targs) + TRAIN_BATCH * seq * 4, card))
@@ -966,7 +999,7 @@ def main() -> int:
         rest = sum(ms_ for _, ms_ in prof["kernels"][12:])
         print(f"  {rest:8.4f} ms  ({len(prof['kernels']) - 12} more kernels)")
         groups = {"backward chain kernel": "chain_kernel", "backward dW kernel and sum": "dw_",
-                  "forward kernel": "siren_train_fwd",
+                  "forward kernel": "TrainEpilogue",
                   "Adam (multi_tensor_apply kernels)": "multi_tensor_apply"}
         share = {g: sum(ms_ for n, ms_ in prof["kernels"] if key in n)
                  for g, key in groups.items()}

@@ -12,61 +12,59 @@
 // where modproj is the last layer's modulation already multiplied by the
 // projection weights (done by the caller, as in the JAX package).
 //
-// What bounds it: 2 * B * S * H^2 * (L-1) bf16 tensor-core operations
-// (3.1e11 at B=1024, S=576, H=256, L=5) against ~8 MB of input and output,
-// so the products, not memory, set the floor. The sine epilogue is about
-// 15 scalar instructions per activation element and is the second cost.
+// What bounds it on an H100, at the eval shape (B=1024, S=576, H=256, L=5):
+// - the products: 2 * B * S * H^2 * (L-1) = 3.1e11 bf16 tensor-core
+//   operations, 0.31 ms at 989 TFLOP/s; its own input and output are ~9 MB;
+// - the weight stream from L2: every block that computes some rows needs all
+//   (L-1) * H^2 * 2 = 512 KB of hidden weights in shared memory;
+// - the epilogue's scalar work: B * S * H * (L-1) = 6.0e8 activations of
+//   about 13 FP32 instructions each (range reduction with a floor, the
+//   polynomial, bias, w0, modulation, bf16 pack): ~0.23 ms on the FMA pipe,
+//   close to the products' bound, so products and epilogue must overlap.
 //
-// Design (simple and correct first; wgmma, TMA and warp specialisation are
-// later work):
-// - one block per (patch, 64-row tile of S); rows are independent given
-//   their patch's modulation row, so no block talks to another;
-// - the 64 x H activation tile stays in shared memory as bf16 for the whole
-//   chain, written in place by each layer's epilogue (the accumulators are
-//   in registers by then);
-// - the hidden weights (H x H bf16 each, 512 KB for four at H=256, more than
-//   a block's shared memory) stream through a 3-stage cp.async ring of
-//   32-row K-slabs; the slab sequence runs across layer boundaries, so the
-//   next layer's first slabs load under the current layer's last products;
-// - products are mma.sync m16n8k16 bf16 -> f32, operands fed by ldmatrix
-//   from rows padded by 16 bytes (conflict-free);
-// - 8 warps as 2 (rows) x 4 (columns): a warp owns 32 rows x H/4 columns,
-//   so the epilogue (bias, polynomial sine with the floor(v + 0.5) range
-//   reduction, Morlet envelope, modulation, bf16 rounding) runs on the
-//   accumulator registers where their layout is known;
-// - the last layer reduces over H in registers, across the 4 lanes of a
-//   quad with shuffles, then across the 4 column warps in shared memory.
+// Design (siren_fwd.cuh, the TPU kernel's `streams=2` in Hopper's idiom): a
+// persistent block per SM with a producer warpgroup streaming W^T slabs by
+// TMA into a 6-stage ring (at H=256, L=5) and two consumer warpgroups, each
+// owning a 64-row tile; wgmma m64nHk16 with the activations as register A
+// fragments, so a slab loaded once serves 128 rows (2.4 GB from L2 a call at
+// B=1024, half of the earlier design's 4.8 GB); the consumers take turns at
+// the tensor cores, so one's epilogue runs under the other's products. This
+// file holds the eval epilogue: the hidden sine mode (degree 5, 7, 9, or
+// degree 7 in bf16) and the activation (sine or Morlet) are template
+// arguments; the projection with modproj is folded into the last layer's
+// epilogue, a row's sum over H lying in one quad of lanes.
+//
+// What it reads (PERF.md, one H100 at 700 W; chip_smoke.py and
+// scripts/torch_fwd_cut_probe.py): 0.80-0.86 ms a call at B=1024, 36-39% of
+// the bound. A consumer's epilogue of a hidden layer takes about 3,400 SM
+// cycles against the 2,048 its products need at the tensor cores' peak, and
+// each tile starts with about 7,700 cycles of modulations and x_0: the
+// epilogues, not the weight stream (cutting the TMA loads saves 2%), set the
+// pace.
+//
+// The earlier design: one block of 8 warps per (patch, 64-row tile),
+// mma.sync m16n8k16 fed by ldmatrix, the weights through a 3-stage cp.async
+// ring of 32-row slabs per block (4.8 GB from L2 a call), a __syncthreads
+// per slab and no overlap of products and epilogue inside a block: 1.82 ms
+// a call at B=1024, 17% of the bound (one H100 at 700 W, PERF.md).
 //
 // Built with nvcc into a shared library with a plain C interface; the
 // Python wrapper (ops/siren_kernel.py) checks every tensor and calls
 // siren_forward_launch through ctypes on PyTorch's current stream.
 
-#include "siren_common.cuh"
+#include "siren_fwd.cuh"
 
 namespace {
 
 using namespace siren;
 
-constexpr int TM = 64;        // rows of S per block
-constexpr int KS = 32;        // weight rows per pipeline stage
-constexpr int STAGES = 3;     // cp.async ring depth
-constexpr int THREADS = 256;  // 8 warps: 2 row groups x 4 column groups
-constexpr int PAD = 8;        // bf16 padding per shared row (16 bytes)
-
 // Hidden-layer sine variants (the MODE template argument).
 constexpr int SIN_BF16 = 0;  // degree 7, polynomial evaluated in bf16
 
-struct Args {
-  const float* mods;           // (B, L*H) f32; block L-1 is modproj
-  const float* base;           // (S, H) f32
-  const __nv_bfloat16* sw;     // (L-1, H, H) bf16, (in, out) per layer
-  const float* sb;             // (L-1, H) f32
-  const float* last_b;         // (1,) f32
-  float* out;                  // (B, S) f32
-  int S;
-  int L;
+struct EvalArgs {
+  siren_fwd::Common common;  // mods: (B, L*H) f32, block L-1 is modproj
+  const float* last_b;       // (1,) f32
   float w0;
-  int morlet;
   int round_mods;  // hidden modulations rounded to bf16 (sin_bf16 mode)
   int out_deg;     // 7 or 9
 };
@@ -92,219 +90,57 @@ __device__ __forceinline__ float hidden_sin(float x) {
   return sin7_bf16(x);
 }
 
-template <int MODE>
-__device__ __forceinline__ float activation(float pre, float w0, int morlet) {
-  float a = hidden_sin<MODE>(w0 * pre);
-  if (morlet) a *= expf(-0.5f * (pre * pre));
-  return a;
-}
+template <int MODE, bool MORLET>
+struct EvalEpilogue {
+  using Args = EvalArgs;
+  static constexpr int EXTRA = 0;  // no H-wide vectors beyond the biases
+  static __device__ void load_extra(const Args&, float*, int, int, int) {}
 
-template <int H>
-__host__ __device__ constexpr int row_stride() {
-  return H + PAD;
-}
+  float w0, last_b;
+  int L, round_mods, out_deg;
+  __device__ EvalEpilogue(const Args& a, const float*)
+      : w0(a.w0), last_b(a.last_b[0]), L(a.common.L), round_mods(a.round_mods),
+        out_deg(a.out_deg) {}
 
-// Bytes of dynamic shared memory for width H and depth L.
-template <int H>
-size_t smem_bytes(int L) {
-  return sizeof(__nv_bfloat16) * (size_t)(TM + STAGES * KS) * row_stride<H>() +
-         sizeof(float) * ((size_t)L * H + (size_t)(L - 1) * H + 4 * TM);
-}
-
-template <int H>
-__device__ __forceinline__ void load_slab(__nv_bfloat16* stage, const __nv_bfloat16* sw,
-                                          int slab, int tid) {
-  constexpr int SLABS_PER_LAYER = H / KS;
-  constexpr int CHUNKS_PER_ROW = H / 8;  // 16-byte chunks
-  const int layer = slab / SLABS_PER_LAYER;
-  const int k0 = (slab % SLABS_PER_LAYER) * KS;
-  const __nv_bfloat16* src = sw + (size_t)layer * H * H + (size_t)k0 * H;
-  for (int c = tid; c < KS * CHUNKS_PER_ROW; c += THREADS) {
-    const int r = c / CHUNKS_PER_ROW, col = (c % CHUNKS_PER_ROW) * 8;
-    cp_async16(stage + r * row_stride<H>() + col, src + (size_t)r * H + col);
+  __device__ __forceinline__ float act(float pre) const {
+    float a = hidden_sin<MODE>(w0 * pre);
+    if (MORLET) a *= expf(-0.5f * (pre * pre));
+    return a;
   }
-}
+  __device__ __forceinline__ float stage_mod(float m, int layer) const {
+    return round_mods && layer >= 1 && layer < L - 1 ? bf16_round(m) : m;
+  }
+  __device__ __forceinline__ uint32_t layer_off(int) const { return 0; }
+  __device__ __forceinline__ float x0(float v, float mod, uint32_t, uint32_t) const {
+    return v * mod;
+  }
+  __device__ __forceinline__ float hidden(float pre, float mod, uint32_t, uint32_t) const {
+    return act(pre) * mod;
+  }
+  __device__ __forceinline__ float last(float pre, float modproj, int, uint32_t,
+                                        uint32_t) const {
+    return act(pre) * modproj;
+  }
+  __device__ __forceinline__ float out(float r) const {
+    const float z = w0 * (r + last_b);
+    return out_deg == 9 ? sin9(z) : sin7(z);
+  }
+};
 
 template <int H, int MODE>
-__global__ void __launch_bounds__(THREADS, 2) siren_forward_kernel(Args args) {
-  static_assert(H % 64 == 0 && H <= 256, "H must be a multiple of 64, at most 256");
-  constexpr int LDS = row_stride<H>();
-  constexpr int WN = H / 4;      // columns per warp
-  constexpr int NT = WN / 8;     // n-tiles of 8 per warp
-  constexpr int SLABS_PER_LAYER = H / KS;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // TM x LDS
-  __nv_bfloat16* ws = xs + TM * LDS;                           // STAGES x KS x LDS
-  float* mod_s = reinterpret_cast<float*>(ws + STAGES * KS * LDS);  // L x H
-  float* bias_s = mod_s + args.L * H;                               // (L-1) x H
-  float* red_s = bias_s + (args.L - 1) * H;                         // 4 x TM
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp >> 2, warp_n = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-
-  const int tiles = (args.S + TM - 1) / TM;
-  const int b = blockIdx.x / tiles;
-  const int row0 = (blockIdx.x % tiles) * TM;
-  const int L = args.L;
-  const int nslab = (L - 1) * SLABS_PER_LAYER;
-
-  // start the weight stream first: it is the longest wait
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nslab) load_slab<H>(ws + s * KS * LDS, args.sw, s, tid);
-    cp_async_commit();
-  }
-
-  const float* mrow = args.mods + (size_t)b * L * H;
-  for (int i = tid; i < L * H; i += THREADS) {
-    const int layer = i / H;
-    float m = mrow[i];
-    if (args.round_mods && layer >= 1 && layer < L - 1) m = bf16_round(m);
-    mod_s[i] = m;
-  }
-  for (int i = tid; i < (L - 1) * H; i += THREADS) bias_s[i] = args.sb[i];
-  __syncthreads();
-
-  // x_0 = bf16(base * mod_0); rows past S are zero and never stored
-  for (int i = tid; i < TM * (H / 4); i += THREADS) {
-    const int r = i / (H / 4), c = (i % (H / 4)) * 4;
-    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < args.S)
-      v = *reinterpret_cast<const float4*>(args.base + (size_t)(row0 + r) * H + c);
-    __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(xs + r * LDS + c);
-    dst[0] = __floats2bfloat162_rn(v.x * mod_s[c], v.y * mod_s[c + 1]);
-    dst[1] = __floats2bfloat162_rn(v.z * mod_s[c + 2], v.w * mod_s[c + 3]);
-  }
-
-  float acc[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  for (int slab = 0; slab < nslab; ++slab) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slab arrived for all threads; previous stage is free
-    {
-      const int next = slab + STAGES - 1;
-      if (next < nslab) load_slab<H>(ws + (next % STAGES) * KS * LDS, args.sw, next, tid);
-      cp_async_commit();
-    }
-
-    const __nv_bfloat16* wst = ws + (slab % STAGES) * KS * LDS;
-    const int kbase = (slab % SLABS_PER_LAYER) * KS;
-#pragma unroll
-    for (int kk = 0; kk < KS; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = warp_m * 32 + mt * 16 + (lane & 15);
-        ldmatrix_x4(a[mt], xs + r * LDS + kbase + kk + 8 * (lane >> 4));
-      }
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bfr[4];
-        const int n0 = warp_n * WN + np * 16;
-        ldmatrix_x4_trans(bfr, wst + (kk + (lane & 15)) * LDS + n0 + 8 * (lane >> 4));
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], bfr[0], bfr[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], bfr[2], bfr[3]);
-        }
-      }
-    }
-
-    if ((slab + 1) % SLABS_PER_LAYER != 0) continue;
-
-    // ---- epilogue of hidden layer `layer` ----
-    const int layer = slab / SLABS_PER_LAYER;
-    const float* bias = bias_s + layer * H;
-    __syncthreads();  // every warp has finished reading xs for this layer
-
-    if (layer < L - 2) {
-      const float* mod = mod_s + (layer + 1) * H;
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int c = warp_n * WN + nt * 8 + 2 * t;
-#pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int r = warp_m * 32 + mt * 16 + g + 8 * half;
-            float& v0 = acc[mt][nt][2 * half];
-            float& v1 = acc[mt][nt][2 * half + 1];
-            const float x0 = activation<MODE>(v0 + bias[c], args.w0, args.morlet) * mod[c];
-            const float x1 = activation<MODE>(v1 + bias[c + 1], args.w0, args.morlet) * mod[c + 1];
-            *reinterpret_cast<__nv_bfloat162*>(xs + r * LDS + c) =
-                __floats2bfloat162_rn(x0, x1);
-            v0 = 0.f;
-            v1 = 0.f;
-          }
-        }
-      }
-      continue;  // the next iteration's barrier publishes xs
-    }
-
-    // ---- last hidden layer: projection reduction + output sine ----
-    const float* modproj = mod_s + (L - 1) * H;
-    float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int c = warp_n * WN + nt * 8 + 2 * t;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
-          part[mt][half] +=
-              activation<MODE>(v0 + bias[c], args.w0, args.morlet) * modproj[c] +
-              activation<MODE>(v1 + bias[c + 1], args.w0, args.morlet) * modproj[c + 1];
-        }
-      }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float p = part[mt][half];
-        p += __shfl_xor_sync(0xffffffffu, p, 1);
-        p += __shfl_xor_sync(0xffffffffu, p, 2);
-        if (t == 0) red_s[warp_n * TM + warp_m * 32 + mt * 16 + g + 8 * half] = p;
-      }
-    __syncthreads();
-    if (tid < TM && row0 + tid < args.S) {
-      const float r = red_s[tid] + red_s[TM + tid] + red_s[2 * TM + tid] +
-                      red_s[3 * TM + tid] + args.last_b[0];
-      const float z = args.w0 * r;
-      args.out[(size_t)b * args.S + row0 + tid] = args.out_deg == 9 ? sin9(z) : sin7(z);
-    }
-  }
-}
-
-template <int H, int MODE>
-cudaError_t launch(const Args& args, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<H>(args.L);
-  cudaError_t err = cudaFuncSetAttribute(siren_forward_kernel<H, MODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)B * ((args.S + TM - 1) / TM);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  siren_forward_kernel<H, MODE><<<(unsigned)blocks, THREADS, smem, stream>>>(args);
-  return cudaGetLastError();
+cudaError_t launch_act(const EvalArgs& args, int morlet, const void* swt, cudaStream_t stream) {
+  return morlet ? siren_fwd::launch<H, EvalEpilogue<MODE, true>>(args, swt, stream)
+                : siren_fwd::launch<H, EvalEpilogue<MODE, false>>(args, swt, stream);
 }
 
 template <int H>
-cudaError_t launch_mode(const Args& args, int B, int mode, cudaStream_t stream) {
+cudaError_t launch_mode(const EvalArgs& args, int mode, int morlet, const void* swt,
+                        cudaStream_t stream) {
   switch (mode) {
-    case 5: return launch<H, 5>(args, B, stream);
-    case 7: return launch<H, 7>(args, B, stream);
-    case 9: return launch<H, 9>(args, B, stream);
-    case SIN_BF16: return launch<H, SIN_BF16>(args, B, stream);
+    case 5: return launch_act<H, 5>(args, morlet, swt, stream);
+    case 7: return launch_act<H, 7>(args, morlet, swt, stream);
+    case 9: return launch_act<H, 9>(args, morlet, swt, stream);
+    case SIN_BF16: return launch_act<H, SIN_BF16>(args, morlet, swt, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -312,32 +148,27 @@ cudaError_t launch_mode(const Args& args, int B, int mode, cudaStream_t stream) 
 }  // namespace
 
 // Returns a cudaError_t (0 = launched). Pointers are device pointers to
-// contiguous tensors; mode is 5, 7 or 9 (hidden sine degree) or 0 (degree
-// 7 in bf16); out_deg is 7 or 9.
-extern "C" int siren_forward_launch(const void* mods, const void* base, const void* sw,
+// contiguous tensors; swt is the hidden weights transposed, (L-1, H, H) bf16
+// (out, in) per layer, 16-byte aligned; mode is 5, 7 or 9 (hidden sine
+// degree) or 0 (degree 7 in bf16); out_deg is 7 or 9.
+extern "C" int siren_forward_launch(const void* mods, const void* base, const void* swt,
                                     const void* sb, const void* last_b, void* out, int B,
                                     int S, int H, int L, float w0, int morlet, int mode,
                                     int round_mods, int out_deg, void* stream) {
   if (B <= 0 || S <= 0 || L < 2 || (out_deg != 7 && out_deg != 9))
     return (int)cudaErrorInvalidValue;
-  Args args{static_cast<const float*>(mods),
-            static_cast<const float*>(base),
-            static_cast<const __nv_bfloat16*>(sw),
-            static_cast<const float*>(sb),
+  EvalArgs args{{static_cast<const float*>(mods), static_cast<const float*>(base),
+             static_cast<const float*>(sb), static_cast<float*>(out), B, S, L, 0},
             static_cast<const float*>(last_b),
-            static_cast<float*>(out),
-            S,
-            L,
             w0,
-            morlet,
             round_mods,
             out_deg};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H) {
-    case 64: return (int)launch_mode<64>(args, B, mode, st);
-    case 128: return (int)launch_mode<128>(args, B, mode, st);
-    case 192: return (int)launch_mode<192>(args, B, mode, st);
-    case 256: return (int)launch_mode<256>(args, B, mode, st);
+    case 64: return (int)launch_mode<64>(args, mode, morlet, swt, st);
+    case 128: return (int)launch_mode<128>(args, mode, morlet, swt, st);
+    case 192: return (int)launch_mode<192>(args, mode, morlet, swt, st);
+    case 256: return (int)launch_mode<256>(args, mode, morlet, swt, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

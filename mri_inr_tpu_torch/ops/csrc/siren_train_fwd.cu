@@ -14,260 +14,111 @@
 // degree-5 or the degree-9 polynomial (the DEG template argument) in the
 // hidden layers and at the output alike. Unlike the eval kernel the last
 // modulation is applied (and rounded to bf16) before the projection, as the
-// TPU kernel does.
+// TPU kernel does. The dropout bit of element (b, s, col) is hashed from its
+// global index (b * S + s) * H + col, so the backward kernel regenerates it.
 //
-// What bounds it: 2 * B * S * H^2 * (L-1) bf16 tensor-core operations
-// (1.2e11 at B=400, S=576, H=256, L=5) against a few MB of input and output.
+// What bounds it on an H100, at the training shape (B=400, S=576, H=256,
+// L=5, dropout 0.1, degree 5): the products, 2 * B * S * H^2 * (L-1) =
+// 1.2e11 bf16 tensor-core operations (0.12 ms at 989 TFLOP/s), against a
+// few MB of input and output; the weight stream from L2 (512 KB of hidden
+// weights for every block's rows); and the epilogue's scalar work, 2.4e8
+// activations of about 17 instructions each with the dropout hash, ~0.11 ms
+// on the FMA pipe: as in the eval kernel, products and epilogue must
+// overlap.
 //
-// Design: the eval kernel's (siren_forward.cu). One block per (patch, 64-row
-// tile of S); the activation tile lives in shared memory as bf16 and is
-// overwritten in place by each layer's epilogue; the hidden weights stream
-// through a 3-stage cp.async ring of 32-row K-slabs that runs across layer
-// boundaries; mma.sync m16n8k16 with ldmatrix operands; 8 warps as 2 (rows)
-// x 4 (columns) so the epilogue knows each accumulator's (row, column) and
-// can hash its dropout bit from the global element index
-// (b * S + s) * H + column.
+// Design: the eval kernel's (siren_fwd.cuh): a persistent block per SM, a
+// producer warpgroup streaming W^T slabs by TMA into a 6-stage ring, two
+// consumer warpgroups on 64-row tiles taking turns at the tensor cores
+// (wgmma m64nHk16, activations as register A fragments), so a slab serves
+// 128 rows (0.94 GB from L2 a call at B=400, from 1.9 GB) and one tile's
+// epilogue runs under the other's products. This file holds the training
+// epilogue: the dropout hash, modulation and bf16 rounding after every
+// activation, and the projection with last_w in the last layer's epilogue;
+// the sine degree and the activation (sine or Morlet) are template
+// arguments.
+//
+// What it reads (PERF.md, one H100 at 700 W; chip_smoke.py and
+// scripts/torch_fwd_cut_probe.py): 0.45-0.53 ms a call at B=400, 23-27% of
+// the bound. A hidden layer's epilogue, with the hash, takes about 6,600 SM
+// cycles against the 2,048 of its products at peak: the epilogues set the
+// pace.
+//
+// The earlier design: the eval kernel's first one, one block of 8
+// warps per (patch, 64-row tile), mma.sync fed by ldmatrix, a 3-stage
+// cp.async ring per block: 1.01 ms a call at B=400, 12% of the bound (one
+// H100 at 700 W, PERF.md).
 
-#include "siren_common.cuh"
+#include "siren_fwd.cuh"
 
 namespace {
 
 using namespace siren;
 
-constexpr int TM = 64;        // rows of S per block
-constexpr int KS = 32;        // weight rows per pipeline stage
-constexpr int STAGES = 3;     // cp.async ring depth
-constexpr int THREADS = 256;  // 8 warps: 2 row groups x 4 column groups
-constexpr int PAD = 8;        // bf16 padding per shared row (16 bytes)
-
-struct Args {
-  const float* seed;           // (1,) f32 holding an integer
-  const float* mods;           // (B, L*H) f32
-  const float* base;           // (S, H) f32
-  const __nv_bfloat16* sw;     // (L-1, H, H) bf16, (in, out) per layer
-  const float* sb;             // (L-1, H) f32
-  const float* last_w;         // (H,) f32
-  const float* last_b;         // (1,) f32
-  float* out;                  // (B, S) f32
-  int S;
-  int L;
+struct TrainArgs {
+  siren_fwd::Common common;  // mods: (B, L*H) f32
+  const float* seed;         // (1,) f32 holding an integer
+  const float* last_w;       // (H,) f32
+  const float* last_b;       // (1,) f32
   float w0;
-  int morlet;
   int32_t thresh;   // keep where (int32)hash < thresh
   float inv_keep;   // 1 / keep
   int dropout;      // 0: rate 0, no mask
 };
 
-template <int DEG>
-__device__ __forceinline__ float activation(float pre, float w0, int morlet) {
-  float a = poly_sin<DEG>(w0 * pre);
-  if (morlet) a *= expf(-0.5f * (pre * pre));
-  return a;
-}
-
-template <int H>
-__host__ __device__ constexpr int row_stride() {
-  return H + PAD;
-}
-
-// Bytes of dynamic shared memory for width H and depth L.
-template <int H>
-size_t smem_bytes(int L) {
-  return sizeof(__nv_bfloat16) * (size_t)(TM + STAGES * KS) * row_stride<H>() +
-         sizeof(float) * ((size_t)L * H + (size_t)(L - 1) * H + H + 4 * TM);
-}
-
-template <int H>
-__device__ __forceinline__ void load_slab(__nv_bfloat16* stage, const __nv_bfloat16* sw,
-                                          int slab, int tid) {
-  constexpr int SLABS_PER_LAYER = H / KS;
-  constexpr int CHUNKS_PER_ROW = H / 8;  // 16-byte chunks
-  const int layer = slab / SLABS_PER_LAYER;
-  const int k0 = (slab % SLABS_PER_LAYER) * KS;
-  const __nv_bfloat16* src = sw + (size_t)layer * H * H + (size_t)k0 * H;
-  for (int c = tid; c < KS * CHUNKS_PER_ROW; c += THREADS) {
-    const int r = c / CHUNKS_PER_ROW, col = (c % CHUNKS_PER_ROW) * 8;
-    cp_async16(stage + r * row_stride<H>() + col, src + (size_t)r * H + col);
+template <int DEG, bool MORLET>
+struct TrainEpilogue {
+  using Args = TrainArgs;
+  static constexpr int EXTRA = 1;  // last_w
+  static __device__ void load_extra(const Args& a, float* extra, int H, int tid, int threads) {
+    for (int i = tid; i < H; i += threads) extra[i] = a.last_w[i];
   }
-}
+
+  Dropout dp;
+  const float* lw;
+  float w0, last_b;
+  __device__ TrainEpilogue(const Args& a, const float* extra)
+      : dp{(uint32_t)(int)a.seed[0], a.thresh, a.inv_keep, a.dropout},
+        lw(extra),
+        w0(a.w0),
+        last_b(a.last_b[0]) {}
+
+  __device__ __forceinline__ float act(float pre) const {
+    float a = poly_sin<DEG>(w0 * pre);
+    if (MORLET) a *= expf(-0.5f * (pre * pre));
+    return a;
+  }
+  __device__ __forceinline__ float stage_mod(float m, int) const { return m; }
+  __device__ __forceinline__ uint32_t layer_off(int layer) const {
+    return layer_offset(dp, layer);
+  }
+  __device__ __forceinline__ float x0(float v, float mod, uint32_t e, uint32_t off) const {
+    return __fmul_rn(drop(dp, v, e, off), mod);
+  }
+  __device__ __forceinline__ float hidden(float pre, float mod, uint32_t e,
+                                          uint32_t off) const {
+    return __fmul_rn(drop(dp, act(pre), e, off), mod);
+  }
+  // x_{L-1}, rounded to bf16 as the layers before, times last_w
+  __device__ __forceinline__ float last(float pre, float mod, int col, uint32_t e,
+                                        uint32_t off) const {
+    return bf16_round(hidden(pre, mod, e, off)) * lw[col];
+  }
+  __device__ __forceinline__ float out(float r) const { return poly_sin<DEG>(w0 * (r + last_b)); }
+};
 
 template <int H, int DEG>
-__global__ void __launch_bounds__(THREADS, 2) siren_train_fwd_kernel(Args args) {
-  static_assert(H % 64 == 0 && H <= 256, "H must be a multiple of 64, at most 256");
-  constexpr int LDS = row_stride<H>();
-  constexpr int WN = H / 4;      // columns per warp
-  constexpr int NT = WN / 8;     // n-tiles of 8 per warp
-  constexpr int SLABS_PER_LAYER = H / KS;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(smem);  // TM x LDS
-  __nv_bfloat16* ws = xs + TM * LDS;                           // STAGES x KS x LDS
-  float* mod_s = reinterpret_cast<float*>(ws + STAGES * KS * LDS);  // L x H
-  float* bias_s = mod_s + args.L * H;                               // (L-1) x H
-  float* lw_s = bias_s + (args.L - 1) * H;                          // H
-  float* red_s = lw_s + H;                                          // 4 x TM
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp >> 2, warp_n = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-
-  const int tiles = (args.S + TM - 1) / TM;
-  const int b = blockIdx.x / tiles;
-  const int row0 = (blockIdx.x % tiles) * TM;
-  const int L = args.L;
-  const int nslab = (L - 1) * SLABS_PER_LAYER;
-
-  // start the weight stream first: it is the longest wait
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nslab) load_slab<H>(ws + s * KS * LDS, args.sw, s, tid);
-    cp_async_commit();
-  }
-
-  const Dropout dp{(uint32_t)(int)args.seed[0], args.thresh, args.inv_keep, args.dropout};
-  // global element index of (row r of this tile, column 0), 32-bit wraparound
-  const uint32_t idx0 = ((uint32_t)b * (uint32_t)args.S + (uint32_t)row0) * (uint32_t)H;
-
-  const float* mrow = args.mods + (size_t)b * L * H;
-  for (int i = tid; i < L * H; i += THREADS) mod_s[i] = mrow[i];
-  for (int i = tid; i < (L - 1) * H; i += THREADS) bias_s[i] = args.sb[i];
-  for (int i = tid; i < H; i += THREADS) lw_s[i] = args.last_w[i];
-  __syncthreads();
-
-  // x_0 = bf16(drop_0(base) * mod_0); rows past S are zero and never stored
-  {
-    const uint32_t off = layer_offset(dp, 0);
-    for (int i = tid; i < TM * (H / 4); i += THREADS) {
-      const int r = i / (H / 4), c = (i % (H / 4)) * 4;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (row0 + r < args.S)
-        v = *reinterpret_cast<const float4*>(args.base + (size_t)(row0 + r) * H + c);
-      const uint32_t e = idx0 + (uint32_t)(r * H + c);
-      __nv_bfloat162* dst = reinterpret_cast<__nv_bfloat162*>(xs + r * LDS + c);
-      dst[0] = __floats2bfloat162_rn(__fmul_rn(drop(dp, v.x, e, off), mod_s[c]),
-                                     __fmul_rn(drop(dp, v.y, e + 1, off), mod_s[c + 1]));
-      dst[1] = __floats2bfloat162_rn(__fmul_rn(drop(dp, v.z, e + 2, off), mod_s[c + 2]),
-                                     __fmul_rn(drop(dp, v.w, e + 3, off), mod_s[c + 3]));
-    }
-  }
-
-  float acc[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
-
-  for (int slab = 0; slab < nslab; ++slab) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slab arrived for all threads; previous stage is free
-    {
-      const int next = slab + STAGES - 1;
-      if (next < nslab) load_slab<H>(ws + (next % STAGES) * KS * LDS, args.sw, next, tid);
-      cp_async_commit();
-    }
-
-    const __nv_bfloat16* wst = ws + (slab % STAGES) * KS * LDS;
-    const int kbase = (slab % SLABS_PER_LAYER) * KS;
-#pragma unroll
-    for (int kk = 0; kk < KS; kk += 16) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = warp_m * 32 + mt * 16 + (lane & 15);
-        ldmatrix_x4(a[mt], xs + r * LDS + kbase + kk + 8 * (lane >> 4));
-      }
-#pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        uint32_t bfr[4];
-        const int n0 = warp_n * WN + np * 16;
-        ldmatrix_x4_trans(bfr, wst + (kk + (lane & 15)) * LDS + n0 + 8 * (lane >> 4));
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_bf16(acc[mt][2 * np], a[mt], bfr[0], bfr[1]);
-          mma_bf16(acc[mt][2 * np + 1], a[mt], bfr[2], bfr[3]);
-        }
-      }
-    }
-
-    if ((slab + 1) % SLABS_PER_LAYER != 0) continue;
-
-    // ---- epilogue of hidden product `layer`: x_{layer+1} ----
-    const int layer = slab / SLABS_PER_LAYER;
-    const float* bias = bias_s + layer * H;
-    const float* mod = mod_s + (layer + 1) * H;
-    const uint32_t off = layer_offset(dp, layer + 1);
-    const bool last = layer == L - 2;
-    __syncthreads();  // every warp has finished reading xs for this layer
-
-    float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt) {
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int c = warp_n * WN + nt * 8 + 2 * t;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const int r = warp_m * 32 + mt * 16 + g + 8 * half;
-          const uint32_t e = idx0 + (uint32_t)(r * H + c);
-          float& v0 = acc[mt][nt][2 * half];
-          float& v1 = acc[mt][nt][2 * half + 1];
-          const float a0 = activation<DEG>(v0 + bias[c], args.w0, args.morlet);
-          const float a1 = activation<DEG>(v1 + bias[c + 1], args.w0, args.morlet);
-          const __nv_bfloat162 x = __floats2bfloat162_rn(
-              __fmul_rn(drop(dp, a0, e, off), mod[c]),
-              __fmul_rn(drop(dp, a1, e + 1, off), mod[c + 1]));
-          if (last) {
-            part[mt][half] += __low2float(x) * lw_s[c] + __high2float(x) * lw_s[c + 1];
-          } else {
-            *reinterpret_cast<__nv_bfloat162*>(xs + r * LDS + c) = x;
-          }
-          v0 = 0.f;
-          v1 = 0.f;
-        }
-      }
-    }
-    if (!last) continue;  // the next iteration's barrier publishes xs
-
-    // ---- projection: reduce over H, then the output sine ----
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float p = part[mt][half];
-        p += __shfl_xor_sync(0xffffffffu, p, 1);
-        p += __shfl_xor_sync(0xffffffffu, p, 2);
-        if (t == 0) red_s[warp_n * TM + warp_m * 32 + mt * 16 + g + 8 * half] = p;
-      }
-    __syncthreads();
-    if (tid < TM && row0 + tid < args.S) {
-      const float r = red_s[tid] + red_s[TM + tid] + red_s[2 * TM + tid] +
-                      red_s[3 * TM + tid] + args.last_b[0];
-      args.out[(size_t)b * args.S + row0 + tid] = poly_sin<DEG>(args.w0 * r);
-    }
-  }
-}
-
-template <int H, int DEG>
-cudaError_t launch(const Args& args, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<H>(args.L);
-  cudaError_t err = cudaFuncSetAttribute(siren_train_fwd_kernel<H, DEG>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (long long)B * ((args.S + TM - 1) / TM);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  siren_train_fwd_kernel<H, DEG><<<(unsigned)blocks, THREADS, smem, stream>>>(args);
-  return cudaGetLastError();
+cudaError_t launch_act(const TrainArgs& args, int morlet, const void* swt,
+                       cudaStream_t stream) {
+  return morlet ? siren_fwd::launch<H, TrainEpilogue<DEG, true>>(args, swt, stream)
+                : siren_fwd::launch<H, TrainEpilogue<DEG, false>>(args, swt, stream);
 }
 
 template <int H>
-cudaError_t launch_deg(const Args& args, int B, int deg, cudaStream_t stream) {
+cudaError_t launch_deg(const TrainArgs& args, int deg, int morlet, const void* swt,
+                       cudaStream_t stream) {
   switch (deg) {
-    case 5: return launch<H, 5>(args, B, stream);
-    case 9: return launch<H, 9>(args, B, stream);
+    case 5: return launch_act<H, 5>(args, morlet, swt, stream);
+    case 9: return launch_act<H, 9>(args, morlet, swt, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -275,35 +126,31 @@ cudaError_t launch_deg(const Args& args, int B, int deg, cudaStream_t stream) {
 }  // namespace
 
 // Returns a cudaError_t (0 = launched). Pointers are device pointers to
-// contiguous tensors; deg is 5 or 9 (sine degree, hidden and output);
-// dropout is 0 (no mask) or 1 (keep where hash < thresh, scale by inv_keep).
+// contiguous tensors; swt is the hidden weights transposed, (L-1, H, H) bf16
+// (out, in) per layer, 16-byte aligned; deg is 5 or 9 (sine degree, hidden
+// and output); dropout is 0 (no mask) or 1 (keep where hash < thresh, scale
+// by inv_keep).
 extern "C" int siren_train_fwd_launch(const void* seed, const void* mods, const void* base,
-                                      const void* sw, const void* sb, const void* last_w,
+                                      const void* swt, const void* sb, const void* last_w,
                                       const void* last_b, void* out, int B, int S, int H,
                                       int L, float w0, int morlet, int deg, int dropout,
                                       int thresh, float inv_keep, void* stream) {
   if (B <= 0 || S <= 0 || L < 2) return (int)cudaErrorInvalidValue;
-  Args args{static_cast<const float*>(seed),
-            static_cast<const float*>(mods),
-            static_cast<const float*>(base),
-            static_cast<const __nv_bfloat16*>(sw),
-            static_cast<const float*>(sb),
-            static_cast<const float*>(last_w),
-            static_cast<const float*>(last_b),
-            static_cast<float*>(out),
-            S,
-            L,
-            w0,
-            morlet,
-            (int32_t)thresh,
-            inv_keep,
-            dropout};
+  TrainArgs args{{static_cast<const float*>(mods), static_cast<const float*>(base),
+                  static_cast<const float*>(sb), static_cast<float*>(out), B, S, L, 0},
+                 static_cast<const float*>(seed),
+                 static_cast<const float*>(last_w),
+                 static_cast<const float*>(last_b),
+                 w0,
+                 (int32_t)thresh,
+                 inv_keep,
+                 dropout};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H) {
-    case 64: return (int)launch_deg<64>(args, B, deg, st);
-    case 128: return (int)launch_deg<128>(args, B, deg, st);
-    case 192: return (int)launch_deg<192>(args, B, deg, st);
-    case 256: return (int)launch_deg<256>(args, B, deg, st);
+    case 64: return (int)launch_deg<64>(args, deg, morlet, swt, st);
+    case 128: return (int)launch_deg<128>(args, deg, morlet, swt, st);
+    case 192: return (int)launch_deg<192>(args, deg, morlet, swt, st);
+    case 256: return (int)launch_deg<256>(args, deg, morlet, swt, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -13,8 +13,9 @@ polynomial-sine + FiLM epilogue. The split is the JAX package's:
 - the last layer's modulation is multiplied by the projection weights
   before the kernel, so the kernel ends in ``sum_h act * modproj``;
 - :func:`siren_forward` runs the chain: the hand-written CUDA kernel
-  ``csrc/siren_forward.cu`` for tensors on the card, its plain PyTorch
-  version :func:`siren_forward_reference` for tensors on the CPU.
+  ``csrc/siren_forward.cu`` for tensors on the card (it reads the hidden
+  weights transposed, ``s_wt``), its plain PyTorch version
+  :func:`siren_forward_reference` for tensors on the CPU.
 
 Numeric knobs as in the JAX kernel: the hidden sine is degree 5 with
 ``sin5``, else the bf16-tail degree 7 with ``sin_bf16``, else degree 7 with
@@ -22,7 +23,9 @@ Numeric knobs as in the JAX kernel: the hidden sine is degree 5 with
 bf16; the output sine is degree 7 when any of the three is set, else 9.
 ``block_b`` pads the batch like the TPU grid does. ``streams`` and ``ksplit``
 are TPU schedule knobs that only change the order of summation; they are
-validated as in the JAX package and otherwise ignored.
+validated as in the JAX package and otherwise ignored (the CUDA kernel's
+two consumer warpgroups always interleave two row tiles, as ``streams=2``
+interleaves two row halves on the TPU).
 
 ``quantized=True`` takes the int8 chain instead
 (:func:`fused_siren_forward_int8`): per-output-channel symmetric int8
@@ -191,10 +194,13 @@ def siren_forward_cuda(
     mods: torch.Tensor, base: torch.Tensor, s_w: torch.Tensor,
     s_b: torch.Tensor, last_b: torch.Tensor, *, num_layers: int = 5,
     w0: float = 1.0, activation: str = "sine", sin7: bool = False,
-    sin_bf16: bool = False, sin5: bool = False,
+    sin_bf16: bool = False, sin5: bool = False, s_wt: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch ``csrc/siren_forward.cu`` on PyTorch's current stream; same
-    contract as :func:`siren_forward_reference`. Counts its launches in
+    contract as :func:`siren_forward_reference`. The kernel reads the hidden
+    weights as ``s_wt`` (L-1, H, H) bf16, ``s_w`` transposed per layer to
+    (out, in): the caller's copy where it keeps one
+    (:func:`make_apply_fn` does), made here otherwise. Counts its launches in
     ``siren_forward_cuda.launches``."""
     batch = mods.shape[0]
     seq, hidden = base.shape
@@ -211,12 +217,15 @@ def siren_forward_cuda(
     _check("s_w", s_w, (layers - 1, hidden, hidden), torch.bfloat16, dev)
     _check("s_b", s_b, (layers - 1, 1, hidden), torch.float32, dev)
     _check("last_b", last_b, (1, 1), torch.float32, dev)
+    if s_wt is None:
+        s_wt = s_w.transpose(1, 2).contiguous()  # (out, in): K-contiguous rows
+    _check("s_wt", s_wt, (layers - 1, hidden, hidden), torch.bfloat16, dev)
     hidden_mode, out_deg = _sine_modes(sin7, sin_bf16, sin5)
     out = torch.empty((batch, seq), dtype=torch.float32, device=dev)
     lib = _library()
     with torch.cuda.device(dev):
         err = lib.siren_forward_launch(
-            mods.data_ptr(), base.data_ptr(), s_w.data_ptr(), s_b.data_ptr(),
+            mods.data_ptr(), base.data_ptr(), s_wt.data_ptr(), s_b.data_ptr(),
             last_b.data_ptr(), out.data_ptr(), batch, seq, hidden, layers,
             float(w0), int(activation == "morlet"), hidden_mode,
             int(sin_bf16), out_deg, torch.cuda.current_stream(dev).cuda_stream,
@@ -231,10 +240,12 @@ def siren_forward_cuda(
 siren_forward_cuda.launches = 0
 
 
-def siren_forward(mods: torch.Tensor, *args, **kwargs) -> torch.Tensor:
-    """The kernel for CUDA tensors, the plain version for CPU tensors."""
+def siren_forward(mods: torch.Tensor, *args, s_wt: torch.Tensor | None = None,
+                  **kwargs) -> torch.Tensor:
+    """The kernel for CUDA tensors, the plain version for CPU tensors (which
+    reads ``s_w`` alone and has no use for ``s_wt``)."""
     if mods.device.type == "cuda":
-        return siren_forward_cuda(mods, *args, **kwargs)
+        return siren_forward_cuda(mods, *args, s_wt=s_wt, **kwargs)
     if mods.device.type == "cpu":
         return siren_forward_reference(mods, *args, **kwargs)
     raise ValueError(f"unsupported device {mods.device}")
@@ -244,9 +255,10 @@ def fused_siren_forward(
     kp: SirenKernelParams, latents: torch.Tensor, *, num_layers: int = 5,
     w0: float = 1.0, activation: str = "sine", block_b: int = 8,
     streams: int = 1, sin7: bool = False, sin_bf16: bool = False,
-    sin5: bool = False, ksplit: int = 1,
+    sin5: bool = False, ksplit: int = 1, s_wt: torch.Tensor | None = None,
 ) -> torch.Tensor:
-    """(B, latent) latents -> (B, S) SIREN outputs through the fused chain."""
+    """(B, latent) latents -> (B, S) SIREN outputs through the fused chain.
+    ``s_wt``: ``kp.s_w`` transposed per layer, where the caller keeps it."""
     batch = latents.shape[0]
     hidden = kp.base.shape[1]
     if block_b % streams:
@@ -262,6 +274,7 @@ def fused_siren_forward(
     out = siren_forward(
         mods, kp.base, kp.s_w, kp.s_b, kp.last_b, num_layers=num_layers,
         w0=w0, activation=activation, sin7=sin7, sin_bf16=sin_bf16, sin5=sin5,
+        s_wt=s_wt,
     )
     return out[:batch]
 
@@ -466,17 +479,22 @@ def fused_forward(model, tiles: torch.Tensor, *, block_b: int = 8,
                   quantized: bool = False, sin7: bool = True,
                   sin_bf16: bool = False, sin5: bool = False,
                   ksplit: int = 1,
-                  packed: tuple[SirenKernelParams, Int8SirenParams] | None = None,
+                  packed: tuple[SirenKernelParams, Int8SirenParams | None] | None = None,
+                  s_wt: torch.Tensor | None = None,
                   ) -> torch.Tensor:
     """Full forward: conv encoder -> fused modulator + SIREN ->
     (B, siren, siren). Drop-in for ``model(tiles)`` in eval mode. ``packed``:
-    the result of :func:`pack_quantized`, for a caller whose weights stay
-    fixed over many calls; without it the weights are repacked and quantised
-    on every call."""
+    ``(kp, ikp)``, the first two of a :class:`WeightPack`'s values (``ikp``
+    may be None when not ``quantized``), and ``s_wt`` its third, ``kp.s_w``
+    transposed per layer, for a caller whose weights stay fixed over many
+    calls; without ``packed`` the weights are repacked (and quantised) on
+    every call."""
     latent = model.encode(tiles)
     s = model.siren_patch_size
-    if quantized and packed is not None:
+    if packed is not None:
         kp, ikp = packed
+        if quantized and ikp is None:
+            ikp = quantize_kernel_params(model, kp)
     else:
         kp = extract_kernel_params(model, coordinate_grid(s, tiles.device))
         ikp = quantize_kernel_params(model, kp) if quantized else None
@@ -494,17 +512,40 @@ def fused_forward(model, tiles: torch.Tensor, *, block_b: int = 8,
         out = fused_siren_forward_int8(kp, ikp, latent.float(), **common)
     else:
         out = fused_siren_forward(kp, latent.float(), sin7=sin7, sin_bf16=sin_bf16,
-                                  sin5=sin5, ksplit=ksplit, **common)
+                                  sin5=sin5, ksplit=ksplit, s_wt=s_wt, **common)
     return out.reshape(tiles.shape[0], s, s)
 
 
-@torch.no_grad()
-def pack_quantized(model) -> tuple[SirenKernelParams, Int8SirenParams]:
-    """The repacked and the int8 weights of ``model`` as they are now, for
-    ``fused_forward(quantized=True, packed=...)``."""
-    kp = extract_kernel_params(
-        model, coordinate_grid(model.siren_patch_size, module_device(model)))
-    return kp, quantize_kernel_params(model, kp)
+class WeightPack:
+    """``model``'s kernel weights for :func:`fused_forward`: ``(kp, ikp,
+    s_wt)``, the repacked weights, the int8 ones when ``quantized`` (else
+    None) and ``kp.s_w`` transposed per layer, as the CUDA kernel reads it.
+    Packed when made and again, on a call, whenever a parameter of the model
+    has changed since: in place (its ``_version`` counter, which every
+    in-place update such as an optimizer step or ``load_state_dict`` moves)
+    or by a new tensor (its storage). So an apply function built once
+    follows the training's updates. ``packs`` counts the packings."""
+
+    def __init__(self, model, quantized: bool = False):
+        self.model, self.quantized = model, quantized
+        self.packs, self._key, self._value = 0, None, None
+        self()
+
+    def _state(self) -> tuple:
+        return tuple((p.data_ptr(), p._version) for p in self.model.parameters())
+
+    @torch.no_grad()
+    def __call__(self):
+        key = self._state()
+        if key != self._key:
+            model = self.model
+            kp = extract_kernel_params(
+                model, coordinate_grid(model.siren_patch_size, module_device(model)))
+            ikp = quantize_kernel_params(model, kp) if self.quantized else None
+            self._value = (kp, ikp, kp.s_w.transpose(1, 2).contiguous())
+            self._key = key
+            self.packs += 1
+        return self._value
 
 
 @torch.no_grad()
@@ -520,16 +561,23 @@ def make_apply_fn(model, *, use_pallas: bool = True, block_b: int = 16,
     fused forward when ``use_pallas`` (the name is the config key's), else
     the module path. Residual models always take the module path. Puts the
     model in eval mode (dropout off). ``device`` (default ``cuda``) must be
-    where the model lives. With ``quantized`` the weights are quantised here,
-    once: the function returned evaluates the model as it is now."""
+    where the model lives. The fused path packs the weights (and quantises
+    them, with ``quantized``) here, and again on a call only when a
+    parameter has changed since (:class:`WeightPack`, the function's
+    ``pack``)."""
     dev = resolve_device(device)
     if module_device(model) != dev:
         raise ValueError(f"model is on {module_device(model)}, not on {dev}")
     model.eval()
-    if use_pallas and not model.residual:
-        return functools.partial(
-            fused_forward, model, block_b=block_b, quantized=quantized,
-            sin7=sin7, sin_bf16=sin_bf16, sin5=sin5, ksplit=ksplit,
-            packed=pack_quantized(model) if quantized else None,
-        )
-    return functools.partial(_module_apply, model)
+    if not use_pallas or model.residual:
+        return functools.partial(_module_apply, model)
+    pack = WeightPack(model, quantized)
+
+    def apply(tiles: torch.Tensor) -> torch.Tensor:
+        kp, ikp, s_wt = pack()
+        return fused_forward(model, tiles, block_b=block_b, quantized=quantized, sin7=sin7,
+                             sin_bf16=sin_bf16, sin5=sin5, ksplit=ksplit, packed=(kp, ikp),
+                             s_wt=s_wt)
+
+    apply.pack = pack
+    return apply

@@ -7,7 +7,9 @@ The modulator + SIREN chain of the train step is one differentiable op,
 ``csrc/siren_train_bwd.cu`` (a chain kernel, then a split-K weight-gradient
 kernel over its workspace) for tensors on the card, and a plain PyTorch
 version of each for tensors on the CPU. The backward recomputes the forward from
-the op's inputs, so no layer activation is kept between the two.
+the op's inputs, so no layer activation is kept between the two. Both
+kernels read the hidden weights transposed per layer, (out, in); the op
+makes that copy once per call and hands it to both.
 
 Dropout masks come from a counter hash of (seed, layer, element index)
 rather than a random stream, so the backward regenerates the forward's masks
@@ -266,23 +268,34 @@ def _dropout_args(rate: float) -> tuple[int, int, float]:
     return 1, _keep_threshold(keep), float(np.float32(1.0 / keep))
 
 
+def _transposed(s_w: torch.Tensor, s_wt: torch.Tensor | None, dev) -> torch.Tensor:
+    """``s_w`` (L-1, H, H) transposed per layer to (out, in), the kernels'
+    operand: ``s_wt`` where the caller made it, checked; made here otherwise."""
+    if s_wt is None:
+        s_wt = s_w.transpose(1, 2).contiguous()  # x . W reads W^T's rows
+    _check("s_wt", s_wt, tuple(s_w.shape), torch.bfloat16, dev)
+    return s_wt
+
+
 def siren_chain_train_fwd_cuda(
     seed: torch.Tensor, mods: torch.Tensor, base: torch.Tensor, s_w: torch.Tensor,
     s_b: torch.Tensor, last_w: torch.Tensor, last_b: torch.Tensor, *,
     num_layers: int = 5, w0: float = 1.0, activation: str = "sine",
-    dropout_rate: float = 0.0, sin5: bool = False,
+    dropout_rate: float = 0.0, sin5: bool = False, s_wt: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Launch ``csrc/siren_train_fwd.cu`` on PyTorch's current stream; same
-    contract as :func:`siren_chain_train_fwd_reference` with bf16 ``s_w``.
-    Counts its launches in ``siren_chain_train_fwd_cuda.launches``."""
+    contract as :func:`siren_chain_train_fwd_reference` with bf16 ``s_w``,
+    which the kernel reads as ``s_wt`` (see :func:`_transposed`). Counts its
+    launches in ``siren_chain_train_fwd_cuda.launches``."""
     batch, seq, hidden, dev = _check_chain_inputs(
         "siren_chain_train_fwd_cuda", seed, mods, base, s_w, s_b, last_w, last_b, num_layers)
+    s_wt = _transposed(s_w, s_wt, dev)
     on, thresh, inv_keep = _dropout_args(dropout_rate)
     out = torch.empty((batch, seq), dtype=torch.float32, device=dev)
     lib = _fwd_library()
     with torch.cuda.device(dev):
         err = lib.siren_train_fwd_launch(
-            seed.data_ptr(), mods.data_ptr(), base.data_ptr(), s_w.data_ptr(),
+            seed.data_ptr(), mods.data_ptr(), base.data_ptr(), s_wt.data_ptr(),
             s_b.data_ptr(), last_w.data_ptr(), last_b.data_ptr(), out.data_ptr(),
             batch, seq, hidden, num_layers, float(w0), int(activation == "morlet"),
             5 if sin5 else 9, on, thresh, inv_keep,
@@ -302,12 +315,13 @@ def siren_chain_train_bwd_cuda(
     seed: torch.Tensor, mods: torch.Tensor, base: torch.Tensor, s_w: torch.Tensor,
     s_b: torch.Tensor, last_w: torch.Tensor, last_b: torch.Tensor, g: torch.Tensor, *,
     num_layers: int = 5, w0: float = 1.0, activation: str = "sine",
-    dropout_rate: float = 0.0, sin5: bool = False,
+    dropout_rate: float = 0.0, sin5: bool = False, s_wt: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, ...]:
     """Launch ``csrc/siren_train_bwd.cu`` (the chain kernel, the
     weight-gradient kernel and its fixed-order sum) on PyTorch's current
     stream; same contract as :func:`siren_chain_train_bwd_reference` with
-    bf16 ``s_w``. The chain kernel writes the bf16 layer inputs and
+    bf16 ``s_w`` (and its transpose ``s_wt``, see :func:`_transposed`). The
+    chain kernel writes the bf16 layer inputs and
     bf16(dpre) of every hidden layer to a workspace of 2 * (L-1) * B * S * H
     bf16, which the weight-gradient kernel reads; it adds dbase with atomics
     and writes dmods, dsb, dlw and dlb as one partial record per 64-row
@@ -323,7 +337,7 @@ def siren_chain_train_bwd_cuda(
     splits = lib.siren_train_bwd_dw_splits(batch, seq, hidden, num_layers)
     f32 = dict(dtype=torch.float32, device=dev)
     layers, lh = num_layers - 1, num_layers * hidden
-    s_wt = s_w.transpose(1, 2).contiguous()  # x . W reads W^T's rows
+    s_wt = _transposed(s_w, s_wt, dev)
     work = torch.empty((2, layers, batch, seq, hidden), dtype=torch.bfloat16, device=dev)
     partial = torch.empty((layers, splits, hidden, hidden), **f32)
     dsw = torch.empty((layers, hidden, hidden), **f32)
@@ -359,14 +373,18 @@ class _SirenChainTrain(torch.autograd.Function):
     def forward(ctx, mods, base, s_w, s_b, last_w, last_b, seed, knobs):
         kw = dict(knobs)
         if mods.device.type == "cuda":
-            mods, g_fn = mods.contiguous(), siren_chain_train_fwd_cuda
+            # W^T once per call, for both kernels
+            mods, card = mods.contiguous(), dict(s_wt=s_w.transpose(1, 2).contiguous())
+            out = siren_chain_train_fwd_cuda(seed, mods, base, s_w, s_b, last_w, last_b,
+                                             **kw, **card)
         elif mods.device.type == "cpu":
-            g_fn = siren_chain_train_fwd_reference
+            card = {}
+            out = siren_chain_train_fwd_reference(seed, mods, base, s_w, s_b, last_w, last_b,
+                                                  **kw)
         else:
             raise ValueError(f"unsupported device {mods.device}")
-        out = g_fn(seed, mods, base, s_w, s_b, last_w, last_b, **kw)
         ctx.save_for_backward(seed, mods, base, s_w, s_b, last_w, last_b)
-        ctx.knobs = kw
+        ctx.knobs, ctx.card = kw, card
         return out
 
     @staticmethod
@@ -374,7 +392,7 @@ class _SirenChainTrain(torch.autograd.Function):
     def backward(ctx, g):
         seed, mods, *rest = ctx.saved_tensors
         if mods.device.type == "cuda":
-            fn, g = siren_chain_train_bwd_cuda, g.contiguous()
+            fn, g = functools.partial(siren_chain_train_bwd_cuda, **ctx.card), g.contiguous()
         else:
             fn = siren_chain_train_bwd_reference
         dmods, dbase, dsw, dsb, dlw, dlb = fn(seed, mods, *rest, g, **ctx.knobs)

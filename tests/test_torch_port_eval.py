@@ -158,6 +158,7 @@ def test_evaluate_files_device_matches(corpus, pipelines, jax_rows):
     capped, _ = tev.evaluate_files_device(trec, MRISampler(corpus), num_samples=3,
                                           log=lambda *_: None)
     assert [r.slice_id for r in capped] == [r.slice_id for r in jax_rows[:3]]
+    assert trec.apply_fn.pack.packs == 1  # the packed weights, made once
 
 
 def test_metrics_artifacts(tmp_path, jax_rows):

@@ -188,7 +188,7 @@ def test_make_apply_fn_quantizes_once(sine, monkeypatch):
     """``make_apply_fn(quantized=True)`` repacks and quantises the weights when
     it is called, not on every slice, and keeps the (out, in) copy of ``swq``
     that the CUDA kernel reads."""
-    kp, ikp = tsk.pack_quantized(sine["tm"])
+    kp, ikp, _ = tsk.WeightPack(sine["tm"], quantized=True)()
     assert torch.equal(ikp.swq, sine["tikp"].swq)
     assert ikp.swq_t.is_contiguous()
     assert torch.equal(ikp.swq_t, ikp.swq.transpose(1, 2))

@@ -20,6 +20,15 @@ dbase, dsb, dlw and dlb), on top of the same rare bf16 flips: each output is
 held to ``2e-3 * max(|plain|, 1)``; dmods and dsw, summed in a fixed order,
 must repeat bit for bit across two calls.
 
+Cases beyond the main paths' shapes: an odd number of 64-row tiles (one
+patch at S=576: the persistent block's second consumer takes a tile of
+zeros), a single tile (S=64), a batch that gives every persistent block many
+tile pairs (B=600 at H=256), pre-activations near 150 (hidden biases
+shifted by 150: the range reduction takes about 24 periods) and a deeper
+chain (L=7). The large pre-activations come from shifted biases, not from
+weights multiplied up: at 50 times the weights the chain amplifies rounding
+so much that the plain version summed in f32 and in f64 differs by 4e-2.
+
 The int8 kernel's products are exact in both versions, so they differ only
 where a sine's last bits (the kernel fuses multiply-adds, the plain version
 does not) move a ``floor`` across an integer: one quantum in one
@@ -48,7 +57,12 @@ def device():
     return torch.device("cuda", torch.cuda.current_device())
 
 
-def _inputs(device, hidden, layers, siren, batch, activation="sine"):
+def _shifted(kp, shift):
+    """The hidden biases plus ``shift``: every pre-activation near it."""
+    return kp._replace(s_b=kp.s_b + shift) if shift else kp
+
+
+def _inputs(device, hidden, layers, siren, batch, activation="sine", shift=0.0):
     g = torch.Generator().manual_seed(0)
     model = ModulatedSiren(dim_hidden=hidden, latent_dim=hidden,
                            num_layers=layers, dropout=0.0, siren_patch_size=siren,
@@ -59,7 +73,7 @@ def _inputs(device, hidden, layers, siren, batch, activation="sine"):
         mods = siren_kernel.compute_modulations(kp, model.encode(tiles), num_layers=layers)
         cut = (layers - 1) * hidden
         mods = torch.cat([mods[:, :cut], mods[:, cut:] * kp.last_w], dim=1).contiguous()
-    return mods, kp
+    return mods, _shifted(kp, shift)
 
 
 CASES = [
@@ -72,13 +86,21 @@ CASES = [
     (64, 3, 20, 37, "sine", dict(sin5=True), 1e-3, 1e-5),  # S=400: ragged tile
     (128, 2, 24, 5, "morlet", dict(), 1e-3, 1e-5),
     (192, 4, 24, 9, "sine", dict(sin7=True, sin_bf16=True), 2e-2, 1e-3),
+    (256, 5, 24, 1, "sine", dict(sin7=True, sin5=True), 1e-3, 1e-5),  # 9 tiles: odd
+    (128, 4, 8, 1, "sine", dict(sin5=True), 1e-3, 1e-5),  # S=64: a single tile
+    (256, 5, 24, 600, "sine", dict(sin7=True, sin5=True), 1e-3, 1e-5),  # many pairs a block
+    (256, 5, 24, 24, "sine", dict(sin5=True, shift=150.0), 1e-3, 1e-5),  # large periods
+    (256, 5, 24, 24, "sine", dict(shift=150.0), 1e-3, 1e-5),
+    (256, 7, 24, 8, "sine", dict(sin7=True, sin5=True), 1e-3, 1e-5),  # L=7
 ]
 
 
 @pytest.mark.parametrize("hidden,layers,siren,batch,activation,knobs,tol_max,tol_mean", CASES)
 def test_kernel_matches_plain_version(device, hidden, layers, siren, batch,
                                       activation, knobs, tol_max, tol_mean):
-    mods, kp = _inputs(device, hidden, layers, siren, batch, activation)
+    knobs = dict(knobs)
+    mods, kp = _inputs(device, hidden, layers, siren, batch, activation,
+                       knobs.pop("shift", 0.0))
     args = (mods, kp.base, kp.s_w, kp.s_b, kp.last_b)
     kw = dict(num_layers=layers, activation=activation, **knobs)
     before = siren_kernel.siren_forward_cuda.launches
@@ -96,8 +118,33 @@ def test_kernel_matches_plain_version(device, hidden, layers, siren, batch,
 def test_dispatch_goes_to_the_kernel(device):
     mods, kp = _inputs(device, 64, 3, 24, 4)
     before = siren_kernel.siren_forward_cuda.launches
-    siren_kernel.siren_forward(mods, kp.base, kp.s_w, kp.s_b, kp.last_b, num_layers=3)
-    assert siren_kernel.siren_forward_cuda.launches == before + 1
+    a = siren_kernel.siren_forward(mods, kp.base, kp.s_w, kp.s_b, kp.last_b, num_layers=3)
+    b = siren_kernel.siren_forward(mods, kp.base, kp.s_w, kp.s_b, kp.last_b, num_layers=3,
+                                   s_wt=kp.s_w.transpose(1, 2).contiguous())
+    assert siren_kernel.siren_forward_cuda.launches == before + 2
+    assert torch.equal(a, b)
+
+
+def test_packed_apply_function_on_the_card(device):
+    """make_apply_fn packs once, launches the kernel on every call and
+    repacks after an optimizer step."""
+    g = torch.Generator().manual_seed(5)
+    model = ModulatedSiren(dim_hidden=128, latent_dim=64, num_layers=3, generator=g,
+                           device=device)
+    tiles = torch.rand((6, 32, 32), generator=g).to(device)
+    apply = siren_kernel.make_apply_fn(model, sin5=True, device=device)
+    before = siren_kernel.siren_forward_cuda.launches
+    first = apply(tiles)
+    assert torch.equal(apply(tiles), first)
+    assert apply.pack.packs == 1
+    opt = torch.optim.SGD(model.parameters(), lr=0.5)
+    model(tiles).square().mean().backward()
+    opt.step()
+    after = apply(tiles)
+    torch.cuda.synchronize()
+    assert apply.pack.packs == 2
+    assert siren_kernel.siren_forward_cuda.launches == before + 3
+    assert torch.equal(after, siren_kernel.fused_forward(model, tiles, block_b=16, sin5=True))
 
 
 def test_kernel_rejects_bad_inputs(device):
@@ -108,10 +155,13 @@ def test_kernel_rejects_bad_inputs(device):
     with pytest.raises(ValueError, match="mods"):
         siren_kernel.siren_forward_cuda(mods[:, ::2], kp.base, kp.s_w, kp.s_b,
                                         kp.last_b, num_layers=3)
+    with pytest.raises(ValueError, match="s_wt"):
+        siren_kernel.siren_forward_cuda(mods, kp.base, kp.s_w, kp.s_b, kp.last_b,
+                                        num_layers=3, s_wt=kp.s_w.transpose(1, 2))
 
 
 # ----------------------------------------------------------- train kernels
-def _train_inputs(device, hidden, layers, siren, batch, activation):
+def _train_inputs(device, hidden, layers, siren, batch, activation, shift=0.0):
     g = torch.Generator().manual_seed(1)
     model = ModulatedSiren(dim_hidden=hidden, latent_dim=hidden, num_layers=layers,
                            siren_patch_size=siren, activation=activation, generator=g,
@@ -122,30 +172,36 @@ def _train_inputs(device, hidden, layers, siren, batch, activation):
         kp = siren_kernel.extract_kernel_params(model, coordinate_grid(siren, device))
         mods = siren_kernel.compute_modulations(kp, model.encode(tiles),
                                                 num_layers=layers).contiguous()
+    kp = _shifted(kp, shift)
     seed = torch.tensor([4321.0], device=device)
     return (seed, mods, kp.base, kp.s_w, kp.s_b, kp.last_w, kp.last_b), cot
 
 
 TRAIN_CASES = [
-    # (hidden, layers, siren, batch, activation, sin5, dropout)
-    (256, 5, 24, 24, "sine", True, 0.1),
-    (256, 5, 24, 24, "sine", False, 0.1),
-    (256, 5, 24, 24, "morlet", True, 0.1),
-    (256, 5, 24, 24, "sine", True, 0.0),
-    (64, 3, 20, 37, "sine", True, 0.1),  # S=400: ragged tile
-    (64, 5, 24, 9, "morlet", False, 0.0),
-    (128, 2, 24, 5, "morlet", False, 0.1),
-    (128, 4, 24, 7, "sine", False, 0.0),
-    (192, 4, 24, 9, "sine", True, 0.1),
-    (192, 3, 20, 6, "morlet", True, 0.0),
-    (256, 7, 24, 8, "sine", True, 0.1),  # deeper than a whole-chain tile ring held
+    # (hidden, layers, siren, batch, activation, sin5, dropout, shift)
+    (256, 5, 24, 24, "sine", True, 0.1, 0.0),
+    (256, 5, 24, 24, "sine", False, 0.1, 0.0),
+    (256, 5, 24, 24, "morlet", True, 0.1, 0.0),
+    (256, 5, 24, 24, "sine", True, 0.0, 0.0),
+    (64, 3, 20, 37, "sine", True, 0.1, 0.0),  # S=400: ragged tile
+    (64, 5, 24, 9, "morlet", False, 0.0, 0.0),
+    (128, 2, 24, 5, "morlet", False, 0.1, 0.0),
+    (128, 4, 24, 7, "sine", False, 0.0, 0.0),
+    (192, 4, 24, 9, "sine", True, 0.1, 0.0),
+    (192, 3, 20, 6, "morlet", True, 0.0, 0.0),
+    (256, 7, 24, 8, "sine", True, 0.1, 0.0),  # deeper than a whole-chain tile ring held
+    (256, 5, 24, 1, "sine", True, 0.1, 0.0),  # 9 tiles: odd
+    (128, 3, 8, 1, "sine", True, 0.1, 0.0),  # S=64: a single tile
+    (256, 5, 24, 600, "sine", True, 0.1, 0.0),  # many pairs a block
+    (256, 5, 24, 24, "sine", True, 0.1, 150.0),  # large periods
+    (256, 5, 24, 24, "sine", False, 0.1, 150.0),
 ]
 
 
-@pytest.mark.parametrize("hidden,layers,siren,batch,activation,sin5,rate", TRAIN_CASES)
+@pytest.mark.parametrize("hidden,layers,siren,batch,activation,sin5,rate,shift", TRAIN_CASES)
 def test_train_forward_matches_plain_version(device, hidden, layers, siren, batch,
-                                             activation, sin5, rate):
-    args, _ = _train_inputs(device, hidden, layers, siren, batch, activation)
+                                             activation, sin5, rate, shift):
+    args, _ = _train_inputs(device, hidden, layers, siren, batch, activation, shift)
     kw = dict(num_layers=layers, activation=activation, dropout_rate=rate, sin5=sin5)
     before = stk.siren_chain_train_fwd_cuda.launches
     got = stk.siren_chain_train_fwd_cuda(*args, **kw)
@@ -159,10 +215,10 @@ def test_train_forward_matches_plain_version(device, hidden, layers, siren, batc
     assert err.mean().item() <= 1e-5
 
 
-@pytest.mark.parametrize("hidden,layers,siren,batch,activation,sin5,rate", TRAIN_CASES)
+@pytest.mark.parametrize("hidden,layers,siren,batch,activation,sin5,rate,shift", TRAIN_CASES)
 def test_train_backward_matches_plain_version(device, hidden, layers, siren, batch,
-                                              activation, sin5, rate):
-    args, cot = _train_inputs(device, hidden, layers, siren, batch, activation)
+                                              activation, sin5, rate, shift):
+    args, cot = _train_inputs(device, hidden, layers, siren, batch, activation, shift)
     kw = dict(num_layers=layers, activation=activation, dropout_rate=rate, sin5=sin5)
     before = stk.siren_chain_train_bwd_cuda.launches
     got = stk.siren_chain_train_bwd_cuda(*args, cot, **kw)

@@ -182,6 +182,41 @@ def test_make_apply_fn_routes(sine):
     torch.testing.assert_close(plain(tiles), module_out, rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_make_apply_fn_packs_once_and_after_updates(sine, quantized):
+    """The fused apply function packs the weights (and W^T, the CUDA kernel's
+    operand) when it is made, not on each call; after an optimizer step on
+    the model it repacks, and its output is then that of a fresh repack, bit
+    for bit."""
+    import copy
+
+    tm = copy.deepcopy(sine["tm"])
+    tiles = torch.from_numpy(sine["tiles"][:4])
+    apply = tsk.make_apply_fn(tm, device="cpu", sin5=True, quantized=quantized)
+    first = [apply(tiles) for _ in range(3)]
+    assert apply.pack.packs == 1
+    assert all(torch.equal(x, first[0]) for x in first)
+    kp, _, s_wt = apply.pack()
+    assert s_wt.is_contiguous() and torch.equal(s_wt, kp.s_w.transpose(1, 2))
+
+    opt = torch.optim.SGD(tm.parameters(), lr=0.5)
+    tm(tiles).square().mean().backward()
+    opt.step()
+    after = apply(tiles)
+    assert apply.pack.packs == 2
+    fresh = tsk.fused_forward(tm, tiles, block_b=16, sin5=True, quantized=quantized)
+    torch.testing.assert_close(after, fresh, rtol=0, atol=0)
+    assert not torch.equal(after, first[0])
+    apply(tiles)
+    assert apply.pack.packs == 2
+    with torch.no_grad():  # a parameter replaced by a new tensor repacks too
+        tm.net.last_layer.bias = torch.nn.Parameter(tm.net.last_layer.bias + 1.0)
+    torch.testing.assert_close(
+        apply(tiles), tsk.fused_forward(tm, tiles, block_b=16, sin5=True, quantized=quantized),
+        rtol=0, atol=0)
+    assert apply.pack.packs == 3
+
+
 def test_residual_models_take_the_module_path():
     tm = ModulatedSiren(dim_hidden=64, latent_dim=32, num_layers=3, residual=True,
                         device="cpu")

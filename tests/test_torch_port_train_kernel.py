@@ -223,6 +223,20 @@ def test_cuda_wrappers_refuse_cpu_tensors():
         tstk.siren_chain_train_bwd_cuda(*args, z(2, 576), num_layers=3)
 
 
+def test_transposed_weights_are_made_or_checked():
+    """Both train kernels read W^T, (out, in) per layer: made from ``s_w``
+    where the caller passes none, else checked."""
+    s_w = torch.arange(2 * 64 * 64, dtype=torch.float32).reshape(2, 64, 64).bfloat16()
+    cpu = torch.device("cpu")
+    made = tstk._transposed(s_w, None, cpu)
+    assert made.is_contiguous() and torch.equal(made, s_w.transpose(1, 2))
+    assert tstk._transposed(s_w, made, cpu) is made
+    with pytest.raises(ValueError, match="s_wt"):
+        tstk._transposed(s_w, s_w.transpose(1, 2), cpu)  # not contiguous
+    with pytest.raises(ValueError, match="s_wt"):
+        tstk._transposed(s_w, made.float(), cpu)
+
+
 @pytest.mark.parametrize("layers,batch,activation,sin5,mm", [
     (5, 13, "sine", True, "bf16"),
     (5, 13, "sine", False, "f32"),
