@@ -14,9 +14,9 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
 3. each kernel against its plain PyTorch version at full width, seeded
    inputs: the eval forward (bf16 and int8) at H=256, L=5, S=576, B=1024 (one
    320x320 slice's patch bucket), the train forward and backward at B=400
-   (one train batch) with dropout 0.1 (the backward also called twice: dmods
-   and dsw must repeat bit for bit), the centred DFT (an FFT) at (16, 640,
-   320), (16, 320, 320), (8, 320, 320), fastMRI's knee widths (2, 640, 368)
+   (one train batch) with dropout 0.1 (the backward also called twice: all
+   six gradients must repeat bit for bit), the centred DFT (an FFT) at (16,
+   640, 320), (16, 320, 320), (8, 320, 320), fastMRI's knee widths (2, 640, 368)
    and (2, 640, 372), and the odd and prime sizes (3, 63, 33) and (2, 37,
    41), also against ``torch.fft``;
 4. the preprocessing path: phantom volumes (320x320, texture 0.2) ->
@@ -134,6 +134,16 @@ def warpgroup_registers(build_mod) -> str:
 def kernel_label(entry: str) -> str:
     """A mangled kernel name, shortened; the forward kernels' template
     arguments spelled out."""
+    act = {"0": "sine", "1": "morlet"}
+    m = re.search(r"siren_forward_int8_kernelILi(\d+)ELb([01])E", entry)
+    if m is not None:
+        return f"siren_forward_int8_kernel<H={m[1]}, {act[m[2]]}>"
+    m = re.search(r"chain_kernelILi(\d+)ELi(\d+)ELb([01])E", entry)
+    if m is not None:
+        return f"chain_kernel<H={m[1]}, degree {m[2]}, {act[m[3]]}>"
+    m = re.search(r"dw_kernelILi(\d+)E", entry)
+    if m is not None:
+        return f"dw_kernel<H={m[1]}>"
     m = re.search(r"forward_kernelILi(\d+)E.*?(Eval|Train)EpilogueILi(\d+)ELb([01])E", entry)
     if m is None:
         return entry[-32:]
@@ -165,7 +175,7 @@ def build_kernels(build_mod, names: list[str]) -> None:
             elif "Used" in line and "registers" in line:
                 # the forward kernels' entries: the launch's count, then the
                 # warpgroups' own split
-                split = f"; {roles}" if "forward_kernel" in entry else ""
+                split = f"; {roles}" if re.search("forward_(int8_)?kernel", entry) else ""
                 print(f"  ptxas {name} {kernel_label(entry)}: "
                       f"{line.split(':', 1)[1].strip()}; {spill}{split}")
 
@@ -531,9 +541,10 @@ TRAIN_CASES = [
     ("morlet, sin5", "morlet", True),
 ]
 # Bars for |kernel - plain| <= bar * max(|plain|, 1): sums over up to B*S =
-# 230,400 rows in another order (atomics for the weight-space gradients) on
-# top of rare bf16 rounding flips. The first run on an H100 held 2e-3 for
-# all six and showed 3.4e-8 (dmods), 6.5e-10 (dbase), 6.6e-8 (dsw), 7.6e-8
+# 230,400 rows in another order (split-K partials, per-tile records and
+# per-block partials, each summed in a fixed order) on top of rare bf16
+# rounding flips. The first run on an H100 held 2e-3 for all six and
+# showed 3.4e-8 (dmods), 6.5e-10 (dbase), 6.6e-8 (dsw), 7.6e-8
 # (dsb), 1.1e-6 (dlw), 6.9e-7 (dlb); the bars are about ten times that. The
 # seeded cotangent is scaled like an MSE gradient, so the gradients are far
 # below 1 and a second bar holds the gap relative to max |plain| itself
@@ -595,7 +606,7 @@ def compare_train_kernels(sk, stk, ms, device) -> dict:
             same = [bool(torch.equal(x, y)) for x, y in zip(got_b, again)]
             print("train bwd, two runs bit for bit: " + " ".join(
                 f"{n}={'same' if v else 'differs'}" for n, v in zip(BWD_BARS, same)))
-            check(same[0] and same[2], "dmods or dsw differ between two backward calls")
+            check(all(same), "a gradient differs between two backward calls")
             first = {"fwd_err": mx, "bwd_err": worst}
     return {"inputs": inputs["sine"], **first}
 
@@ -675,8 +686,8 @@ def train_path(pkg, tmp: pathlib.Path, device, train_meta: pathlib.Path,
 # sines), the nearest neighbour of the int8 chain's degree-9 sines: the bf16
 # default's degree-5 sine is 0.18 dB from that on so short a training, a gap
 # that is not the quantisation's. Read on an H100: 6.9e-3 to 1.2e-2 dB (the
-# trained model differs from run to run, the backward kernel's atomics); the
-# bar is eight times the largest reading.
+# trained model differs from run to run); the bar is eight times the largest
+# reading.
 QUANT_PSNR_BAR = 0.1
 
 
@@ -802,40 +813,82 @@ def profile_device(fn, reps: int = 5) -> dict | None:
 
 def bwd_parts_ms(fn, card: str) -> dict:
     """Device time per call of the backward's kernels (chain, weight
-    gradient, its fixed-order sum), from torch.profiler."""
+    gradient, the fixed-order sums of dW and dbase), from torch.profiler."""
     prof = profile_device(fn)
     if prof is None:
         print("train bwd kernels apart: not measured (the profiler recorded no device "
               "activity)")
         return {}
-    keys = {"chain_ms": "chain_kernel", "dw_ms": "dw_kernel", "dw_sum_ms": "dw_reduce_kernel"}
+    keys = {"chain_ms": "chain_kernel", "dw_ms": "dw_kernel", "sums_ms": "ordered_sum_kernel"}
     out = {k: sum(ms_ for n, ms_ in prof["kernels"] if key in n) for k, key in keys.items()}
     print("train bwd kernels apart (torch.profiler, device ms per call): " + ", ".join(
         f"{k[:-3]} {v:.4f}" for k, v in out.items()) + f" [{card}]")
     return out
 
 
+# f32 operations outside the tensor cores (an FMA counted as two, as the
+# 67 TFLOP/s peak counts it), per activation, from the kernel sources. A
+# sine: its range reduction (mul, add, floor, mul, sub) and its odd
+# polynomial of degree d (v * v, (d - 1) / 2 FMAs, v * p).
+SIN_F32 = {d: 5 + 1 + 2 * (d - 1) // 2 + 1 for d in (5, 7, 9)}
+
+
+def siren_f32_ops(rows: int, hidden: int, layers: int, kind: str) -> int:
+    """The f32 operations of a SIREN kernel's epilogues on ``rows`` (B*S)
+    coordinate rows, at the main path's sines (eval: degree 5; int8:
+    degree 9; train: degree 5, dropout on): per activation of the L-1 hidden
+    layers, plus per element of x_0 (and, for the backward, of dbase)."""
+    acts = rows * hidden * (layers - 1)
+    elems = rows * hidden
+    if kind == "eval":  # bias, w0, sine, modulation, bf16 rounding (last: row sum); x_0
+        return acts * (4 + SIN_F32[5]) + elems * 2
+    if kind == "int8":  # dequantise (float(acc), x gd, + b), w0, sine, quantise
+        # (x fq, + 0.5, floor; last: x fq, x last_w and sum); x_0 quantised
+        return acts * (3 + 1 + SIN_F32[9] + 3) + elems * 3
+    if kind == "train_fwd":  # bias, w0, sine, dropout, modulation, bf16 rounding;
+        # the last layer's x last_w and sum; x_0: dropout, modulation, rounding
+        return acts * (5 + SIN_F32[5]) + elems * (2 + 3)
+    if kind == "train_bwd":
+        # recomputed forward as train_fwd, the last layer's dlw (FMA) and dx
+        # (mul) too; reverse: bias, w0, sine, cosine (a sine at x + pi/2),
+        # w0 * cos, dmods (dropout, FMA), dpre (mul, dropout, mul), dsb, bf16
+        # rounding; layer 0: dmods (dropout, FMA), dbase (mul, dropout, sum)
+        fwd = acts * (5 + SIN_F32[5]) + elems * (2 + 3 + 3)
+        rev = acts * (1 + 1 + SIN_F32[5] + SIN_F32[5] + 1 + 1 + 3 + 3 + 1 + 1)
+        return fwd + rev + elems * (3 + 3)
+    raise ValueError(kind)
+
+
 def kernel_record(name, replaces, launches, err, ms, plain_ms, flops, nbytes,
                   card, executed_flops=None, peak=PEAK_BF16_FLOPS, unit="bf16 FLOP",
-                  library_ms=None, **extra) -> dict:
+                  library_ms=None, f32_ops=0, **extra) -> dict:
     """``flops``: the operations the function needs on these inputs (the
-    bound's), at the card's ``peak`` rate for their type; ``executed_flops``:
-    those the kernel runs, where recomputation makes them more."""
+    bound's), at the card's ``peak`` rate for their type; ``f32_ops``: the
+    f32 operations it needs outside the tensor cores besides, at the f32
+    rate; ``executed_flops``: those the kernel runs, where recomputation
+    makes them more. The bound is the largest of the three times."""
     ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
+    f32_ms = f32_ops / PEAK_F32_FLOPS * 1e3
+    terms = {"f32 operations" if peak == PEAK_F32_FLOPS else "tensor operations": ops_ms,
+             "bytes": bytes_ms}
+    if f32_ops:
+        terms["f32 operations"] = f32_ms
+    bound_term = max(terms, key=terms.get)
+    bound_ms = terms[bound_term]
     rate = f"{flops / ms / 1e9:.1f} T{unit.split()[-1]}/s of needed work"
     if executed_flops is not None:
         rate += f", {executed_flops / ms / 1e9:.1f} TFLOP/s of the {executed_flops:.3e} executed"
     lib = "" if library_ms is None else f", library call {library_ms:.4f} ms/call"
+    f32 = f", {f32_ops:.3e} f32 FLOP outside the tensor cores -> {f32_ms:.4f} ms" if f32_ops else ""
     print(f"{name} kernel: {ms:.4f} ms/call ({rate}), plain version "
           f"{plain_ms:.4f} ms/call{lib}; bound {flops:.3e} {unit} at {peak / 1e12:g} T/s -> "
-          f"{ops_ms:.4f} ms, {nbytes} B -> {bytes_ms:.4f} ms; kernel at {bound_ms / ms:.1%} "
-          f"of bound [{card}]")
+          f"{ops_ms:.4f} ms{f32}, {nbytes} B -> {bytes_ms:.4f} ms; bound {bound_ms:.4f} ms by "
+          f"{bound_term}; kernel at {bound_ms / ms:.1%} of bound [{card}]")
     return {"name": name, "route": "cuda",
             "source": f"mri_inr_tpu_torch/ops/csrc/{name}.cu", "replaces": replaces,
             "launches": launches, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
-            "library_ms": library_ms, **extra}
+            "bound_ms": bound_ms, "bound_by": "bytes" if bound_term == "bytes" else "operations",
+            "bound_term": bound_term, "library_ms": library_ms, **extra}
 
 
 def nbytes_of(*tensors) -> int:
@@ -911,22 +964,27 @@ def main() -> int:
         cuda_median_ms(lambda: sk.siren_forward_reference(
             *args, **{k: v for k, v in kw.items() if k != "s_wt"})),
         2 * batch * seq * hidden * hidden * (layers - 1),
-        nbytes_of(*args) + batch * seq * 4, card, launches_train_path=trn["eval"])]
+        nbytes_of(*args) + batch * seq * 4, card,
+        f32_ops=siren_f32_ops(batch * seq, hidden, layers, "eval"),
+        launches_train_path=trn["eval"])]
     print(f"evaluate_files_device steady: bf16 chain {e2e['bf16_slices_per_sec']:.2f} "
           f"slices/s, int8 chain {e2e['int8_slices_per_sec']:.2f} slices/s "
           f"({VOLUMES * SLICES_PER_VOLUME} slices, bucket 1024, median of {REPS} each, in "
           f"turns) [{card}]")
 
-    # ---- int8 eval forward kernel
+    # ---- int8 eval forward kernel, with the weight pack as the main path
+    # hands it over (made once by make_apply_fn)
     iargs = cmp_int8["inputs"]
+    swq_k = sk.int8_kernel_weights(iargs[4])
     records.append(kernel_record(
         "siren_forward_int8", "mri_inr_tpu/ops/siren_kernel.py:496", qnt["launches"],
         cmp_int8["max_abs_err"],
-        cuda_median_ms(lambda: sk.siren_forward_int8_cuda(*iargs, num_layers=5)),
+        cuda_median_ms(lambda: sk.siren_forward_int8_cuda(*iargs, num_layers=5, swq_t=swq_k)),
         cuda_median_ms(lambda: sk.siren_forward_int8_reference(*iargs, num_layers=5), reps=5,
                        warmup=1),
         2 * batch * seq * hidden * hidden * (layers - 1),
-        nbytes_of(*iargs) + batch * seq * 4, card, peak=PEAK_INT8_OPS, unit="int8 OP"))
+        nbytes_of(*iargs) + batch * seq * 4, card, peak=PEAK_INT8_OPS, unit="int8 OP",
+        f32_ops=siren_f32_ops(batch * seq, hidden, layers, "int8")))
 
     # ---- train kernels, B=400, dropout 0.1, sin5 (the training default)
     targs, cot = cmp_train["inputs"]
@@ -940,7 +998,8 @@ def main() -> int:
         cuda_median_ms(lambda: stk.siren_chain_train_fwd_cuda(*targs, **tkw, s_wt=s_wt)),
         cuda_median_ms(lambda: stk.siren_chain_train_fwd_reference(*targs, **tkw), reps=5,
                        warmup=1),
-        2 * chain, nbytes_of(*targs) + TRAIN_BATCH * seq * 4, card))
+        2 * chain, nbytes_of(*targs) + TRAIN_BATCH * seq * 4, card,
+        f32_ops=siren_f32_ops(TRAIN_BATCH * seq, hidden, layers, "train_fwd")))
     grads = stk.siren_chain_train_bwd_cuda(*targs, cot, **tkw)
     parts = bwd_parts_ms(lambda: stk.siren_chain_train_bwd_cuda(*targs, cot, **tkw), card)
     # the gradient needs the forward's product, dW and dx per hidden layer:
@@ -953,7 +1012,8 @@ def main() -> int:
         cuda_median_ms(lambda: stk.siren_chain_train_bwd_reference(*targs, cot, **tkw),
                        reps=5, warmup=1),
         6 * chain, nbytes_of(*targs, cot, *grads), card,
-        executed_flops=2 * chain * (3 * layers - 4 + layers - 1) // (layers - 1), **parts))
+        executed_flops=2 * chain * (3 * layers - 4 + layers - 1) // (layers - 1),
+        f32_ops=siren_f32_ops(TRAIN_BATCH * seq, hidden, layers, "train_bwd"), **parts))
 
     # ---- DFT kernel: the preprocessing call (inverse, magnitude) at one
     # fastMRI brain volume; the other shapes beside it
@@ -998,11 +1058,12 @@ def main() -> int:
             print(f"  {ms_:8.4f} ms  {name[:100]}")
         rest = sum(ms_ for _, ms_ in prof["kernels"][12:])
         print(f"  {rest:8.4f} ms  ({len(prof['kernels']) - 12} more kernels)")
-        groups = {"backward chain kernel": "chain_kernel", "backward dW kernel and sum": "dw_",
-                  "forward kernel": "TrainEpilogue",
-                  "Adam (multi_tensor_apply kernels)": "multi_tensor_apply"}
-        share = {g: sum(ms_ for n, ms_ in prof["kernels"] if key in n)
-                 for g, key in groups.items()}
+        groups = {"backward chain kernel": ("chain_kernel",),
+                  "backward dW kernel and the dW and dbase sums": ("dw_", "ordered_sum"),
+                  "forward kernel": ("TrainEpilogue",),
+                  "Adam (multi_tensor_apply kernels)": ("multi_tensor_apply",)}
+        share = {g: sum(ms_ for n, ms_ in prof["kernels"] if any(k in n for k in keys))
+                 for g, keys in groups.items()}
         share["encoder, modulator, repack, loss under autograd (all other kernels)"] = (
             prof["busy_ms"] - sum(share.values()))
         print("fused train step, device time: " + "; ".join(

@@ -134,7 +134,8 @@ def main(argv: list[str] | None = None) -> Trainer:
     initial_epoch = 0
     if resume:
         ckpt_lib.restore_state(resume[0], resume[1], trainer.state)
-        steps_per_epoch = max(1, len(train_ds) // tcfg.batch_size)
+        # an epoch runs ceil(n / batch) steps (epoch_index_batches)
+        steps_per_epoch = max(1, -(-len(train_ds) // tcfg.batch_size))
         initial_epoch = trainer.state.step // steps_per_epoch
         print(f"restored step {resume[1]}; continuing at epoch {initial_epoch}")
 

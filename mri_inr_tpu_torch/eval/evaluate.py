@@ -202,7 +202,8 @@ def evaluate_files_device(reconstructor: SliceReconstructor, sampler,
     """Device-resident sweep: the slices are stacked per image shape and
     uploaded once, every slice is scored on the device, and each shape
     group's (3, K) metrics come back in one copy (the one synchronisation of
-    the group). Rows come grouped by shape.
+    the group). The rows are those of :func:`evaluate_files`, in the
+    sampler's order.
 
     Returns ``(results, timings)``: ``stage_seconds`` (load, stack, upload),
     ``dispatch_seconds`` (enqueueing every slice's work) and
@@ -212,30 +213,31 @@ def evaluate_files_device(reconstructor: SliceReconstructor, sampler,
 
     t0 = time.perf_counter()
     pairs = [sampler.next_sample() for _ in range(total)]
-    by_shape: dict[tuple[int, int], list] = {}
-    for p in pairs:
-        by_shape.setdefault(p.fully_sampled.shape, []).append(p)
+    by_shape: dict[tuple[int, int], list[int]] = {}
+    for i, p in enumerate(pairs):
+        by_shape.setdefault(p.fully_sampled.shape, []).append(i)
     groups = [
-        ([p.slice_id for p in ps],
-         torch.from_numpy(np.stack([p.fully_sampled for p in ps])).to(device),
-         torch.from_numpy(np.stack([p.undersampled for p in ps])).to(device))
-        for ps in by_shape.values()
+        (idxs,
+         torch.from_numpy(np.stack([pairs[i].fully_sampled for i in idxs])).to(device),
+         torch.from_numpy(np.stack([pairs[i].undersampled for i in idxs])).to(device))
+        for idxs in by_shape.values()
     ]
     _sync(device)
     stage_secs = time.perf_counter() - t0
 
     t1 = time.perf_counter()
-    futs = [(ids, reconstructor.metrics_stack(fully, under))
-            for ids, fully, under in groups]
+    futs = [(idxs, reconstructor.metrics_stack(fully, under))
+            for idxs, fully, under in groups]
     dispatch_secs = time.perf_counter() - t1
 
     t2 = time.perf_counter()
-    results: list[SliceResult] = []
-    for ids, fut in futs:
+    rows: dict[int, SliceResult] = {}
+    for idxs, fut in futs:
         vals = fut.cpu().numpy()
-        results.extend(SliceResult(sid, float(vals[0, j]), float(vals[1, j]),
-                                   float(vals[2, j]))
-                       for j, sid in enumerate(ids))
+        for j, i in enumerate(idxs):
+            rows[i] = SliceResult(pairs[i].slice_id, float(vals[0, j]), float(vals[1, j]),
+                                  float(vals[2, j]))
+    results = [rows[i] for i in range(total)]
     fetch_secs = time.perf_counter() - t2
 
     timings = {

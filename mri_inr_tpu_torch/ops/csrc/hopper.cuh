@@ -1,18 +1,18 @@
 // Hopper (sm_90a) building blocks of the SIREN chain kernels
-// (siren_train_bwd.cu, siren_forward.cu, siren_train_fwd.cu): warpgroup
-// matrix products (wgmma) on operands in shared memory or A in registers,
-// their matrix descriptors, mbarriers, named barriers, register hand-over
-// between warpgroups, and tensor-memory-accelerator (TMA) copies between
-// device and shared memory. Thin wrappers over the PTX, nothing more.
+// (siren_train_bwd.cu, siren_forward.cu, siren_train_fwd.cu,
+// siren_forward_int8.cu): warpgroup matrix products (wgmma, bf16 and int8)
+// on operands in shared memory or A in registers, their matrix descriptors,
+// mbarriers, named barriers, register hand-over between warpgroups, and
+// tensor-memory-accelerator (TMA) copies between device and shared memory. Thin wrappers over the PTX, nothing more.
 //
 // Shared-memory operand layout, the one TMA writes with
-// CU_TENSOR_MAP_SWIZZLE_128B and a box whose inner extent is 64 bf16
-// (128 bytes): rows of 128 bytes, 8-row atoms of 1024 bytes, the 16-byte
+// CU_TENSOR_MAP_SWIZZLE_128B and a box whose inner extent is 128 bytes (64
+// bf16 or 128 int8): rows of 128 bytes, 8-row atoms of 1024 bytes, the 16-byte
 // chunk c of row r stored at chunk c ^ (r % 8); every buffer 1024-byte
 // aligned.
 // - K-major operand (the contraction runs along the 128-byte rows): a
-//   k16 step starts 32 bytes further in the row; stride between 8-row
-//   groups (SBO) 1024 bytes.
+//   k16 (bf16) or k32 (int8) step starts 32 bytes further in the row;
+//   stride between 8-row groups (SBO) 1024 bytes.
 // - MN-major operand (the rows run along the contraction): 64 M or N
 //   values per 128-byte row, a k16 step starts 16 rows (2048 bytes)
 //   further; SBO 1024 bytes between 8-row groups along the contraction,
@@ -203,6 +203,73 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], uint32_t a0, uint32_
   else wgmma_rs_m64n256k16(d, a0, a1, a2, a3, b, scale_d);
 }
 
+// ---- int8 wgmma with A from registers: d (64 x N s32) = A (64 x 32 s8,
+// four 32-bit fragments a0..a3 per thread in mma.sync's m16n8k32 A-fragment
+// layout: a0 row g, contraction bytes 4t..4t+3; a1 row g + 8, the same
+// bytes; a2, a3 the same rows, bytes 16 + 4t..; warp w holding rows
+// 16w..16w+15) . B (32 x N, K-major in shared memory) + (scale_d ? d : 0).
+// Integer wgmma has no transpose flags: both operands are K-major. The
+// accumulator layout is the f32 one (thread: rows 16w + g and + 8, columns
+// 8j + 2t, + 1), which is NOT the A-fragment order of the next product's
+// bytes; siren_forward_int8.cu permutes the contraction index of the
+// weights to match.
+__device__ __forceinline__ void wgmma_rs_s8_m64n64k32(int (&d)[32], uint32_t a0, uint32_t a1,
+                                                      uint32_t a2, uint32_t a3, uint64_t b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_s8_m64n128k32(int (&d)[64], uint32_t a0, uint32_t a1,
+                                                      uint32_t a2, uint32_t a3, uint64_t b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_s8_m64n192k32(int (&d)[96], uint32_t a0, uint32_t a1,
+                                                      uint32_t a2, uint32_t a3, uint64_t b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %101, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "{%96, %97, %98, %99}, %100, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d));
+}
+
+__device__ __forceinline__ void wgmma_rs_s8_m64n256k32(int (&d)[128], uint32_t a0, uint32_t a1,
+                                                      uint32_t a2, uint32_t a3, uint64_t b,
+                                                      int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127}, "
+      "{%128, %129, %130, %131}, %132, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]), "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]), "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]), "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]), "+r"(d[127])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(scale_d));
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_rs_s8(int (&d)[N / 2], uint32_t a0, uint32_t a1, uint32_t a2,
+                                            uint32_t a3, uint64_t b, int scale_d) {
+  if constexpr (N == 64) wgmma_rs_s8_m64n64k32(d, a0, a1, a2, a3, b, scale_d);
+  else if constexpr (N == 128) wgmma_rs_s8_m64n128k32(d, a0, a1, a2, a3, b, scale_d);
+  else if constexpr (N == 192) wgmma_rs_s8_m64n192k32(d, a0, a1, a2, a3, b, scale_d);
+  else wgmma_rs_s8_m64n256k32(d, a0, a1, a2, a3, b, scale_d);
+}
+
 // Arrive at named barrier `id` (of `count` threads) without waiting.
 __device__ __forceinline__ void bar_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
@@ -303,6 +370,22 @@ inline bool bf16_map(CUtensorMap* map, const void* base, int rank, const uint64_
   }
   return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), gdim, gstride,
             box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// An int8 matrix of `rows` rows of `cols` bytes, rows contiguous, read in
+// boxes of 128 columns x `box_rows` rows with the 128-byte swizzle: one box
+// row is one 128-byte row of the K-major layout above (128 int8
+// contraction values; a k32 step starts 32 bytes further, SBO 1024 bytes).
+// Columns past `cols` load as zero and count in the box's bytes.
+inline bool s8_map(CUtensorMap* map, const void* base, uint64_t cols, uint64_t rows,
+                   uint32_t box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t gdim[2] = {cols, rows}, gstride[1] = {cols};
+  const cuuint32_t box[2] = {128, box_rows}, estride[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, 2, const_cast<void*>(base), gdim, gstride, box,
+            estride, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 

@@ -16,280 +16,383 @@
 // module), so quantisation and dequantisation are one multiply each. The
 // sines are always the degree-9 polynomial.
 //
-// What bounds it: 2 * B * S * H^2 * (L-1) int8 tensor-core operations
-// (3.1e11 at B=1024, S=576, H=256, L=5) against ~13 MB of input and output:
-// the products. The epilogue (dequantise, sine, quantise: about 25 scalar
-// instructions per activation element) is the larger cost in practice.
+// What bounds it on an H100, at the quantised eval shape (B=1024, S=576,
+// H=256, L=5):
+// - the products: 2 * B * S * H^2 * (L-1) = 3.1e11 int8 tensor-core
+//   operations, 0.16 ms at 1,979 TOP/s; its own input and output are ~13 MB;
+// - the epilogue's scalar work: B * S * H * (L-1) = 6.0e8 activations of
+//   about 20 f32 instructions each (dequantise, w0, the degree-9 sine with
+//   its range reduction, quantise): ~0.36 ms on the FMA pipe, above the
+//   products' bound, so the epilogue sets the pace and must run under the
+//   products.
 //
-// Design: siren_forward.cu's tiling with the operand types changed.
-// - one block per (patch, 64-row tile of S); the 64 x H activation tile
-//   lives in shared memory as int8 for the whole chain;
-// - the weights arrive as (layer, out, in), K-contiguous (the wrapper
-//   transposes the (in, out) int8 array once): ldmatrix.trans moves 16-bit
-//   elements only, so an (in, out) int8 tile cannot be transposed on its way
-//   into registers, while an (out, in) tile is already the col-major B
-//   operand and loads with plain ldmatrix;
-// - they stream through a 3-stage cp.async ring of slabs of 64 K-bytes for
-//   all H outputs (16 KB a stage at H=256), running across layer boundaries;
-// - products are mma.sync m16n8k32 s8 x s8 -> s32; rows are padded by 16
-//   bytes so every ldmatrix is free of bank conflicts;
-// - 8 warps as 2 (rows) x 4 (columns), epilogue on the accumulator
-//   registers; floor(s * fq + 0.5) and acc * gd + b are written with
-//   __fmul_rn / __fadd_rn so that no fused multiply-add rounds a tie the
-//   other way than the plain version;
-// - the last layer reduces over H in registers, quads, then shared memory.
+// Design (siren_fwd.cuh's persistent warp-specialised block, with int8
+// operands; this file keeps its own copy of the block because the operand
+// type changes the slabs, the fragments and every epilogue):
+// - one persistent block per SM, 384 threads: a producer warpgroup
+//   (setmaxnreg 40) whose first thread streams the hidden weights through a
+//   ring of slabs paced by full / empty mbarriers, across layers and tiles.
+//   A slab is one TMA box of 128 contraction bytes of all H output rows
+//   (H x 128 bytes, the 128-byte swizzle: 32 KB at H=256), ceil(H / 128)
+//   a layer; at H = 64 and 192 the box's columns past H load as zeros and
+//   no product reads them;
+// - two consumer warpgroups (setmaxnreg 232), each owning a 64-row tile of
+//   one patch (an odd last tile leaves consumer 1 a tile of zeros, computed
+//   and never stored); they take turns at the tensor cores through named
+//   barriers, so one's epilogue runs under the other's products;
+// - products: wgmma m64nHk32 .s32.s8.s8, H / 32 a layer, issued back to
+//   back once the layer's slabs have all arrived (a slab wait between them
+//   made ptxas serialise the bf16 kernels' wgmma);
+// - the activations stay in registers as the next product's A fragments
+//   (RS form). A thread's accumulators hold columns {8j + 2t, 8j + 2t + 1}
+//   of its rows, while the int8 A fragment of a k32 step wants contraction
+//   bytes {4t..4t+3, 16+4t..16+4t+3}. So the wrapper permutes the
+//   contraction index of the hidden weights W_1..W_{L-2} once
+//   (siren_kernel.int8_kernel_weights: byte 16u + 4t + q of each 32-block
+//   holds column 16u + 2t + (q & 1) + 8 (q >> 1)), and a thread packs its own
+//   four quantised values of columns c, c+1, c+8, c+9 into one register:
+//   no shuffle, no shared memory. Layer 0's input x_0 is built from `base`
+//   in the natural order, so W_0 keeps it;
+// - the epilogue rounds as the plain version does: __fmul_rn / __fadd_rn
+//   for the dequantise and quantise steps, sin9 with its exact range
+//   reduction, expf for Morlet. Its two conversions run on the FMA pipe
+//   (128 results a cycle an SM), not the conversion unit (16), and give
+//   the same bits:
+//   float(acc) = (bits(1.5 * 2^23) + acc as a float) - 1.5 * 2^23 for
+//   |acc| < 2^22 (|acc| <= H * 127^2), and floor(v) as an int8 is the low
+//   byte of (1.5 * 2^23 + v) rounded down, for |v| < 2^22;
+// - the last layer sums s * fq * last_w over H in registers and across the
+//   quad of lanes that share a row: no shared memory, no block barrier.
+//
+// What it reads (PERF.md, one H100 at 700 W; chip_smoke.py and
+// scripts/torch_fwd_cut_probe.py): about 0.8 ms a call at B=1024, 25% of
+// the bound. A consumer's hidden-layer epilogue takes about 5,700 SM cycles
+// against about 2,100 for issuing and completing its products, and a tile
+// starts with about 4,700 cycles of factors and x_0: the epilogues, with
+// both consumers' warps issuing on the same sub-partitions, set the pace.
+//
+// Built with nvcc into a shared library with a plain C interface; the
+// Python wrapper (ops/siren_kernel.py) checks every tensor and calls
+// siren_forward_int8_launch through ctypes on PyTorch's current stream.
 
-#include "siren_common.cuh"
+#include "siren_fwd.cuh"
 
 namespace {
 
 using namespace siren;
+using namespace hopper;
+using siren_fwd::CONSUMER_BAR;
+using siren_fwd::CONSUMER_REGS;
+using siren_fwd::ORDER_BAR;
+using siren_fwd::PRODUCER_REGS;
+using siren_fwd::THREADS;
+using siren_fwd::TM;
+#ifdef SIREN_FWD_TRACE
+using siren_fwd::g_trace;
+using siren_fwd::TRACE_BLOCKS;
+using siren_fwd::TRACE_MARKS;
+#endif
 
-constexpr int TM = 64;        // rows of S per block
-constexpr int KS = 64;        // K bytes of every weight row per pipeline stage
-constexpr int STAGES = 3;     // cp.async ring depth
-constexpr int THREADS = 256;  // 8 warps: 2 row groups x 4 column groups
-constexpr int PAD = 16;       // byte padding per shared row
+constexpr int SLAB_K = 128;            // contraction bytes of a slab (a swizzled row)
+constexpr int MAGIC_I = 0x4B400000;    // the bits of 1.5 * 2^23
+constexpr float MAGIC_F = 12582912.f;  // 1.5 * 2^23
 
 struct Args {
-  const float* fq;         // (B, L*H) f32 quantisation factors
-  const float* gd;         // (B, (L-1)*H) f32 dequantisation factors
-  const float* ls;         // (B, ls_stride) f32, column 0 read
-  const float* base;       // (S, H) f32
-  const int8_t* swq;       // (L-1, H, H) int8, (out, in) per layer
-  const float* sb;         // (L-1, H) f32
-  const float* last_w;     // (H,) f32
-  const float* last_b;     // (1,) f32
-  float* out;              // (B, S) f32
-  int S;
-  int L;
-  int ls_stride;
+  const float* fq;      // (B, L*H) f32 quantisation factors
+  const float* gd;      // (B, (L-1)*H) f32 dequantisation factors
+  const float* ls;      // (B, ls_stride) f32, column 0 read
+  const float* base;    // (S, H) f32
+  const float* sb;      // (L-1, H) f32
+  const float* last_w;  // (H,) f32
+  const float* last_b;  // (1,) f32
+  float* out;           // (B, S) f32
+  int B, S, L, ls_stride;
   float w0;
-  int morlet;
+  int stages;           // weight ring depth, set by launch()
 };
 
-__device__ __forceinline__ float activation(float pre, float w0, int morlet) {
+template <int H>
+struct Geometry {
+  static_assert(H % 64 == 0 && H <= 256, "H must be a multiple of 64, at most 256");
+  static_assert(H * 127 * 127 < (1 << 22), "|acc| < 2^22 for the exact conversion");
+  static constexpr int KB = (H + SLAB_K - 1) / SLAB_K;  // slabs a layer
+  static constexpr int STAGE = H * SLAB_K;              // one slab: H rows x 128 bytes
+  static constexpr int KK = H / 32;                     // k32 products a layer
+  static constexpr int NA = H / 2;                      // s32 accumulators a thread
+  static constexpr int NX = H / 8;                      // A registers (4 int8 each) a thread
+  // the ring, each consumer's fq (L x H) and gd ((L-1) x H), the biases,
+  // last_w and the mbarriers
+  static size_t smem_bytes(int L, int stages) {
+    return 1024 + (size_t)stages * STAGE +
+           sizeof(float) * ((size_t)2 * (2 * L - 1) * H + (size_t)L * H) +
+           sizeof(uint64_t) * 2 * stages;
+  }
+};
+
+template <bool MORLET>
+__device__ __forceinline__ float activation(float pre, float w0) {
   float a = sin9(w0 * pre);
-  if (morlet) a *= expf(-0.5f * (pre * pre));
+  if (MORLET) a *= expf(-0.5f * (pre * pre));
   return a;
 }
 
 __device__ __forceinline__ float dequant(int acc, float gd, float bias) {
-  return __fadd_rn(__fmul_rn((float)acc, gd), bias);
+  const float a = __fsub_rn(__int_as_float(acc + MAGIC_I), MAGIC_F);  // float(acc), exact
+  return __fadd_rn(__fmul_rn(a, gd), bias);
 }
 
-__device__ __forceinline__ signed char quant(float s, float fq) {
-  return (signed char)(int)floorf(__fadd_rn(__fmul_rn(s, fq), 0.5f));
+// int8(floor(s * fq + 0.5)) in the low byte of the result
+__device__ __forceinline__ uint32_t quant(float s, float fq) {
+  return __float_as_uint(__fadd_rd(__fadd_rn(__fmul_rn(s, fq), 0.5f), MAGIC_F));
 }
 
-template <int H>
-size_t smem_bytes(int L) {
-  return (size_t)TM * (H + PAD) + (size_t)STAGES * H * (KS + PAD) +
-         sizeof(float) * ((size_t)L * H + 2 * (size_t)(L - 1) * H + H + 4 * TM);
+// four quantised values' low bytes -> one A-fragment register, q0 lowest
+__device__ __forceinline__ uint32_t pack4(uint32_t q0, uint32_t q1, uint32_t q2, uint32_t q3) {
+  return __byte_perm(__byte_perm(q0, q1, 0x0040), __byte_perm(q2, q3, 0x0040), 0x5410);
 }
 
-// Slab `slab` = K bytes [k0, k0 + KS) of all H output rows of one layer.
-template <int H>
-__device__ __forceinline__ void load_slab(int8_t* stage, const int8_t* swq, int slab, int tid) {
-  constexpr int SLABS_PER_LAYER = H / KS;
-  constexpr int CHUNKS_PER_ROW = KS / 16;
-  const int layer = slab / SLABS_PER_LAYER;
-  const int k0 = (slab % SLABS_PER_LAYER) * KS;
-  const int8_t* src = swq + (size_t)layer * H * H + k0;
-  for (int c = tid; c < H * CHUNKS_PER_ROW; c += THREADS) {
-    const int n = c / CHUNKS_PER_ROW, kb = (c % CHUNKS_PER_ROW) * 16;
-    cp_async16(stage + n * (KS + PAD) + kb, src + (size_t)n * H + kb);
-  }
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
 }
 
-template <int H>
-__global__ void __launch_bounds__(THREADS, 2) siren_forward_int8_kernel(Args args) {
-  static_assert(H % 64 == 0 && H <= 256, "H must be a multiple of 64, at most 256");
-  constexpr int LDX = H + PAD;   // bytes per activation row
-  constexpr int LDW = KS + PAD;  // bytes per weight row in a stage
-  constexpr int WN = H / 4;      // columns per warp
-  constexpr int NT = WN / 8;     // n-tiles of 8 per warp
-  constexpr int SLABS_PER_LAYER = H / KS;
+template <int H, bool MORLET>
+__global__ void __launch_bounds__(THREADS, 1)
+    siren_forward_int8_kernel(const __grid_constant__ CUtensorMap wq_map, const Args args) {
+  using G = Geometry<H>;
+  constexpr int KB = G::KB, KK = G::KK, NA = G::NA, NX = G::NX;
+  const int L = args.L, S = args.S, nst = args.stages;
+  const int tpp = (S + TM - 1) / TM;
+  const int ntiles = args.B * tpp, npairs = (ntiles + 1) / 2;
 
-  extern __shared__ __align__(16) unsigned char smem[];
-  int8_t* xs = reinterpret_cast<int8_t*>(smem);                      // TM x LDX
-  int8_t* ws = xs + TM * LDX;                                        // STAGES x H x LDW
-  float* fq_s = reinterpret_cast<float*>(ws + STAGES * H * LDW);     // L x H
-  float* gd_s = fq_s + args.L * H;                                   // (L-1) x H
-  float* bias_s = gd_s + (args.L - 1) * H;                           // (L-1) x H
-  float* lw_s = bias_s + (args.L - 1) * H;                           // H
-  float* red_s = lw_s + H;                                           // 4 x TM
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* ring = siren_fwd::align1024(smem_raw);
+  float* fq_s = reinterpret_cast<float*>(ring + nst * G::STAGE);  // 2 x L x H
+  float* gd_s = fq_s + 2 * L * H;                                  // 2 x (L-1) x H
+  float* bias_s = gd_s + 2 * (L - 1) * H;                          // (L-1) x H
+  float* lw_s = bias_s + (L - 1) * H;                              // H
+  uint64_t* full = reinterpret_cast<uint64_t*>(lw_s + H);
+  uint64_t* empty = full + nst;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int warp_m = warp >> 2, warp_n = warp & 3;
-  const int g = lane >> 2, t = lane & 3;
-
-  const int tiles = (args.S + TM - 1) / TM;
-  const int b = blockIdx.x / tiles;
-  const int row0 = (blockIdx.x % tiles) * TM;
-  const int L = args.L;
-  const int nslab = (L - 1) * SLABS_PER_LAYER;
-
-  // start the weight stream first: it is the longest wait
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nslab) load_slab<H>(ws + s * H * LDW, args.swq, s, tid);
-    cp_async_commit();
-  }
-
-  const float* fq_row = args.fq + (size_t)b * L * H;
-  const float* gd_row = args.gd + (size_t)b * (L - 1) * H;
-  for (int i = tid; i < L * H; i += THREADS) fq_s[i] = fq_row[i];
-  for (int i = tid; i < (L - 1) * H; i += THREADS) {
-    gd_s[i] = gd_row[i];
-    bias_s[i] = args.sb[i];
-  }
+  for (int i = tid; i < (L - 1) * H; i += THREADS) bias_s[i] = args.sb[i];
   for (int i = tid; i < H; i += THREADS) lw_s[i] = args.last_w[i];
+  if (tid == 0) {
+    for (int i = 0; i < nst; ++i) {
+      mbar_init(&full[i], 1);
+      mbar_init(&empty[i], 2);
+    }
+    mbar_init_fence();
+  }
   __syncthreads();
 
-  // xq_0 = int8(floor(base * fq_0 + 0.5)); rows past S are zero and never stored
-  for (int i = tid; i < TM * (H / 4); i += THREADS) {
-    const int r = i / (H / 4), c = (i % (H / 4)) * 4;
-    char4 q = make_char4(0, 0, 0, 0);
-    if (row0 + r < args.S) {
-      const float4 v = *reinterpret_cast<const float4*>(args.base + (size_t)(row0 + r) * H + c);
-      q = make_char4(quant(v.x, fq_s[c]), quant(v.y, fq_s[c + 1]), quant(v.z, fq_s[c + 2]),
-                     quant(v.w, fq_s[c + 3]));
-    }
-    *reinterpret_cast<char4*>(xs + r * LDX + c) = q;
+  if (tid < 128) {
+    // ---------------------------------------------------------- producer
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (tid != 0) return;
+    int n = 0;
+    for (int p = blockIdx.x; p < npairs; p += gridDim.x)
+      for (int layer = 0; layer < L - 1; ++layer)
+        for (int kq = 0; kq < KB; ++kq, ++n) {
+          const int st = n % nst, use = n / nst;
+          if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
+          mbar_expect_tx(&full[st], G::STAGE);
+          tma_load_2d(ring + st * G::STAGE, &wq_map, SLAB_K * kq, layer * H, &full[st]);
+        }
+    return;
   }
 
-  int acc[2][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+  // ------------------------------------------------------------ consumers
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int ci = (tid >> 7) - 1;  // consumer 0 or 1
+  const int wtid = tid & 127, warp = wtid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t4 = lane & 3;
+  const int rbase = warp * 16 + g;  // this thread's rows: rbase, rbase + 8
+  float* my_fq = fq_s + ci * L * H;
+  float* my_gd = gd_s + ci * (L - 1) * H;
+  const float w0 = args.w0, last_b = args.last_b[0];
+#ifdef SIREN_FWD_TRACE
+  int mark = 0;
+#endif
 
-  for (int slab = 0; slab < nslab; ++slab) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // slab arrived for all threads; previous stage is free
-    {
-      const int next = slab + STAGES - 1;
-      if (next < nslab) load_slab<H>(ws + (next % STAGES) * H * LDW, args.swq, next, tid);
+  int acc[NA];       // acc[4j + 2h + e]: row rbase + 8h, column 8j + 2t4 + e
+  uint32_t xa[NX];   // xa[4kk + h + 2u]: row rbase + 8h, bytes 32kk + 16u + 4t4 ..+3
+#pragma unroll
+  for (int i = 0; i < NA; ++i) acc[i] = 0;
+  if (ci == 1) bar_arrive(ORDER_BAR, 256);  // consumer 0 goes first
+  int n = 0;                                // slabs consumed
+
+  for (int p = blockIdx.x; p < npairs; p += gridDim.x) {
+    FWD_MARK(mark);
+    const int tile = 2 * p + ci;
+    const bool valid = tile < ntiles;
+    const int b = valid ? tile / tpp : 0;
+    const int row0 = valid ? (tile % tpp) * TM : 0;
+    const int rows = valid ? min(TM, S - row0) : 0;  // rows of the tile below S
+
+    // the patch's factors, all copies in flight at once (cp.async)
+    bar_sync(CONSUMER_BAR + ci, 128);  // the last tile's epilogue has read my factors
+    if (valid) {
+      const float* fr = args.fq + (size_t)b * L * H;
+      const float* gr = args.gd + (size_t)b * (L - 1) * H;
+      for (int i = 4 * wtid; i < L * H; i += 4 * 128) cp_async16(my_fq + i, fr + i);
+      for (int i = 4 * wtid; i < (L - 1) * H; i += 4 * 128) cp_async16(my_gd + i, gr + i);
       cp_async_commit();
+      cp_async_wait<0>();
+    } else {
+      const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int i = 4 * wtid; i < L * H; i += 4 * 128) *reinterpret_cast<float4*>(my_fq + i) = zero;
+      for (int i = 4 * wtid; i < (L - 1) * H; i += 4 * 128)
+        *reinterpret_cast<float4*>(my_gd + i) = zero;
     }
+    bar_sync(CONSUMER_BAR + ci, 128);
 
-    const int8_t* wst = ws + (slab % STAGES) * H * LDW;
-    const int kbase = (slab % SLABS_PER_LAYER) * KS;
+    // xq_0 in the natural contraction order; rows past S are zero
 #pragma unroll
-    for (int kk = 0; kk < KS; kk += 32) {
-      // A: 16 rows x 32 K bytes = four 8 x 16-byte matrices
-      uint32_t a[2][4];
+    for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = warp_m * 32 + mt * 16 + (lane & 15);
-        ldmatrix_x4(a[mt], xs + r * LDX + kbase + kk + 16 * (lane >> 4));
-      }
+      for (int u = 0; u < 2; ++u) {
+        const int col = 32 * kk + 16 * u + 4 * t4;
+        const float4 f = *reinterpret_cast<const float4*>(my_fq + col);
 #pragma unroll
-      for (int np = 0; np < NT / 2; ++np) {
-        // B: two n-tiles of 8 outputs x 32 K bytes, (out, in) rows as stored
-        uint32_t bfr[4];
-        const int n = warp_n * WN + np * 16 + (lane & 7) + 8 * (lane >> 4);
-        ldmatrix_x4(bfr, wst + n * LDW + kk + 16 * ((lane >> 3) & 1));
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          mma_s8(acc[mt][2 * np], a[mt], bfr[0], bfr[1]);
-          mma_s8(acc[mt][2 * np + 1], a[mt], bfr[2], bfr[3]);
+        for (int h = 0; h < 2; ++h) {
+          const int r = rbase + 8 * h;
+          float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (r < rows)
+            v = *reinterpret_cast<const float4*>(args.base + (size_t)(row0 + r) * H + col);
+          xa[4 * kk + h + 2 * u] =
+              pack4(quant(v.x, f.x), quant(v.y, f.y), quant(v.z, f.z), quant(v.w, f.w));
         }
       }
-    }
+    FWD_MARK(mark);
 
-    if ((slab + 1) % SLABS_PER_LAYER != 0) continue;
+    for (int layer = 0; layer < L - 1; ++layer) {
+      // ---- the products, on this consumer's turn, once the layer's slabs
+      // have all arrived
+      FWD_MARK(mark);
+      bar_sync(ORDER_BAR + ci, 256);
+      FWD_MARK(mark);
+#pragma unroll
+      for (int s = 0; s < KB; ++s) mbar_wait(&full[(n + s) % nst], ((n + s) / nst) & 1);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < KK; ++kk) {
+        const uint32_t b0 = smem_u32(ring + ((n + kk / 4) % nst) * G::STAGE);
+        wgmma_rs_s8<H>(acc, xa[4 * kk], xa[4 * kk + 1], xa[4 * kk + 2], xa[4 * kk + 3],
+                       desc(b0 + (kk % 4) * 32, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      // hand the turn over; consumer 1's last product of the block has no
+      // successor, so the arrivals match the waits
+      if (!(ci == 1 && layer == L - 2 && p + (int)gridDim.x >= npairs))
+        bar_arrive(ORDER_BAR + (1 - ci), 256);
+      FWD_MARK(mark);
+      wgmma_wait<0>();
+      if (wtid == 0)
+        for (int s = 0; s < KB; ++s) mbar_arrive(&empty[(n + s) % nst]);
+      n += KB;
+      FWD_MARK(mark);
 
-    // ---- epilogue of hidden layer `layer` ----
-    const int layer = slab / SLABS_PER_LAYER;
-    const float* bias = bias_s + layer * H;
-    const float* gd = gd_s + layer * H;
-    const float* fq = fq_s + (layer + 1) * H;
-    __syncthreads();  // every warp has finished reading xs for this layer
-
-    if (layer < L - 2) {
+      // ---- the epilogue, while the other consumer's products run
+      const float* bias = bias_s + layer * H;
+      const float* gd = my_gd + layer * H;
+      if (layer < L - 2) {
+        const float* fq = my_fq + (layer + 1) * H;
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
+        for (int kk = 0; kk < KK; ++kk)
 #pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const int c = warp_n * WN + nt * 8 + 2 * t;
+          for (int u = 0; u < 2; ++u) {
+            // n-blocks j and j + 1: columns c, c + 1, c + 8, c + 9 -> bytes
+            // 4t4 .. 4t4 + 3 of the permuted 16-byte half u of block kk
+            const int j = 4 * kk + 2 * u, c = 8 * j + 2 * t4;
+            const float2 g0 = ld2(gd + c), g1 = ld2(gd + c + 8);
+            const float2 b0 = ld2(bias + c), b1 = ld2(bias + c + 8);
+            const float2 f0 = ld2(fq + c), f1 = ld2(fq + c + 8);
 #pragma unroll
-          for (int half = 0; half < 2; ++half) {
-            const int r = warp_m * 32 + mt * 16 + g + 8 * half;
-            int& v0 = acc[mt][nt][2 * half];
-            int& v1 = acc[mt][nt][2 * half + 1];
-            const float s0 = activation(dequant(v0, gd[c], bias[c]), args.w0, args.morlet);
-            const float s1 =
-                activation(dequant(v1, gd[c + 1], bias[c + 1]), args.w0, args.morlet);
-            *reinterpret_cast<char2*>(xs + r * LDX + c) =
-                make_char2(quant(s0, fq[c]), quant(s1, fq[c + 1]));
-            v0 = 0;
-            v1 = 0;
+            for (int h = 0; h < 2; ++h) {
+              const int i = 4 * j + 2 * h;
+              xa[4 * kk + h + 2 * u] = pack4(
+                  quant(activation<MORLET>(dequant(acc[i], g0.x, b0.x), w0), f0.x),
+                  quant(activation<MORLET>(dequant(acc[i + 1], g0.y, b0.y), w0), f0.y),
+                  quant(activation<MORLET>(dequant(acc[i + 4], g1.x, b1.x), w0), f1.x),
+                  quant(activation<MORLET>(dequant(acc[i + 5], g1.y, b1.y), w0), f1.y));
+            }
+          }
+      } else {
+        // last layer: each row's sum over H lies in one quad of lanes
+        const float* fq = my_fq + (L - 1) * H;
+        float part[2] = {0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < H / 8; ++j) {
+          const int c = 8 * j + 2 * t4;
+          const float2 gg = ld2(gd + c), bb = ld2(bias + c), ff = ld2(fq + c), ww = ld2(lw_s + c);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float s0 = activation<MORLET>(dequant(acc[4 * j + 2 * h], gg.x, bb.x), w0);
+            const float s1 = activation<MORLET>(dequant(acc[4 * j + 2 * h + 1], gg.y, bb.y), w0);
+            part[h] += __fmul_rn(s0, ff.x) * ww.x + __fmul_rn(s1, ff.y) * ww.y;
           }
         }
-      }
-      continue;  // the next iteration's barrier publishes xs
-    }
-
-    // ---- last hidden layer: projection reduction + output sine ----
-    float part[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+        const float ls = args.ls[(size_t)b * args.ls_stride];
 #pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt) {
-        const int c = warp_n * WN + nt * 8 + 2 * t;
-#pragma unroll
-        for (int half = 0; half < 2; ++half) {
-          const float s0 = activation(dequant(acc[mt][nt][2 * half], gd[c], bias[c]), args.w0,
-                                      args.morlet);
-          const float s1 = activation(dequant(acc[mt][nt][2 * half + 1], gd[c + 1], bias[c + 1]),
-                                      args.w0, args.morlet);
-          part[mt][half] += __fmul_rn(s0, fq[c]) * lw_s[c] + __fmul_rn(s1, fq[c + 1]) * lw_s[c + 1];
+        for (int h = 0; h < 2; ++h) {
+          float v = part[h];
+          v += __shfl_xor_sync(0xffffffffu, v, 1);
+          v += __shfl_xor_sync(0xffffffffu, v, 2);
+          const int r = rbase + 8 * h;
+          if (t4 == 0 && r < rows)
+            args.out[(size_t)b * S + row0 + r] = sin9(w0 * __fadd_rn(__fmul_rn(v, ls), last_b));
         }
       }
-#pragma unroll
-    for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        float p = part[mt][half];
-        p += __shfl_xor_sync(0xffffffffu, p, 1);
-        p += __shfl_xor_sync(0xffffffffu, p, 2);
-        if (t == 0) red_s[warp_n * TM + warp_m * 32 + mt * 16 + g + 8 * half] = p;
-      }
-    __syncthreads();
-    if (tid < TM && row0 + tid < args.S) {
-      const float r = red_s[tid] + red_s[TM + tid] + red_s[2 * TM + tid] + red_s[3 * TM + tid];
-      const float pre = __fadd_rn(__fmul_rn(r, args.ls[(size_t)b * args.ls_stride]),
-                                  args.last_b[0]);
-      args.out[(size_t)b * args.S + row0 + tid] = sin9(args.w0 * pre);
+      FWD_MARK(mark);
     }
   }
 }
 
-template <int H>
-cudaError_t launch(const Args& args, int B, cudaStream_t stream) {
-  const size_t smem = smem_bytes<H>(args.L);
-  cudaError_t err = cudaFuncSetAttribute(siren_forward_int8_kernel<H>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         (int)smem);
+// Launch on `stream` over the kernel's weight pack (`swq_k`, (L-1, H, H)
+// int8, (out, in) per layer, contraction permuted for layers 1..L-2): the
+// deepest ring (at most MAX_STAGES, at least one layer's slabs) that fits
+// the block's shared memory, one block per SM.
+template <int H, bool MORLET>
+cudaError_t launch(Args args, const void* swq_k, cudaStream_t stream) {
+  using G = Geometry<H>;
+  CUtensorMap map;
+  if (!s8_map(&map, swq_k, H, (uint64_t)(args.L - 1) * H, H)) return cudaErrorNotSupported;
+  int limit = 0, sms = 0;
+  cudaError_t err = siren_fwd::device_limits(limit, sms);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)B * ((args.S + TM - 1) / TM);
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
-  siren_forward_int8_kernel<H><<<(unsigned)blocks, THREADS, smem, stream>>>(args);
+  args.stages = siren_fwd::MAX_STAGES;
+  while (args.stages > G::KB && G::smem_bytes(args.L, args.stages) > (size_t)limit)
+    --args.stages;
+  const size_t smem = G::smem_bytes(args.L, args.stages);
+  if (smem > (size_t)limit) return cudaErrorInvalidConfiguration;
+  // the shared-memory ceiling every launch stays under, raised once per
+  // instantiation at its first use
+  static const cudaError_t raised =
+      cudaFuncSetAttribute(siren_forward_int8_kernel<H, MORLET>,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (raised != cudaSuccess) return raised;
+  const long long tiles = (long long)args.B * ((args.S + TM - 1) / TM);
+  if (tiles > 0x7ffffffeLL) return cudaErrorInvalidConfiguration;
+  const long long pairs = (tiles + 1) / 2;
+  const int blocks = (int)(pairs < sms ? pairs : sms);
+  siren_forward_int8_kernel<H, MORLET><<<blocks, THREADS, smem, stream>>>(map, args);
   return cudaGetLastError();
+}
+
+template <int H>
+cudaError_t launch_act(const Args& args, int morlet, const void* swq_k, cudaStream_t stream) {
+  return morlet ? launch<H, true>(args, swq_k, stream) : launch<H, false>(args, swq_k, stream);
 }
 
 }  // namespace
 
 // Returns a cudaError_t (0 = launched). Pointers are device pointers to
-// contiguous tensors; swq is (L-1, out, in) int8; ls is (B, ls_stride) and
-// its first column is read.
+// contiguous tensors; swq_k is the kernel's weight pack (L-1, H, H) int8
+// (out, in) per layer with the contraction index of layers 1..L-2 permuted
+// (siren_kernel.int8_kernel_weights), 16-byte aligned; ls is
+// (B, ls_stride) and its first column is read.
 extern "C" int siren_forward_int8_launch(const void* fq, const void* gd, const void* ls,
-                                         const void* base, const void* swq, const void* sb,
+                                         const void* base, const void* swq_k, const void* sb,
                                          const void* last_w, const void* last_b, void* out,
                                          int B, int S, int H, int L, int ls_stride, float w0,
                                          int morlet, void* stream) {
@@ -298,22 +401,22 @@ extern "C" int siren_forward_int8_launch(const void* fq, const void* gd, const v
             static_cast<const float*>(gd),
             static_cast<const float*>(ls),
             static_cast<const float*>(base),
-            static_cast<const int8_t*>(swq),
             static_cast<const float*>(sb),
             static_cast<const float*>(last_w),
             static_cast<const float*>(last_b),
             static_cast<float*>(out),
+            B,
             S,
             L,
             ls_stride,
             w0,
-            morlet};
+            0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (H) {
-    case 64: return (int)launch<64>(args, B, st);
-    case 128: return (int)launch<128>(args, B, st);
-    case 192: return (int)launch<192>(args, B, st);
-    case 256: return (int)launch<256>(args, B, st);
+    case 64: return (int)launch_act<64>(args, morlet, swq_k, st);
+    case 128: return (int)launch_act<128>(args, morlet, swq_k, st);
+    case 192: return (int)launch_act<192>(args, morlet, swq_k, st);
+    case 256: return (int)launch_act<256>(args, morlet, swq_k, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

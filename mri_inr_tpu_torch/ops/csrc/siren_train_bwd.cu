@@ -20,7 +20,7 @@
 //                dW_i  += x_i^T @ bf16(dpre)                  (product 2)
 //                dx     = bf16(dpre) @ W_i^T                  (product 3)
 //   layer 0    : dmods[0] = sum_rows dx * drop_0(base)
-//                dbase   += drop_0(dx * mod_0)
+//                dbase    = sum_patches drop_0(dx * mod_0)
 //
 // What bounds it: the gradient needs three H x H products per hidden layer
 // and row (the forward's, dW and dx), 6 * B * S * H^2 * (L-1) bf16
@@ -31,13 +31,14 @@
 // (the last hidden product is shared) and dx for L-1.
 //
 // Design:
-// - chain kernel, one block per (patch, 64-row tile of S): four warpgroups
-//   split the H output columns (64 x H/4 accumulators each for `pre` and
-//   for `dx`, so both meet element by element in registers; 512 threads of
-//   up to 128 registers, so 16 warps hide the epilogues' latencies). The
-//   weights come through a ring of 3-4 slabs (at least one product's)
-//   filled with TMA loads by thread 0 at the end of each product, so the
-//   next product's weights arrive while its epilogue runs; loads issued
+// - chain kernel, one block per (group of patches, 64-row tile of S), the
+//   patches taken in turn: four warpgroups split the H output columns
+//   (64 x H/4 accumulators each for `pre` and for `dx`, so both meet
+//   element by element in registers; 512 threads of up to 128 registers,
+//   so 16 warps hide the epilogues' latencies). The weights come through a
+//   ring of 3-4 slabs (at least one product's) filled with TMA loads by
+//   thread 0 at the end of each product, so the next product's weights
+//   arrive while its epilogue runs; loads issued
 //   between a warpgroup's wgmma instructions made ptxas serialise them, and
 //   a separate producer warp (17 warps) cut the registers to 96 and spilled.
 //   Full / empty mbarriers pace the ring; the warpgroups meet at a named
@@ -57,7 +58,12 @@
 // - it computes everything but dW: dmods, dsb, dlw and dlb as one partial
 //   record per (patch, tile), summed over the tile's rows in a fixed order
 //   (written straight to device memory; the wrapper sums the records, so
-//   they repeat bit for bit), dbase with atomics (one add per patch);
+//   they repeat bit for bit). A block takes its tile for up to 4
+//   consecutive patches in turn (chain_group: while the grid keeps 4 waves)
+//   and adds their dbase terms, in patch order, into one f32 partial with
+//   plain loads and stores; a small kernel sums the partials in order, so
+//   dbase repeats bit for bit too (one partial per patch would write and
+//   read 236 MB at B=400);
 // - the activation (sine or Morlet) is a template argument: the epilogues
 //   are unrolled over a thread's elements, and the kernel is larger than
 //   the instruction cache, so a run-time switch would cost in every block;
@@ -103,7 +109,7 @@ struct Args {
   const float* last_b;     // (1,) f32
   const float* g;          // (B, S) f32
   float* part;             // (B * tiles, record) f32, every element written
-  float* dbase;            // (S, H) f32, zeroed by the caller
+  float* dbase_part;       // (ceil(B / group), S, H) f32: dbase partials
   __nv_bfloat16* work;     // (2, L-1, B, S, H) bf16: x_i, then bf16(dpre_i)
   int B;
   int S;
@@ -114,6 +120,7 @@ struct Args {
   float inv_keep;
   int dropout;
   int stages;  // weight ring depth
+  int group;   // patches a chain block takes in turn (chain_group)
 };
 
 // act(p) and dact(p) together: they share the range-reduced argument's
@@ -137,11 +144,6 @@ __device__ __forceinline__ float act_only(float p, float w0) {
   float a = poly_sin<DEG>(w0 * p);
   if (MORLET) a *= expf(-0.5f * (p * p));
   return a;
-}
-
-// p[0] += a, p[1] += b in global memory; p is 8-byte aligned.
-__device__ __forceinline__ void add2(float* p, float a, float b) {
-  atomicAdd(reinterpret_cast<float2*>(p), make_float2(a, b));
 }
 
 // sum over the 8 lanes that share a column pair (same t, all g)
@@ -241,6 +243,7 @@ struct Ring {
   const CUtensorMap* w_map;   // W: rows (layer, out), columns in
   const CUtensorMap* wt_map;  // W^T: rows (layer, in), columns out
   int stages, L;
+  int products;  // of the block's sequence: 3L - 4 for each of its patches
   int t = 0;     // slabs consumed
   int next = 0;  // thread 0: the next slab to load
 
@@ -248,12 +251,12 @@ struct Ring {
   // are released
   __device__ void load_upto(int last) {
     constexpr int KB = Chain<H>::KB;
-    for (; next <= last && next < KB * (3 * L - 4); ++next) {
+    for (; next <= last && next < KB * products; ++next) {
       const int st = next % stages, use = next / stages;
       if (use > 0) mbar_wait(&empty[st], (use - 1) & 1);
       int layer;
       bool wt;
-      product_of(next / KB, L, layer, wt);
+      product_of(next / KB % (3 * L - 4), L, layer, wt);
       mbar_expect_tx(&full[st], Chain<H>::STAGE);
       for (int q = 0; q < KB; ++q)
         tma_load_2d(base + st * Chain<H>::STAGE + q * BOX, wt ? wt_map : w_map,
@@ -318,15 +321,14 @@ __global__ void __launch_bounds__(CHAIN_BLOCK, 1)
 
   const int tid = threadIdx.x;
   const int tiles = (S + TM - 1) / TM;
-  const int b = blockIdx.x / tiles;
+  const int b0 = blockIdx.x / tiles * args.group;  // the block's first patch
+  const int np = min(args.group, args.B - b0);     // its patches, taken in turn
   const int tile = blockIdx.x % tiles;
   const int row0 = tile * TM;
 
-  const float* mrow = args.mods + (size_t)b * L * H;
-  for (int i = tid; i < L * H; i += CHAIN_BLOCK) mod_s[i] = mrow[i];
   for (int i = tid; i < (L - 1) * H; i += CHAIN_BLOCK) bias_s[i] = args.sb[i];
   for (int i = tid; i < H; i += CHAIN_BLOCK) lw_s[i] = args.last_w[i];
-  Ring<H> ring{ring_s, full, empty, &w_map, &wt_map, nst, L};
+  Ring<H> ring{ring_s, full, empty, &w_map, &wt_map, nst, L, np * (3 * L - 4)};
   if (tid == 0) {
     for (int i = 0; i < nst; ++i) {
       mbar_init(&full[i], 1);
@@ -343,216 +345,234 @@ __global__ void __launch_bounds__(CHAIN_BLOCK, 1)
   const int rbase = warp * 16 + g;  // rows rbase and rbase + 8 of the tile
   const int cbase = wg * NW + 2 * t4;  // + 8j: this thread's column pairs
   const Dropout dp{(uint32_t)(int)args.seed[0], args.thresh, args.inv_keep, args.dropout};
-  const uint32_t idx0 = ((uint32_t)b * (uint32_t)S + (uint32_t)row0) * (uint32_t)H;
-  const size_t xz = b, pz = (size_t)(L - 1) * args.B + b;  // workspace slabs of x_0, dpre_0
-  float* dm_g = args.part + (size_t)blockIdx.x * C::record(L);  // this tile's record
-  float* db_g = dm_g + L * H;
-  float* dlw_g = db_g + (L - 1) * H;
+  // the block's dbase partial: its patches' terms for this tile, in patch order
+  float* db_part = args.dbase_part + ((size_t)(b0 / args.group) * S + row0) * H;
 
   float acc[NA];  // pre of the current layer (without its bias)
   float dxr[NA];  // dx, same (row, column) layout
 
-  // x_0 = bf16(drop_0(base) * mod_0); rows past S are zero
-  {
-    const uint32_t off = layer_offset(dp, 0);
-    for (int i = tid; i < TM * (H / 2); i += CHAIN_THREADS) {
-      const int r = i / (H / 2), c = (i % (H / 2)) * 2;
-      float2 v = make_float2(0.f, 0.f);
-      if (row0 + r < S) v = *reinterpret_cast<const float2*>(args.base + (size_t)(row0 + r) * H + c);
-      const uint32_t e = idx0 + (uint32_t)(r * H + c);
-      st_pair(ax, r, c, __fmul_rn(drop(dp, v.x, e, off), mod_s[c]),
-              __fmul_rn(drop(dp, v.y, e + 1, off), mod_s[c + 1]));
-    }
-  }
-  fence_async_shared();
-  bar_sync(CONSUMER_BAR, CHAIN_THREADS);
-  tile_to_global<H>(ax, args.work, xz, row0, S, tid);
+  for (int b = b0; b < b0 + np; ++b) {
+    // the patch's modulations; the last patch's epilogues have read mod_s
+    // (they end before the barrier ahead of its record)
+    const float* mrow = args.mods + (size_t)b * L * H;
+    for (int i = tid; i < L * H; i += CHAIN_BLOCK) mod_s[i] = mrow[i];
+    bar_sync(CONSUMER_BAR, CHAIN_THREADS);
+    const uint32_t idx0 = ((uint32_t)b * (uint32_t)S + (uint32_t)row0) * (uint32_t)H;
+    const size_t xz = b, pz = (size_t)(L - 1) * args.B + b;  // workspace slabs of x_0, dpre_0
+    float* dm_g = args.part + ((size_t)b * tiles + tile) * C::record(L);  // this tile's record
+    float* db_g = dm_g + L * H;
+    float* dlw_g = db_g + (L - 1) * H;
 
-  // ---- recomputed forward: x_1 .. x_{L-2}, each to ax and the workspace
-  for (int layer = 0; layer < L - 2; ++layer) {
-    chain_product<H>(acc, ax, ring, tid);
-    bar_sync(CONSUMER_BAR, CHAIN_THREADS);  // ax read by every product and store
-    const float* bias = bias_s + layer * H;
-    const float* mod = mod_s + (layer + 1) * H;
-    const uint32_t off = layer_offset(dp, layer + 1);
-#pragma unroll
-    for (int j = 0; j < NW / 8; ++j) {
-      const int c = cbase + 8 * j;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = rbase + 8 * h;
+    // x_0 = bf16(drop_0(base) * mod_0); rows past S are zero
+    {
+      const uint32_t off = layer_offset(dp, 0);
+      for (int i = tid; i < TM * (H / 2); i += CHAIN_THREADS) {
+        const int r = i / (H / 2), c = (i % (H / 2)) * 2;
+        float2 v = make_float2(0.f, 0.f);
+        if (row0 + r < S)
+          v = *reinterpret_cast<const float2*>(args.base + (size_t)(row0 + r) * H + c);
         const uint32_t e = idx0 + (uint32_t)(r * H + c);
-        const float a0 = act_only<DEG, MORLET>(acc[4 * j + 2 * h] + bias[c], args.w0);
-        const float a1 = act_only<DEG, MORLET>(acc[4 * j + 2 * h + 1] + bias[c + 1], args.w0);
-        st_pair(ax, r, c, __fmul_rn(drop(dp, a0, e, off), mod[c]),
-                __fmul_rn(drop(dp, a1, e + 1, off), mod[c + 1]));
+        st_pair(ax, r, c, __fmul_rn(drop(dp, v.x, e, off), mod_s[c]),
+                __fmul_rn(drop(dp, v.y, e + 1, off), mod_s[c + 1]));
       }
     }
     fence_async_shared();
     bar_sync(CONSUMER_BAR, CHAIN_THREADS);
-    tile_to_global<H>(ax, args.work, (size_t)(layer + 1) * args.B + b, row0, S, tid);
-  }
+    tile_to_global<H>(ax, args.work, xz, row0, S, tid);
 
-  // ---- last hidden product: pre_{L-1} stays in acc for the reverse sweep
-  chain_product<H>(acc, ax, ring, tid);
-  {
-    const float* bias = bias_s + (L - 2) * H;
-    const float* mod = mod_s + (L - 1) * H;
-    const uint32_t off = layer_offset(dp, L - 1);
-    float part[2] = {0.f, 0.f};
+    // ---- recomputed forward: x_1 .. x_{L-2}, each to ax and the workspace
+    for (int layer = 0; layer < L - 2; ++layer) {
+      chain_product<H>(acc, ax, ring, tid);
+      bar_sync(CONSUMER_BAR, CHAIN_THREADS);  // ax read by every product and store
+      const float* bias = bias_s + layer * H;
+      const float* mod = mod_s + (layer + 1) * H;
+      const uint32_t off = layer_offset(dp, layer + 1);
 #pragma unroll
-    for (int j = 0; j < NW / 8; ++j) {
-      const int c = cbase + 8 * j;
+      for (int j = 0; j < NW / 8; ++j) {
+        const int c = cbase + 8 * j;
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = rbase + 8 * h;
-        const uint32_t e = idx0 + (uint32_t)(r * H + c);
-        const float a0 = act_only<DEG, MORLET>(acc[4 * j + 2 * h] + bias[c], args.w0);
-        const float a1 = act_only<DEG, MORLET>(acc[4 * j + 2 * h + 1] + bias[c + 1], args.w0);
-        // x_{L-1}, rounded to bf16 as the forward does, kept as f32
-        const float x0 = bf16_round(__fmul_rn(drop(dp, a0, e, off), mod[c]));
-        const float x1 = bf16_round(__fmul_rn(drop(dp, a1, e + 1, off), mod[c + 1]));
-        dxr[4 * j + 2 * h] = x0;
-        dxr[4 * j + 2 * h + 1] = x1;
-        part[h] += x0 * lw_s[c] + x1 * lw_s[c + 1];
+        for (int h = 0; h < 2; ++h) {
+          const int r = rbase + 8 * h;
+          const uint32_t e = idx0 + (uint32_t)(r * H + c);
+          const float a0 = act_only<DEG, MORLET>(acc[4 * j + 2 * h] + bias[c], args.w0);
+          const float a1 = act_only<DEG, MORLET>(acc[4 * j + 2 * h + 1] + bias[c + 1], args.w0);
+          st_pair(ax, r, c, __fmul_rn(drop(dp, a0, e, off), mod[c]),
+                  __fmul_rn(drop(dp, a1, e + 1, off), mod[c + 1]));
+        }
       }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float p = part[h];
-      p += __shfl_xor_sync(0xffffffffu, p, 1);
-      p += __shfl_xor_sync(0xffffffffu, p, 2);
-      if (t4 == 0) red_r[wg * TM + rbase + 8 * h] = p;
-    }
-    bar_sync(CONSUMER_BAR, CHAIN_THREADS);
-    if (tid < TM) {
-      float dpl = 0.f;
-      if (row0 + tid < S) {
-        float r = red_r[tid];
-        for (int w = 1; w < CHAIN_WGS; ++w) r += red_r[w * TM + tid];
-        r += args.last_b[0];
-        dpl = args.g[(size_t)b * S + row0 + tid] * (args.w0 * poly_cos<DEG>(args.w0 * r));
-      }
-      dpl_s[tid] = dpl;
-    }
-    bar_sync(CONSUMER_BAR, CHAIN_THREADS);
-    // dlw += sum_rows dpl * x_{L-1};  dx = dpl (x) last_w
-#pragma unroll
-    for (int j = 0; j < NW / 8; ++j) {
-      const int c = cbase + 8 * j;
-      float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float dpl = dpl_s[rbase + 8 * h];
-        s0 += dpl * dxr[4 * j + 2 * h];
-        s1 += dpl * dxr[4 * j + 2 * h + 1];
-        dxr[4 * j + 2 * h] = dpl * lw_s[c];
-        dxr[4 * j + 2 * h + 1] = dpl * lw_s[c + 1];
-      }
-      s0 = reduce_rows(s0);
-      s1 = reduce_rows(s1);
-      if (g == 0) {
-        red_a[warp * H + c] = s0;
-        red_a[warp * H + c + 1] = s1;
-      }
-    }
-    bar_sync(CONSUMER_BAR, CHAIN_THREADS);
-    for (int c = tid; c < H; c += CHAIN_THREADS)  // the tile's sums, in a fixed order
-      dlw_g[c] = ((red_a[c] + red_a[H + c]) + red_a[2 * H + c]) + red_a[3 * H + c];
-    if (tid == 0) {
-      float s = 0.f;
-      for (int r = 0; r < TM; ++r) s += dpl_s[r];
-      dlw_g[H] = s;  // dlb
-    }
-  }
-
-  // ---- reverse sweep over the hidden layers
-  for (int i = L - 2; i >= 0; --i) {
-    if (i < L - 2) {  // pre_{i+1} again, from x_i brought back
-      cp_async_wait<0>();
       fence_async_shared();
       bar_sync(CONSUMER_BAR, CHAIN_THREADS);
-      chain_product<H>(acc, ax, ring, tid);
+      tile_to_global<H>(ax, args.work, (size_t)(layer + 1) * args.B + b, row0, S, tid);
     }
-    bar_sync(CONSUMER_BAR, CHAIN_THREADS);  // ap stored, ax read by both warpgroups
-    if (i > 0)  // x_{i-1} back into ax while this layer finishes
-      global_to_tile<H>(ax, args.work, (size_t)(i - 1) * args.B + b, row0, S, tid);
 
-    const float* bias = bias_s + i * H;
-    const float* mod = mod_s + (i + 1) * H;
-    const uint32_t off = layer_offset(dp, i + 1);
+    // ---- last hidden product: pre_{L-1} stays in acc for the reverse sweep
+    chain_product<H>(acc, ax, ring, tid);
+    {
+      const float* bias = bias_s + (L - 2) * H;
+      const float* mod = mod_s + (L - 1) * H;
+      const uint32_t off = layer_offset(dp, L - 1);
+      float part[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < NW / 8; ++j) {
-      const int c = cbase + 8 * j;
-      float dm0 = 0.f, dm1 = 0.f, db0 = 0.f, db1 = 0.f;
+      for (int j = 0; j < NW / 8; ++j) {
+        const int c = cbase + 8 * j;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rbase + 8 * h;
+          const uint32_t e = idx0 + (uint32_t)(r * H + c);
+          const float a0 = act_only<DEG, MORLET>(acc[4 * j + 2 * h] + bias[c], args.w0);
+          const float a1 = act_only<DEG, MORLET>(acc[4 * j + 2 * h + 1] + bias[c + 1], args.w0);
+          // x_{L-1}, rounded to bf16 as the forward does, kept as f32
+          const float x0 = bf16_round(__fmul_rn(drop(dp, a0, e, off), mod[c]));
+          const float x1 = bf16_round(__fmul_rn(drop(dp, a1, e + 1, off), mod[c + 1]));
+          dxr[4 * j + 2 * h] = x0;
+          dxr[4 * j + 2 * h + 1] = x1;
+          part[h] += x0 * lw_s[c] + x1 * lw_s[c + 1];
+        }
+      }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int r = rbase + 8 * h;
-        const uint32_t e = idx0 + (uint32_t)(r * H + c);
-        float a0, a1, da0, da1;
-        act_pair<DEG, MORLET>(acc[4 * j + 2 * h] + bias[c], args.w0, a0, da0);
-        act_pair<DEG, MORLET>(acc[4 * j + 2 * h + 1] + bias[c + 1], args.w0, a1, da1);
-        const float dx0 = dxr[4 * j + 2 * h], dx1 = dxr[4 * j + 2 * h + 1];
-        dm0 += dx0 * drop(dp, a0, e, off);
-        dm1 += dx1 * drop(dp, a1, e + 1, off);
-        const float dp0 = drop(dp, dx0 * mod[c], e, off) * da0;
-        const float dp1 = drop(dp, dx1 * mod[c + 1], e + 1, off) * da1;
-        db0 += dp0;
-        db1 += dp1;
-        st_pair(ap, r, c, dp0, dp1);
+        float p = part[h];
+        p += __shfl_xor_sync(0xffffffffu, p, 1);
+        p += __shfl_xor_sync(0xffffffffu, p, 2);
+        if (t4 == 0) red_r[wg * TM + rbase + 8 * h] = p;
       }
-      dm0 = reduce_rows(dm0);
-      dm1 = reduce_rows(dm1);
-      db0 = reduce_rows(db0);
-      db1 = reduce_rows(db1);
-      if (g == 0) {
-        red_a[warp * H + c] = dm0;
-        red_a[warp * H + c + 1] = dm1;
-        red_b[warp * H + c] = db0;
-        red_b[warp * H + c + 1] = db1;
+      bar_sync(CONSUMER_BAR, CHAIN_THREADS);
+      if (tid < TM) {
+        float dpl = 0.f;
+        if (row0 + tid < S) {
+          float r = red_r[tid];
+          for (int w = 1; w < CHAIN_WGS; ++w) r += red_r[w * TM + tid];
+          r += args.last_b[0];
+          dpl = args.g[(size_t)b * S + row0 + tid] * (args.w0 * poly_cos<DEG>(args.w0 * r));
+        }
+        dpl_s[tid] = dpl;
+      }
+      bar_sync(CONSUMER_BAR, CHAIN_THREADS);
+      // dlw += sum_rows dpl * x_{L-1};  dx = dpl (x) last_w
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const int c = cbase + 8 * j;
+        float s0 = 0.f, s1 = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float dpl = dpl_s[rbase + 8 * h];
+          s0 += dpl * dxr[4 * j + 2 * h];
+          s1 += dpl * dxr[4 * j + 2 * h + 1];
+          dxr[4 * j + 2 * h] = dpl * lw_s[c];
+          dxr[4 * j + 2 * h + 1] = dpl * lw_s[c + 1];
+        }
+        s0 = reduce_rows(s0);
+        s1 = reduce_rows(s1);
+        if (g == 0) {
+          red_a[warp * H + c] = s0;
+          red_a[warp * H + c + 1] = s1;
+        }
+      }
+      bar_sync(CONSUMER_BAR, CHAIN_THREADS);
+      for (int c = tid; c < H; c += CHAIN_THREADS)  // the tile's sums, in a fixed order
+        dlw_g[c] = ((red_a[c] + red_a[H + c]) + red_a[2 * H + c]) + red_a[3 * H + c];
+      if (tid == 0) {
+        float s = 0.f;
+        for (int r = 0; r < TM; ++r) s += dpl_s[r];
+        dlw_g[H] = s;  // dlb
       }
     }
-    fence_async_shared();
+
+    // ---- reverse sweep over the hidden layers
+    for (int i = L - 2; i >= 0; --i) {
+      if (i < L - 2) {  // pre_{i+1} again, from x_i brought back
+        cp_async_wait<0>();
+        fence_async_shared();
+        bar_sync(CONSUMER_BAR, CHAIN_THREADS);
+        chain_product<H>(acc, ax, ring, tid);
+      }
+      bar_sync(CONSUMER_BAR, CHAIN_THREADS);  // ap stored, ax read by both warpgroups
+      if (i > 0)  // x_{i-1} back into ax while this layer finishes
+        global_to_tile<H>(ax, args.work, (size_t)(i - 1) * args.B + b, row0, S, tid);
+
+      const float* bias = bias_s + i * H;
+      const float* mod = mod_s + (i + 1) * H;
+      const uint32_t off = layer_offset(dp, i + 1);
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const int c = cbase + 8 * j;
+        float dm0 = 0.f, dm1 = 0.f, db0 = 0.f, db1 = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rbase + 8 * h;
+          const uint32_t e = idx0 + (uint32_t)(r * H + c);
+          float a0, a1, da0, da1;
+          act_pair<DEG, MORLET>(acc[4 * j + 2 * h] + bias[c], args.w0, a0, da0);
+          act_pair<DEG, MORLET>(acc[4 * j + 2 * h + 1] + bias[c + 1], args.w0, a1, da1);
+          const float dx0 = dxr[4 * j + 2 * h], dx1 = dxr[4 * j + 2 * h + 1];
+          dm0 += dx0 * drop(dp, a0, e, off);
+          dm1 += dx1 * drop(dp, a1, e + 1, off);
+          const float dp0 = drop(dp, dx0 * mod[c], e, off) * da0;
+          const float dp1 = drop(dp, dx1 * mod[c + 1], e + 1, off) * da1;
+          db0 += dp0;
+          db1 += dp1;
+          st_pair(ap, r, c, dp0, dp1);
+        }
+        dm0 = reduce_rows(dm0);
+        dm1 = reduce_rows(dm1);
+        db0 = reduce_rows(db0);
+        db1 = reduce_rows(db1);
+        if (g == 0) {
+          red_a[warp * H + c] = dm0;
+          red_a[warp * H + c + 1] = dm1;
+          red_b[warp * H + c] = db0;
+          red_b[warp * H + c + 1] = db1;
+        }
+      }
+      fence_async_shared();
+      bar_sync(CONSUMER_BAR, CHAIN_THREADS);
+      tile_to_global<H>(ap, args.work, (size_t)pz + i * args.B, row0, S, tid);
+      for (int c = tid; c < H; c += CHAIN_THREADS) {  // the tile's sums, in a fixed order
+        dm_g[(i + 1) * H + c] = ((red_a[c] + red_a[H + c]) + red_a[2 * H + c]) + red_a[3 * H + c];
+        db_g[i * H + c] = ((red_b[c] + red_b[H + c]) + red_b[2 * H + c]) + red_b[3 * H + c];
+      }
+      chain_product<H>(dxr, ap, ring, tid);  // dx = dpre . W_i^T
+    }
+
+    // ---- layer 0: dmods[0] and this patch's dbase terms
+    bar_sync(CONSUMER_BAR, CHAIN_THREADS);  // red_a read by every thread above
+    {
+      const uint32_t off = layer_offset(dp, 0);
+#pragma unroll
+      for (int j = 0; j < NW / 8; ++j) {
+        const int c = cbase + 8 * j;
+        float dm0 = 0.f, dm1 = 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = rbase + 8 * h;
+          if (row0 + r >= S) continue;  // dx is zero there
+          const uint32_t e = idx0 + (uint32_t)(r * H + c);
+          const float2 bv =
+              *reinterpret_cast<const float2*>(args.base + (size_t)(row0 + r) * H + c);
+          const float dx0 = dxr[4 * j + 2 * h], dx1 = dxr[4 * j + 2 * h + 1];
+          dm0 += dx0 * drop(dp, bv.x, e, off);
+          dm1 += dx1 * drop(dp, bv.y, e + 1, off);
+          float2* db = reinterpret_cast<float2*>(db_part + (size_t)r * H + c);
+          float2 d = make_float2(drop(dp, dx0 * mod_s[c], e, off),
+                                 drop(dp, dx1 * mod_s[c + 1], e + 1, off));
+          if (b > b0) {  // the earlier patches' sum, stored by this thread
+            const float2 sum = *db;
+            d = make_float2(sum.x + d.x, sum.y + d.y);
+          }
+          *db = d;
+        }
+        dm0 = reduce_rows(dm0);
+        dm1 = reduce_rows(dm1);
+        if (g == 0) {
+          red_a[warp * H + c] = dm0;
+          red_a[warp * H + c + 1] = dm1;
+        }
+      }
+    }
     bar_sync(CONSUMER_BAR, CHAIN_THREADS);
-    tile_to_global<H>(ap, args.work, (size_t)pz + i * args.B, row0, S, tid);
-    for (int c = tid; c < H; c += CHAIN_THREADS) {  // the tile's sums, in a fixed order
-      dm_g[(i + 1) * H + c] = ((red_a[c] + red_a[H + c]) + red_a[2 * H + c]) + red_a[3 * H + c];
-      db_g[i * H + c] = ((red_b[c] + red_b[H + c]) + red_b[2 * H + c]) + red_b[3 * H + c];
-    }
-    chain_product<H>(dxr, ap, ring, tid);  // dx = dpre . W_i^T
+    for (int c = tid; c < H; c += CHAIN_THREADS)
+      dm_g[c] = ((red_a[c] + red_a[H + c]) + red_a[2 * H + c]) + red_a[3 * H + c];
   }
-
-  // ---- layer 0: dmods[0] and dbase
-  bar_sync(CONSUMER_BAR, CHAIN_THREADS);  // red_a read by every thread above
-  {
-    const uint32_t off = layer_offset(dp, 0);
-#pragma unroll
-    for (int j = 0; j < NW / 8; ++j) {
-      const int c = cbase + 8 * j;
-      float dm0 = 0.f, dm1 = 0.f;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = rbase + 8 * h;
-        if (row0 + r >= S) continue;  // dx is zero there
-        const uint32_t e = idx0 + (uint32_t)(r * H + c);
-        const float2 bv = *reinterpret_cast<const float2*>(args.base + (size_t)(row0 + r) * H + c);
-        const float dx0 = dxr[4 * j + 2 * h], dx1 = dxr[4 * j + 2 * h + 1];
-        dm0 += dx0 * drop(dp, bv.x, e, off);
-        dm1 += dx1 * drop(dp, bv.y, e + 1, off);
-        add2(args.dbase + (size_t)(row0 + r) * H + c, drop(dp, dx0 * mod_s[c], e, off),
-             drop(dp, dx1 * mod_s[c + 1], e + 1, off));
-      }
-      dm0 = reduce_rows(dm0);
-      dm1 = reduce_rows(dm1);
-      if (g == 0) {
-        red_a[warp * H + c] = dm0;
-        red_a[warp * H + c + 1] = dm1;
-      }
-    }
-  }
-  bar_sync(CONSUMER_BAR, CHAIN_THREADS);
-  for (int c = tid; c < H; c += CHAIN_THREADS)
-    dm_g[c] = ((red_a[c] + red_a[H + c]) + red_a[2 * H + c]) + red_a[3 * H + c];
 }
 
 // ------------------------------------------------------------ dW kernel
@@ -655,22 +675,25 @@ __global__ void __launch_bounds__(DW_THREADS, 1)
     }
 }
 
-// dsw = sum over splits of partial, in split order.
-__global__ void dw_reduce_kernel(const float4* __restrict__ partial, float4* __restrict__ dsw,
-                                 int layers, int splits, int hh4) {
+// out[g][e] = sum over k of part[g][k][e], in k order (float4 elements, n4
+// per part): dsw from the dW kernel's splits, dbase from the chain blocks'
+// partials.
+__global__ void ordered_sum_kernel(const float4* __restrict__ part, float4* __restrict__ out,
+                                   int groups, int parts, int n4) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= layers * hh4) return;
-  const int layer = i / hh4, e = i - layer * hh4;
-  const float4* p = partial + (size_t)layer * splits * hh4 + e;
+  if (i >= groups * n4) return;
+  const int grp = i / n4, e = i - grp * n4;
+  const float4* p = part + (size_t)grp * parts * n4 + e;
   float4 s = p[0];
-  for (int k = 1; k < splits; ++k) {
-    const float4 v = p[(size_t)k * hh4];
+#pragma unroll 8
+  for (int k = 1; k < parts; ++k) {
+    const float4 v = p[(size_t)k * n4];
     s.x += v.x;
     s.y += v.y;
     s.z += v.z;
     s.w += v.w;
   }
-  dsw[i] = s;
+  out[i] = s;
 }
 
 cudaError_t smem_limit(int& limit) {
@@ -687,6 +710,15 @@ int sm_count() {
   return n;
 }
 
+// Patches a chain block takes in turn, adding their dbase terms into one
+// partial: up to 4 while the grid keeps at least 4 waves of blocks over the
+// SMs (fewer partials to write and sum; fewer waves would leave SMs idle at
+// the end).
+int chain_group(int B, int S) {
+  const long long k = (long long)B * ((S + TM - 1) / TM) / (4LL * sm_count());
+  return (int)(k < 1 ? 1 : k > 4 ? 4 : k);
+}
+
 // splits of the rows of dW's product: about one block per SM in all
 int dw_splits(int B, int S, int H, int L) {
   const int per_split = (L - 1) * ((H + 127) / 128);
@@ -699,7 +731,7 @@ int dw_splits(int B, int S, int H, int L) {
 
 template <int H, int DEG, bool MORLET>
 cudaError_t launch(Args args, const void* sw, const void* swt, void* work, float* partial,
-                   float* dsw, cudaStream_t stream) {
+                   float* dsw, float* dbase, cudaStream_t stream) {
   const int L = args.L, B = args.B, S = args.S;
   CUtensorMap w_map, wt_map, ws_map;
   const uint64_t wdims[2] = {(uint64_t)H, (uint64_t)(L - 1) * H};
@@ -722,10 +754,18 @@ cudaError_t launch(Args args, const void* sw, const void* swt, void* work, float
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
   if (err != cudaSuccess) return err;
-  const long long blocks = (long long)B * ((S + TM - 1) / TM);
+  args.group = chain_group(B, S);
+  const int parts = (B + args.group - 1) / args.group;
+  const long long blocks = (long long)parts * ((S + TM - 1) / TM);
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
   chain_kernel<H, DEG, MORLET><<<(unsigned)blocks, CHAIN_BLOCK, smem, stream>>>(w_map, wt_map,
                                                                                args);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const int sh4 = S * H / 4;
+  ordered_sum_kernel<<<(sh4 + 255) / 256, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(args.dbase_part), reinterpret_cast<float4*>(dbase), 1,
+      parts, sh4);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
 
@@ -738,7 +778,7 @@ cudaError_t launch(Args args, const void* sw, const void* swt, void* work, float
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const int n4 = (L - 1) * H * H / 4;
-  dw_reduce_kernel<<<(n4 + 255) / 256, 256, 0, stream>>>(
+  ordered_sum_kernel<<<(n4 + 255) / 256, 256, 0, stream>>>(
       reinterpret_cast<const float4*>(partial), reinterpret_cast<float4*>(dsw), L - 1, splits,
       H * H / 4);
   return cudaGetLastError();
@@ -746,14 +786,14 @@ cudaError_t launch(Args args, const void* sw, const void* swt, void* work, float
 
 template <int H>
 cudaError_t launch_deg(const Args& args, int deg, const void* sw, const void* swt, void* work,
-                       float* partial, float* dsw, cudaStream_t stream) {
+                       float* partial, float* dsw, float* dbase, cudaStream_t stream) {
   switch (deg) {
     case 5:
-      return args.morlet ? launch<H, 5, true>(args, sw, swt, work, partial, dsw, stream)
-                         : launch<H, 5, false>(args, sw, swt, work, partial, dsw, stream);
+      return args.morlet ? launch<H, 5, true>(args, sw, swt, work, partial, dsw, dbase, stream)
+                         : launch<H, 5, false>(args, sw, swt, work, partial, dsw, dbase, stream);
     case 9:
-      return args.morlet ? launch<H, 9, true>(args, sw, swt, work, partial, dsw, stream)
-                         : launch<H, 9, false>(args, sw, swt, work, partial, dsw, stream);
+      return args.morlet ? launch<H, 9, true>(args, sw, swt, work, partial, dsw, dbase, stream)
+                         : launch<H, 9, false>(args, sw, swt, work, partial, dsw, dbase, stream);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -763,17 +803,17 @@ cudaError_t launch_deg(const Args& args, int deg, const void* sw, const void* sw
 // Returns a cudaError_t (0 = launched). Pointers are device pointers to
 // contiguous tensors: sw (L-1, H, H) bf16 (in, out) and swt its per-layer
 // transpose; work (2, L-1, B, S, H) bf16 and partial (L-1, splits, H, H)
-// f32 scratch (splits from siren_train_bwd_dw_splits), overwritten; dsw
-// (L-1, H, H) f32 and part (B * tiles, 2*L*H + 4) f32, tiles = ceil(S / 64),
-// written in full: per (patch, tile) its dmods (L*H), dsb ((L-1)*H), dlw (H)
-// and dlb (1) partial sums; dbase (S, H) must be zero on entry (the chain
-// kernel adds to it). deg is 5 or 9.
+// f32 (splits from siren_train_bwd_dw_splits) and dbase_part (parts, S, H)
+// f32 (parts from siren_train_bwd_dbase_parts) scratch, overwritten; dsw (L-1, H, H) f32, dbase (S, H)
+// f32 and part (B * tiles, 2*L*H + 4) f32, tiles = ceil(S / 64), written in
+// full: per (patch, tile) its dmods (L*H), dsb ((L-1)*H), dlw (H) and dlb (1)
+// partial sums. deg is 5 or 9.
 extern "C" int siren_train_bwd_launch(const void* seed, const void* mods, const void* base,
                                       const void* sw, const void* swt, const void* sb,
                                       const void* last_w, const void* last_b, const void* g,
-                                      void* part, void* dbase, void* dsw, void* work,
-                                      void* partial, int B, int S, int H, int L, float w0,
-                                      int morlet, int deg, int dropout, int thresh,
+                                      void* part, void* dbase, void* dbase_part, void* dsw,
+                                      void* work, void* partial, int B, int S, int H, int L,
+                                      float w0, int morlet, int deg, int dropout, int thresh,
                                       float inv_keep, void* stream) {
   if (B <= 0 || S <= 0 || L < 2) return (int)cudaErrorInvalidValue;
   Args args{static_cast<const float*>(seed),
@@ -784,7 +824,7 @@ extern "C" int siren_train_bwd_launch(const void* seed, const void* mods, const 
             static_cast<const float*>(last_b),
             static_cast<const float*>(g),
             static_cast<float*>(part),
-            static_cast<float*>(dbase),
+            static_cast<float*>(dbase_part),
             static_cast<__nv_bfloat16*>(work),
             B,
             S,
@@ -794,21 +834,28 @@ extern "C" int siren_train_bwd_launch(const void* seed, const void* mods, const 
             (int32_t)thresh,
             inv_keep,
             dropout,
-            4};
+            4,
+            1};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* dw_part = static_cast<float*>(partial);
   auto* dw = static_cast<float*>(dsw);
+  auto* db = static_cast<float*>(dbase);
   switch (H) {
-    case 64: return (int)launch_deg<64>(args, deg, sw, swt, work, dw_part, dw, st);
-    case 128: return (int)launch_deg<128>(args, deg, sw, swt, work, dw_part, dw, st);
-    case 192: return (int)launch_deg<192>(args, deg, sw, swt, work, dw_part, dw, st);
-    case 256: return (int)launch_deg<256>(args, deg, sw, swt, work, dw_part, dw, st);
+    case 64: return (int)launch_deg<64>(args, deg, sw, swt, work, dw_part, dw, db, st);
+    case 128: return (int)launch_deg<128>(args, deg, sw, swt, work, dw_part, dw, db, st);
+    case 192: return (int)launch_deg<192>(args, deg, sw, swt, work, dw_part, dw, db, st);
+    case 256: return (int)launch_deg<256>(args, deg, sw, swt, work, dw_part, dw, db, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
 extern "C" int siren_train_bwd_dw_splits(int B, int S, int H, int L) {
   return dw_splits(B, S, H, L);
+}
+
+extern "C" int siren_train_bwd_dbase_parts(int B, int S) {
+  const int group = chain_group(B, S);
+  return (B + group - 1) / group;
 }
 
 extern "C" const char* siren_train_bwd_error_string(int err) {

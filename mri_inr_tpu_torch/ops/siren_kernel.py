@@ -291,9 +291,37 @@ class Int8SirenParams(NamedTuple):
     s_b: torch.Tensor  # (L-1, 1, H) f32
     last_w: torch.Tensor  # (1, H) f32
     last_b: torch.Tensor  # (1, 1) f32
-    # (L-1, H, H) int8, (out, in): ``swq`` as the CUDA kernel reads it, made
-    # once here so that no launch transposes it again
+    # (L-1, H, H) int8: ``swq`` as the CUDA kernel reads it
+    # (:func:`int8_kernel_weights`), made once here so that no launch makes
+    # it again
     swq_t: torch.Tensor | None = None
+
+
+def int8_k_order(hidden: int, device=None) -> torch.Tensor:
+    """The CUDA kernel's contraction order for the inputs of hidden layers
+    1..L-2: position ``p`` of each 32-block holds column ``perm[p]``. The
+    kernel keeps a layer's activations as the next product's int8 A
+    fragments in registers; a thread's accumulators hold columns {8j + 2t,
+    8j + 2t + 1}, and byte ``q`` of its fragment register for the 16-byte
+    half ``u`` of a block wants position 16u + 4t + q. Taking column 16u +
+    2t + (q & 1) + 8 (q >> 1) there lets every thread pack its own four
+    values (columns c, c + 1, c + 8, c + 9) into one register."""
+    p = torch.arange(hidden, device=device)
+    r = p % 32
+    u, t, q = r // 16, (r % 16) // 4, r % 4
+    return p - r + 16 * u + 2 * t + (q & 1) + 8 * (q >> 1)
+
+
+def int8_kernel_weights(swq: torch.Tensor) -> torch.Tensor:
+    """``swq`` (L-1, H, H) int8 (in, out) -> the CUDA kernel's weight pack:
+    (out, in) per layer, K-contiguous rows (int8 wgmma reads both operands
+    K-major), and for layers 1..L-2 the contraction index in
+    :func:`int8_k_order`, so that ``pack[i][:, p] == swq[i][perm[p], :]``.
+    Layer 0 keeps the natural order: its input is built from ``base``."""
+    pack = swq.transpose(1, 2).contiguous()
+    perm = int8_k_order(swq.shape[1], swq.device)
+    pack[1:] = pack[1:, :, perm]
+    return pack
 
 
 def quantize_kernel_params(model, kp: SirenKernelParams) -> Int8SirenParams:
@@ -305,7 +333,7 @@ def quantize_kernel_params(model, kp: SirenKernelParams) -> Int8SirenParams:
     scale = w.abs().amax(dim=1, keepdim=True) / 127.0  # (L-1, 1, H)
     swq = torch.round(w / scale).to(torch.int8)
     return Int8SirenParams(kp.base, swq, scale, kp.s_b, kp.last_w, kp.last_b,
-                           swq.transpose(1, 2).contiguous())
+                           int8_kernel_weights(swq))
 
 
 def compute_quant_factors(kp: SirenKernelParams, ikp: Int8SirenParams,
@@ -396,9 +424,10 @@ def siren_forward_int8_cuda(
 ) -> torch.Tensor:
     """Launch ``csrc/siren_forward_int8.cu`` on PyTorch's current stream; same
     contract as :func:`siren_forward_int8_reference`. ``swq`` comes in the
-    (in, out) layout; the kernel reads (out, in), which is ``swq_t`` where the
-    caller keeps that copy (``Int8SirenParams.swq_t``) and is made here
-    otherwise. Counts its launches in ``siren_forward_int8_cuda.launches``."""
+    (in, out) layout; the kernel reads its own pack
+    (:func:`int8_kernel_weights`), which is ``swq_t`` where the caller keeps
+    that copy (``Int8SirenParams.swq_t``) and is made here otherwise. Counts
+    its launches in ``siren_forward_int8_cuda.launches``."""
     batch = fq.shape[0]
     seq, hidden = base.shape
     layers = num_layers
@@ -420,7 +449,7 @@ def siren_forward_int8_cuda(
     _check("last_w", last_w, (1, hidden), torch.float32, dev)
     _check("last_b", last_b, (1, 1), torch.float32, dev)
     if swq_t is None:
-        swq_t = swq.transpose(1, 2).contiguous()  # (out, in): K-contiguous rows
+        swq_t = int8_kernel_weights(swq)
     _check("swq_t", swq_t, (layers - 1, hidden, hidden), torch.int8, dev)
     out = torch.empty((batch, seq), dtype=torch.float32, device=dev)
     lib = _library_int8()

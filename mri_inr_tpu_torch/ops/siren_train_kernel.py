@@ -227,10 +227,12 @@ def _fwd_library() -> ctypes.CDLL:
 def _bwd_library() -> ctypes.CDLL:
     lib = _build.load("siren_train_bwd")
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.siren_train_bwd_launch.argtypes = [p] * 14 + [i, i, i, i, f, i, i, i, i, f, p]
+    lib.siren_train_bwd_launch.argtypes = [p] * 15 + [i, i, i, i, f, i, i, i, i, f, p]
     lib.siren_train_bwd_launch.restype = i
     lib.siren_train_bwd_dw_splits.argtypes = [i, i, i, i]
     lib.siren_train_bwd_dw_splits.restype = i
+    lib.siren_train_bwd_dbase_parts.argtypes = [i, i]
+    lib.siren_train_bwd_dbase_parts.restype = i
     lib.siren_train_bwd_error_string.argtypes = [i]
     lib.siren_train_bwd_error_string.restype = ctypes.c_char_p
     lib.siren_train_bwd_tile_rows.argtypes = []
@@ -323,10 +325,12 @@ def siren_chain_train_bwd_cuda(
     bf16 ``s_w`` (and its transpose ``s_wt``, see :func:`_transposed`). The
     chain kernel writes the bf16 layer inputs and
     bf16(dpre) of every hidden layer to a workspace of 2 * (L-1) * B * S * H
-    bf16, which the weight-gradient kernel reads; it adds dbase with atomics
-    and writes dmods, dsb, dlw and dlb as one partial record per 64-row
-    tile, summed here. dsw, dmods, dsb, dlw and dlb repeat bit for bit from
-    call to call. Counts one launch per call in
+    bf16, which the weight-gradient kernel reads; it adds the dbase terms of
+    a block's patches, in patch order, into an f32 partial per block
+    (``parts`` of S x H), which a small kernel sums in order, and writes
+    dmods, dsb, dlw and dlb as one partial record per (patch, 64-row tile),
+    summed here. All six gradients repeat bit for bit from call to call.
+    Counts one launch per call in
     ``siren_chain_train_bwd_cuda.launches``."""
     batch, seq, hidden, dev = _check_chain_inputs(
         "siren_chain_train_bwd_cuda", seed, mods, base, s_w, s_b, last_w, last_b, num_layers)
@@ -342,13 +346,15 @@ def siren_chain_train_bwd_cuda(
     partial = torch.empty((layers, splits, hidden, hidden), **f32)
     dsw = torch.empty((layers, hidden, hidden), **f32)
     part = torch.empty((batch, tiles, 2 * lh + 4), **f32)
-    dbase = torch.zeros((seq, hidden), **f32)
+    dbase = torch.empty((seq, hidden), **f32)
+    parts = lib.siren_train_bwd_dbase_parts(batch, seq)
+    dbase_part = torch.empty((parts, seq, hidden), **f32)
     with torch.cuda.device(dev):
         err = lib.siren_train_bwd_launch(
             seed.data_ptr(), mods.data_ptr(), base.data_ptr(), s_w.data_ptr(),
             s_wt.data_ptr(), s_b.data_ptr(), last_w.data_ptr(), last_b.data_ptr(),
-            g.data_ptr(), part.data_ptr(), dbase.data_ptr(), dsw.data_ptr(), work.data_ptr(),
-            partial.data_ptr(), batch, seq, hidden, num_layers, float(w0),
+            g.data_ptr(), part.data_ptr(), dbase.data_ptr(), dbase_part.data_ptr(),
+            dsw.data_ptr(), work.data_ptr(), partial.data_ptr(), batch, seq, hidden, num_layers, float(w0),
             int(activation == "morlet"), 5 if sin5 else 9, on, thresh, inv_keep,
             torch.cuda.current_stream(dev).cuda_stream,
         )

@@ -16,7 +16,8 @@ stops the script):
 
 - ``old-dw-atomics``: every ``add2(dw ...)`` statement of the first design
   (the compiler then also drops the dW products that only they used);
-- ``dbase-atomics``: the ``add2(args.dbase ...)`` statements;
+- ``dbase-partials``: the chain kernel's loads and stores of its dbase
+  partial and the kernel that sums the partials;
 - ``chain-products``: the wgmma instructions of the chain kernel (the ring
   is still filled and waited on);
 - ``weight-loads``: the chain producer's weight-slab TMA loads (each stage
@@ -60,12 +61,14 @@ from mri_inr_tpu_torch.ops import siren_train_kernel as stk  # noqa: E402
 BATCH, LAYERS, HIDDEN = 400, 5, 256
 CUTS = {
     "old-dw-atomics": [(r"add2\(dw\b[^;]*;", ";")],
-    "dbase-atomics": [(r"add2\(args\.dbase[^;]*;", ";")],
+    "dbase-partials": [(r"if \(b > b0\) \{[^}]*\}\s*\*db = d;", "(void)d;"),
+                       (r"ordered_sum_kernel<<<[^;]*dbase_part[^;]*;", ";")],
     "chain-products": [(r"wgmma<C::NW, 0, 0>\([^;]*;", ";")],
     "weight-loads": [(r"mbar_expect_tx\(&full\[st\], Chain<H>::STAGE\);", "mbar_arrive(&full[st]);"),
                      (r"for \(int q = 0; q < KB; \+\+q\)\s*tma_load_2d\([^;]*;", "")],
     "sines": [(r"poly_sin<DEG>\(", "("), (r"poly_cos<DEG>\(", "(")],
-    "dw-kernel": [(r"dw_kernel<H><<<[^;]*;", ";"), (r"dw_reduce_kernel<<<[^;]*;", ";")],
+    "dw-kernel": [(r"dw_kernel<H><<<[^;]*;", ";"),
+                  (r"ordered_sum_kernel<<<[^;]*\(partial\)[^;]*;", ";")],
 }
 
 
@@ -88,28 +91,30 @@ extern "C" int trace_copy(unsigned long long* host) {
 
 
 def add_trace(text: str) -> str:
-    """Marks in execution order: consumer start, around every chain product,
-    between the steps of the last layer's and each reverse epilogue, before
-    layer 0's epilogue and before the record is written."""
+    """Marks in execution order: each patch's start, around every chain
+    product, between the steps of the last layer's and each reverse
+    epilogue, before layer 0's epilogue and before the record is written
+    (a block's later patches overwrite its earlier patches' marks)."""
     text = text.replace('#include "siren_common.cuh"\n',
                         '#include "siren_common.cuh"\n' + TRACE_HEAD, 1)
-    text = text.replace("  // x_0 = bf16(drop_0(base)",
-                        "  int trace_k = 0;\n  trace_mark(trace_k);\n  // x_0 = bf16(drop_0(base)", 1)
+    text = text.replace("  for (int b = b0; b < b0 + np; ++b) {",
+                        "  for (int b = b0; b < b0 + np; ++b) {\n    int trace_k = 0;", 1)
+    text = text.replace("    // x_0 = bf16(drop_0(base)",
+                        "    trace_mark(trace_k);\n    // x_0 = bf16(drop_0(base)", 1)
     text = re.sub(r"(\n\s*)(chain_product<H>\([^;]*;)",
                   r"\1trace_mark(trace_k);\1\2\1trace_mark(trace_k);", text)
-    for anchor in ("    for (int h = 0; h < 2; ++h) {\n      float p = part[h];",
-                   "    if (tid < TM) {\n      float dpl",
-                   "    // dlw += sum_rows dpl * x_{L-1};",
-                   "    if (tid == 0) {\n      float s = 0.f;",
-                   "    if (i < L - 2) {  // pre_{i+1} again",
-                   "    const float* bias = bias_s + i * H;",
-                   "    fence_async_shared();\n    bar_sync(CONSUMER_BAR, CHAIN_THREADS);\n    tile_to_global<H>(ap"):
+    for anchor in ("      for (int h = 0; h < 2; ++h) {\n        float p = part[h];",
+                   "      if (tid < TM) {\n        float dpl",
+                   "      // dlw += sum_rows dpl * x_{L-1};",
+                   "      if (tid == 0) {\n        float s = 0.f;",
+                   "      if (i < L - 2) {  // pre_{i+1} again",
+                   "      const float* bias = bias_s + i * H;",
+                   "      fence_async_shared();\n      bar_sync(CONSUMER_BAR, CHAIN_THREADS);\n"
+                   "      tile_to_global<H>(ap"):
         if anchor not in text:
             raise SystemExit(f"trace anchor missing: {anchor!r}")
-        text = text.replace(anchor, "    trace_mark(trace_k);\n" + anchor, 1)
-    text = text.replace("  // ---- layer 0", "  trace_mark(trace_k);\n  // ---- layer 0", 1)
-    text = text.replace("  float* dst = args.part", "  trace_mark(trace_k);\n  float* dst = args.part",
-                        1)
+        text = text.replace(anchor, "      trace_mark(trace_k);\n" + anchor, 1)
+    text = text.replace("    // ---- layer 0", "    trace_mark(trace_k);\n    // ---- layer 0", 1)
     return text + TRACE_TAIL
 
 
@@ -219,8 +224,8 @@ def trace(src: pathlib.Path) -> int:
         if lib.trace_copy(buf):
             raise SystemExit("trace_copy failed")
     t = np.frombuffer(buf, dtype=np.uint64).reshape(8192, 64).astype(np.float64)
-    blocks = BATCH * -(-576 // 64)
-    t = t[:blocks]
+    t = t[t[:, 0] > 0]  # the blocks of the grid (a block marks its last patch)
+    blocks = len(t)
     marks = int((t[0] > 0).sum())
     seg = np.diff(t[:, :marks], axis=1) / 1e3  # microseconds
     total = (t[:, marks - 1] - t[:, 0]) / 1e3

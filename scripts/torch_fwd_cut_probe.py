@@ -8,10 +8,12 @@ main path's shape, on one card.
 
 SOURCE is ``mri_inr_tpu_torch/ops/csrc/siren_forward.cu`` (the eval
 forward, timed at B=1024, S=576, H=256, L=5 with the eval default's degree-5
-hidden and degree-7 output sines) or ``.../siren_train_fwd.cu`` (the train
-forward, B=400, dropout 0.1, degree-5 sines). Both are built on
-``siren_fwd.cuh``; the cuts are text substitutions in a copy of ``csrc/``
-(a cut whose text is missing stops the script):
+hidden and degree-7 output sines), ``.../siren_train_fwd.cu`` (the train
+forward, B=400, dropout 0.1, degree-5 sines), both built on
+``siren_fwd.cuh``, or ``.../siren_forward_int8.cu`` (the int8 eval forward,
+B=1024, degree-9 sines), which keeps its own copy of that block. The cuts
+are text substitutions in a copy of ``csrc/`` (a cut whose text is missing
+stops the script):
 
 - ``products``: the wgmma instructions (the ring is still filled and waited
   on, the accumulators keep what they hold);
@@ -20,11 +22,17 @@ forward, B=400, dropout 0.1, degree-5 sines). Both are built on
 - ``sines``: the hidden sine polynomials, range reduction included
   (identity);
 - ``epilogue``: every epilogue: the accumulators are packed back to bf16 (the
-  last layer summed) untouched;
+  last layer summed) untouched; in the int8 kernel, packed as they are into
+  the next A fragments;
 - ``fma-floor``: not a cut but a variant: the range reduction's ``floorf``
   replaced by an exact floor on the FMA pipe, ``r = (y + 1.5 * 2^23) - 1.5 *
   2^23``, less one where ``r > y`` (exact for ``|y| < 2^22``; the variant
-  does not handle larger ``|y|``).
+  does not handle larger ``|y|``); the bf16 kernels only;
+- ``cvt-unit``: a variant of the int8 kernel: its exact conversions on the
+  FMA pipe (int32 to float, the quantising floor to int8) replaced by the
+  conversion unit's ``I2F`` and ``F2I`` (the same values);
+- ``unit-w0``: a variant of the int8 kernel without the multiply by w0 in
+  the hidden sines (the same values at the probe's w0 = 1).
 
 ``--trace`` builds the source with ``-DSIREN_FWD_TRACE``: the first thread
 of each consumer warpgroup of each block marks ``clock64`` at each tile's
@@ -79,6 +87,25 @@ CUTS = {
                    r"float k = __fsub_rn(__fadd_rn(\1, 12582912.f), 12582912.f);\n"
                    r"  k = k > (\1) ? __fsub_rn(k, 1.f) : k;")],
 }
+# the same cuts in siren_forward_int8.cu
+INT8 = "siren_forward_int8.cu"
+INT8_CUTS = {
+    "products": [("SOURCE", r"wgmma_rs_s8<H>\(acc,[^;]*;", ";")],
+    "weight-loads": [("SOURCE", r"mbar_expect_tx\(&full\[st\], G::STAGE\);",
+                      "mbar_arrive(&full[st]);"),
+                     ("SOURCE", r"tma_load_2d\(ring[^;]*;", ";")],
+    "sines": [("SOURCE", r"sin9\(w0 \* pre\)", "(w0 * pre)")],
+    "cvt-unit": [("SOURCE", r"const float a = __fsub_rn\(__int_as_float\(acc \+ MAGIC_I\), MAGIC_F\);",
+                  "const float a = (float)acc;"),
+                 ("SOURCE", r"return __float_as_uint\(__fadd_rd\(([^;]*), MAGIC_F\)\);",
+                  r"return (uint32_t)(int)floorf(\1);")],
+    "unit-w0": [("SOURCE", r"sin9\(w0 \* pre\)", "sin9(pre)")],
+    "epilogue": [("SOURCE", r"xa\[4 \* kk \+ h \+ 2 \* u\] = pack4\([^;]*;",
+                  "xa[4 * kk + h + 2 * u] = pack4(acc[i], acc[i + 1], acc[i + 4], acc[i + 5]);"),
+                 ("SOURCE", r"const float s0 = activation[^;]*;\s*const float s1 = activation[^;]*;"
+                  r"\s*part\[h\] \+=[^;]*;",
+                  "part[h] += (float)(acc[4 * j + 2 * h] + acc[4 * j + 2 * h + 1]);")],
+}
 TRACE_BLOCKS, TRACE_MARKS = 256, 256  # as siren_fwd.cuh
 
 
@@ -92,7 +119,7 @@ def build(src: pathlib.Path, out_dir: pathlib.Path, name: str, cut: str | None) 
     """A copy of csrc/ with the cut applied, compiled into lib<name>.so."""
     tree = out_dir / name
     shutil.copytree(src.parent, tree)
-    for fname, pattern, repl in CUTS.get(cut, []):
+    for fname, pattern, repl in (INT8_CUTS if src.name == INT8 else CUTS).get(cut, []):
         path = tree / (src.name if fname == "SOURCE" else fname)
         text, n = re.subn(pattern, repl, path.read_text())
         if n == 0:
@@ -115,6 +142,19 @@ def target(src: pathlib.Path, dev):
     train = src.name == "siren_train_fwd.cu"
     batch = 400 if train else 1024
     g = torch.Generator().manual_seed(1)
+    if src.name == INT8:
+        model = ms.ModulatedSiren(dim_hidden=HIDDEN, latent_dim=HIDDEN, num_layers=LAYERS,
+                                  generator=g, device=dev).eval()
+        tiles = torch.rand((batch, 32, 32), generator=g).to(dev)
+        with torch.no_grad():
+            kp = sk.extract_kernel_params(model, ms.coordinate_grid(SIREN, dev))
+            ikp = sk.quantize_kernel_params(model, kp)
+            fq, gd, ls = sk.compute_quant_factors(kp, ikp, model.encode(tiles),
+                                                  num_layers=LAYERS)
+        args = (fq.contiguous(), gd.contiguous(), ls, ikp.base, ikp.swq, ikp.s_b, ikp.last_w,
+                ikp.last_b)
+        return "siren_forward_int8", batch, sk, "_library_int8", \
+            lambda: sk.siren_forward_int8_cuda(*args, num_layers=LAYERS, swq_t=ikp.swq_t)
     model = ms.ModulatedSiren(dim_hidden=HIDDEN, latent_dim=HIDDEN, num_layers=LAYERS,
                               dropout=0.1, generator=g, device=dev)
     tiles = torch.rand((batch, 32, 32), generator=g).to(dev)
@@ -214,15 +254,17 @@ def main() -> int:
         print(__doc__, file=sys.stderr)
         return 1
     src = pathlib.Path(sys.argv[1]).resolve()
-    if src.name not in ("siren_forward.cu", "siren_train_fwd.cu"):
-        raise SystemExit(f"{src.name}: this probe takes siren_forward.cu or siren_train_fwd.cu")
+    if src.name not in ("siren_forward.cu", "siren_train_fwd.cu", INT8):
+        raise SystemExit(f"{src.name}: this probe takes siren_forward.cu, siren_train_fwd.cu "
+                         f"or {INT8}")
     card = card_line()
     cuts = sys.argv[2:]
     if cuts == ["--trace"]:
         return trace(src, card)
-    unknown = [c for c in cuts if c not in CUTS]
+    known = INT8_CUTS if src.name == INT8 else CUTS
+    unknown = [c for c in cuts if c not in known]
     if unknown:
-        raise SystemExit(f"unknown cut(s) {unknown}; known: {sorted(CUTS)}")
+        raise SystemExit(f"unknown cut(s) {unknown}; known: {sorted(known)}")
     dev = torch.device("cuda")
     name, batch, module, loader, call = target(src, dev)
     with tempfile.TemporaryDirectory() as tmp:

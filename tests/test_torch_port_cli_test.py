@@ -2,8 +2,9 @@
 (``python -m mri_inr_tpu_torch.cli.test``) on a tiny corpus the port itself
 preprocessed (96x96 phantom slices, H=64, L=3, a 64-patch bucket).
 
-- ``evaluate_files_chunked`` gives the rows of ``evaluate_files`` (1e-6: the
-  same per-slice computation, batched differently).
+- ``evaluate_files_chunked`` and ``evaluate_files_device`` give the rows of
+  ``evaluate_files``, in its order (1e-6: the same per-slice computation,
+  batched differently).
 - ``--shard 0:2`` + ``--shard 1:2`` + ``--merge-shards`` on a checkpoint the
   train CLI wrote gives the rows of an unsharded run (equal: the CSV keeps
   full precision).
@@ -107,6 +108,22 @@ def test_chunked_sweep_matches_per_slice(corpus, reconstructor, chunk, inflight,
         np.testing.assert_allclose([g.psnr, g.ssim, g.nrmse], [w.psnr, w.ssim, w.nrmse],
                                    rtol=0, atol=1e-6)
     assert logs and logs[0].startswith("evaluated")
+
+
+def test_device_sweep_rows_come_in_sampler_order(corpus, reconstructor):
+    """The corpus's sampler interleaves its two image shapes; the device
+    sweep stages and scores them per shape group, yet returns the rows of
+    ``evaluate_files`` position by position."""
+    sampler = MRISampler(corpus)
+    widths = [sampler.next_sample().fully_sampled.shape[1] for _ in range(len(sampler))]
+    groups = [w for i, w in enumerate(widths) if i == 0 or w != widths[i - 1]]
+    assert len(groups) > len(set(widths)), f"shapes not interleaved: {widths}"
+    want = tev.evaluate_files(reconstructor, MRISampler(corpus), progress_every=0)
+    got, _ = tev.evaluate_files_device(reconstructor, MRISampler(corpus), log=lambda *_: None)
+    assert [r.slice_id for r in got] == [r.slice_id for r in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose([g.psnr, g.ssim, g.nrmse], [w.psnr, w.ssim, w.nrmse],
+                                   rtol=0, atol=1e-6)
 
 
 def test_metrics_chunk_matches_stack(corpus, reconstructor):

@@ -186,12 +186,12 @@ def test_make_apply_fn_quantized_route(sine):
 
 def test_make_apply_fn_quantizes_once(sine, monkeypatch):
     """``make_apply_fn(quantized=True)`` repacks and quantises the weights when
-    it is called, not on every slice, and keeps the (out, in) copy of ``swq``
-    that the CUDA kernel reads."""
+    it is called, not on every slice, and keeps the pack of ``swq`` that the
+    CUDA kernel reads."""
     kp, ikp, _ = tsk.WeightPack(sine["tm"], quantized=True)()
     assert torch.equal(ikp.swq, sine["tikp"].swq)
     assert ikp.swq_t.is_contiguous()
-    assert torch.equal(ikp.swq_t, ikp.swq.transpose(1, 2))
+    assert torch.equal(ikp.swq_t, tsk.int8_kernel_weights(ikp.swq))
     tiles = torch.from_numpy(sine["tiles"][:3])
     want = tsk.fused_forward(sine["tm"], tiles, quantized=True, block_b=16)
     torch.testing.assert_close(
@@ -215,6 +215,61 @@ def test_plain_version_products_are_exact(sine):
     want = xq @ wq.long()
     got = xq.float() @ wq.float()
     assert torch.equal(got.long(), want)
+
+
+@pytest.mark.parametrize("hidden", [64, 192, 256])
+def test_kernel_order_puts_a_threads_own_columns_in_its_fragment(hidden):
+    """The CUDA kernel's accumulator map (thread t of a quad holds columns
+    8j + 2t, + 1 of its rows) against the int8 A-fragment map of wgmma k32
+    (register u of a row holds bytes 16u + 4t .. + 3 of each 32-block): the
+    epilogue packs columns c, c + 1, c + 8, c + 9 (c = 8 (4kk + 2u) + 2t)
+    into bytes 0..3 of that register, and the K order holds exactly those
+    columns there."""
+    perm = tsk.int8_k_order(hidden)
+    assert sorted(perm.tolist()) == list(range(hidden))
+    for kk in range(hidden // 32):
+        for u in range(2):
+            for t in range(4):
+                c = 8 * (4 * kk + 2 * u) + 2 * t
+                got = perm[32 * kk + 16 * u + 4 * t : 32 * kk + 16 * u + 4 * t + 4].tolist()
+                assert got == [c, c + 1, c + 8, c + 9]
+
+
+def _kernel_order_chain(fq, gd, ls, base, pack, s_b, last_w, last_b, num_layers):
+    """siren_forward_int8_reference's chain, operation for operation, with
+    the kernel's weight pack: (out, in) weights, and each layer input past
+    the first in the kernel's contraction order."""
+    batch, hidden = fq.shape[0], base.shape[1]
+    perm = tsk.int8_k_order(hidden)
+
+    def rows(t, layer):
+        return t[:, layer * hidden : (layer + 1) * hidden].reshape(batch, 1, hidden)
+
+    xq = torch.floor(base[None] * rows(fq, 0) + 0.5)
+    for i in range(num_layers - 1):
+        x = xq if i == 0 else xq[..., perm]
+        acc = x @ pack[i].float().t()
+        s3 = tsk.fast_sin(acc * rows(gd, i) + s_b[i].reshape(1, 1, hidden))
+        if i < num_layers - 2:
+            xq = torch.floor(s3 * rows(fq, i + 1) + 0.5)
+    r = (s3 * rows(fq, num_layers - 1) * last_w.reshape(1, 1, hidden)).sum(-1)
+    return tsk.fast_sin(r * ls[:, :1] + last_b[0, 0])
+
+
+def test_plain_chain_in_the_kernel_order_gives_the_same_bits(sine):
+    """The kernel's weight pack with its permuted activations computes the
+    plain version's integer products exactly, so the chain's output is the
+    same bit for bit."""
+    i = sine["tikp"]
+    with torch.no_grad():
+        fq, gd, ls = tsk.compute_quant_factors(sine["tkp"], i, _t(sine["latents"]))
+        want = tsk.siren_forward_int8_reference(fq, gd, ls, i.base, i.swq, i.s_b, i.last_w,
+                                                 i.last_b, num_layers=5)
+        pack = tsk.int8_kernel_weights(i.swq)
+        assert torch.equal(pack[0], i.swq[0].t())  # layer 0 in the natural order
+        assert not torch.equal(pack[1], i.swq[1].t())
+        got = _kernel_order_chain(fq, gd, ls, i.base, pack, i.s_b, i.last_w, i.last_b, 5)
+    assert torch.equal(got, want)
 
 
 def test_int8_cuda_wrapper_refuses_cpu_tensors(sine):

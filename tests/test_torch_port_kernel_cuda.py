@@ -15,15 +15,17 @@ polynomial (``sin_bf16``) amplifies such flips: 2e-2 / 1e-3.
 
 The train kernels regenerate the plain version's dropout masks bit for bit,
 so the forward keeps the same bars. The backward's outputs are sums over up
-to B*S rows taken in another order (split-K partials for dW, atomics for
-dbase, dsb, dlw and dlb), on top of the same rare bf16 flips: each output is
-held to ``2e-3 * max(|plain|, 1)``; dmods and dsw, summed in a fixed order,
-must repeat bit for bit across two calls.
+to B*S rows taken in another order (split-K partials for dW, per-tile
+records for dmods, dsb, dlw and dlb, partials of a few patches for dbase),
+on top of the same rare bf16 flips: each output is held to ``2e-3 *
+max(|plain|, 1)``. Every sum runs in a fixed order, so all six gradients must repeat bit
+for bit across two calls.
 
 Cases beyond the main paths' shapes: an odd number of 64-row tiles (one
 patch at S=576: the persistent block's second consumer takes a tile of
 zeros), a single tile (S=64), a batch that gives every persistent block many
-tile pairs (B=600 at H=256), pre-activations near 150 (hidden biases
+tile pairs (B=600 at H=256), a batch whose last group of patches in the
+backward's chain kernel is short (B=598: groups of 4), pre-activations near 150 (hidden biases
 shifted by 150: the range reduction takes about 24 periods) and a deeper
 chain (L=7). The large pre-activations come from shifted biases, not from
 weights multiplied up: at 50 times the weights the chain amplifies rounding
@@ -32,7 +34,11 @@ so much that the plain version summed in f32 and in f64 differs by 4e-2.
 The int8 kernel's products are exact in both versions, so they differ only
 where a sine's last bits (the kernel fuses multiply-adds, the plain version
 does not) move a ``floor`` across an integer: one quantum in one
-pre-activation, rarely. Max 1e-3 / mean 1e-5.
+pre-activation, rarely. Max 1e-3 / mean 1e-5. Its cases cover the
+persistent block's edges as the bf16 kernel's do: an odd tile count (B=1 at
+S=576), fewer tiles than two per SM, one tile a patch, many tile pairs a
+block, a deeper chain, and L=2 (no epilogue before the last layer) at H=64
+and H=192 (whose second weight slab is half zeros).
 
 The FFT kernel runs the plain version's stages with fused multiply-adds
 and another radix-R butterfly than its length-R DFT products: 2e-5 *
@@ -193,6 +199,7 @@ TRAIN_CASES = [
     (256, 5, 24, 1, "sine", True, 0.1, 0.0),  # 9 tiles: odd
     (128, 3, 8, 1, "sine", True, 0.1, 0.0),  # S=64: a single tile
     (256, 5, 24, 600, "sine", True, 0.1, 0.0),  # many pairs a block
+    (256, 5, 24, 598, "sine", True, 0.1, 0.0),  # the backward's last patch group ragged
     (256, 5, 24, 24, "sine", True, 0.1, 150.0),  # large periods
     (256, 5, 24, 24, "sine", False, 0.1, 150.0),
 ]
@@ -233,6 +240,23 @@ def test_train_backward_matches_plain_version(device, hidden, layers, siren, bat
     again = stk.siren_chain_train_bwd_cuda(*args, cot, **kw)
     assert torch.equal(again[0], got[0]), "dmods differs between two calls"
     assert torch.equal(again[2], got[2]), "dsw differs between two calls"
+
+
+@pytest.mark.parametrize("hidden,layers,siren,batch,activation,sin5", [
+    (256, 5, 24, 400, "sine", True),  # the training batch
+    (64, 3, 20, 37, "morlet", False),  # S=400: ragged tile
+])
+def test_train_backward_repeats_bit_for_bit(device, hidden, layers, siren, batch, activation,
+                                            sin5):
+    """Two calls on the same inputs give the same six gradients, dbase (a
+    sum over the patches) included."""
+    args, cot = _train_inputs(device, hidden, layers, siren, batch, activation)
+    kw = dict(num_layers=layers, activation=activation, dropout_rate=0.1, sin5=sin5)
+    first = stk.siren_chain_train_bwd_cuda(*args, cot, **kw)
+    again = stk.siren_chain_train_bwd_cuda(*args, cot, **kw)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dmods", "dbase", "dsw", "dsb", "dlw", "dlb"), first, again):
+        assert torch.equal(a, b), f"{name} differs between two calls"
 
 
 def test_train_op_dispatches_to_both_kernels(device):
@@ -291,6 +315,14 @@ INT8_CASES = [
     (64, 3, 20, 37, "sine"),  # S=400: ragged tile
     (128, 2, 24, 5, "morlet"),
     (192, 4, 24, 9, "sine"),
+    (256, 5, 24, 1, "sine"),  # B=1, S=576: 9 tiles, odd: consumer 1 gets a zero tile
+    (256, 5, 24, 1, "morlet"),
+    (256, 5, 24, 7, "sine"),  # 63 tiles: fewer than two per SM, odd
+    (128, 3, 8, 3, "sine"),  # S=64: one tile a patch
+    (256, 5, 24, 600, "sine"),  # 5,400 tiles: many pairs a block
+    (256, 7, 24, 8, "sine"),  # deeper: the ring holds fewer layers
+    (64, 2, 24, 4, "sine"),  # L=2: no epilogue before the last layer
+    (192, 2, 24, 9, "morlet"),
 ]
 
 
@@ -319,7 +351,7 @@ def test_int8_dispatch_and_bad_inputs(device):
     assert siren_kernel.siren_forward_int8_cuda.launches == before + 2
     assert torch.equal(a, b)
     c = siren_kernel.siren_forward_int8(
-        *args, num_layers=3, swq_t=args[4].transpose(1, 2).contiguous())
+        *args, num_layers=3, swq_t=siren_kernel.int8_kernel_weights(args[4]))
     assert siren_kernel.siren_forward_int8_cuda.launches == before + 3
     assert torch.equal(a, c)
     with pytest.raises(ValueError, match="swq"):

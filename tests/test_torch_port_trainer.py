@@ -396,6 +396,33 @@ def test_train_cli_two_epochs_then_a_resumed_third(metadata, tmp_path, capsys):
                       tstk.siren_chain_train_bwd_cuda.launches)
 
 
+@pytest.fixture(scope="module")
+def metadata_100(tmp_path_factory):
+    """Four 80 x 80 slices: 100 patches, not a multiple of the batch of 32."""
+    d = tmp_path_factory.mktemp("data100")
+    jsyn.write_synthetic_h5(d, num_files=2, num_slices=2, height=80, width=80)
+    return process_files(d)
+
+
+def test_train_cli_resumes_at_the_epoch_a_ragged_set_reached(metadata_100, tmp_path, capsys):
+    """n = 100 at batch 32 runs ceil(100 / 32) = 4 steps an epoch: three
+    epochs end at step 12, and the resume continues at epoch 3 (not at
+    12 // (100 // 32) = 4), ending where a straight four-epoch run ends."""
+    out = tmp_path / "out"
+    first = cli_train.main(_cli_args(metadata_100, out, "training.epochs=3"))
+    assert len(first.train_dataset) == 100
+    assert first.state.step == 12
+    capsys.readouterr()
+    again = cli_train.main(_cli_args(metadata_100, out, "training.epochs=4",
+                                     "training.continue_training=true"))
+    text = capsys.readouterr().out
+    assert f"resuming from {first.run_dir} at step 12" in text
+    assert "continuing at epoch 3" in text
+    assert [r["epoch"] for r in again._progress] == [3]
+    straight = cli_train.main(_cli_args(metadata_100, tmp_path / "straight", "training.epochs=4"))
+    assert again.state.step == straight.state.step == 16
+
+
 def test_train_cli_pinned_model_path_and_fresh_start(metadata, tmp_path):
     out = tmp_path / "out"
     first = cli_train.main(_cli_args(metadata, out, "training.epochs=1"))
