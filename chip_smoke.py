@@ -28,27 +28,38 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    ``.h5`` route too where ``h5py`` is installed;
 5. the eval path end to end through the user entry points: the model from
    configs/test.yaml with seeded init, MRISampler -> SliceReconstructor on
-   one slice, then evaluate_files_device on the 16 slices and
-   write_metrics_artifacts; two slices are scored again on the CPU through
-   the plain versions and must agree;
-6. the training path through the train CLI's ``main``: configs/train.yaml
+   one slice, then evaluate_files_device on the 16 slices (one batched
+   forward per piece of a shape group) and write_metrics_artifacts, with
+   the sweep's peak device memory; two slices are scored again on the CPU
+   through the plain versions and must agree;
+6. one eager train step at configs/train.yaml's width and batch, before any
+   CUDA graph: its time (fused, and the module path), the host ops that
+   make up its enqueue time (torch.profiler, CPU time), its device time by
+   kernel and the device's idle share; Adam's update alone, fused (the
+   port's) and multi-tensor, both capturable;
+7. the graphed epoch against the per-step loop (Trainer with and without
+   ``device_data``, two per-step runs for their own repeatability): losses
+   and parameters, bit for bit where the per-step runs repeat; then a
+   graphed and a per-step epoch timed (wall, the host's time up to the
+   replay) and under torch.profiler (the device's idle share, the kernels
+   counted by name against the launch counters);
+8. the training path through the train CLI's ``main``: configs/train.yaml
    (only paths, epochs, save_interval and device_data overridden) on the 16
    slices (6,400 patches, 16 steps of batch 400 an epoch) with 4 more as
    validation set: initial errors, two epochs, final checkpoint, then a
-   resumed third epoch; then, uncounted, the same command resumed for more
-   epochs, whose ``epoch_seconds`` in ``progress_log.csv`` give the steady
-   epoch rate;
-7. the quantised eval path through the test CLI's ``main`` on the run
-   directory phase 6 left: ``data.quantized=true`` over the 16 slices, its
+   resumed third epoch (each run's first train epoch eager, then one graph
+   replay an epoch; validation epochs replayed); then, uncounted, the same
+   command resumed for more epochs, whose ``epoch_seconds`` in
+   ``progress_log.csv`` give the graphed epoch rate;
+9. the quantised eval path through the test CLI's ``main`` on the run
+   directory phase 8 left: ``data.quantized=true`` over the 16 slices, its
    rows against a bf16 run of the same command and two slices against the
    CPU run through the plain int8 version;
-8. times with CUDA events (warm-up, then the median): every kernel and its
+10. times with CUDA events (warm-up, then the median): every kernel and its
    plain version per call, for the DFT also the ``torch.fft`` route, for the
    backward also its chain and weight-gradient kernels apart (device time
-   from ``torch.profiler``), one
-   volume's preprocessing, the steady bf16 and int8 sweep rates, and one
-   whole train step (fused, with its host enqueue time and its device time
-   by kernel, and on the module path under autograd for comparison).
+   from ``torch.profiler``), one volume's preprocessing, the steady bf16 and
+   int8 sweep rates.
 
 Every path's launch counts are set to 0 just before it is driven and read
 just after. Prints one JSON line of kernel records, then as the last line
@@ -81,7 +92,8 @@ SEED = 0
 REPS = 20
 SLICE_SIZE = 320
 VOLUMES, SLICES_PER_VOLUME = 2, 8
-STEADY_EPOCHS = 5
+STEADY_EPOCHS = 7  # the first eager, the second captures, then five replays
+GRAPH_EPOCHS = 3  # of each run of the graphed-against-per-step comparison
 MASKS = [(0.05, 6), (0.1, 6)]  # the preprocess CLI's defaults
 # card (DFT kernel) against CPU (torch.fft) slices, both in [0, 1]; the first H100
 # run showed 2.0e-6
@@ -442,7 +454,14 @@ def time_preprocessing(pkg, tmp: pathlib.Path, device, card: str) -> None:
                   f"warm-up; upload, reconstructions, min-max, copies back, np.save) [{card}]")
 
 
-def end_to_end(pkg, tmp: pathlib.Path, device, meta: pathlib.Path) -> dict:
+def sweep_pieces(ev, slices: int) -> int:
+    """Batched forwards of a sweep over ``slices`` slices of SLICE_SIZE^2:
+    pieces of whole slices of at most ``evaluate.PIECE_PATCHES`` patches."""
+    per = max(1, ev.PIECE_PATCHES // (SLICE_SIZE // 16) ** 2)
+    return -(-slices // per)
+
+
+def end_to_end(pkg, tmp: pathlib.Path, device, meta: pathlib.Path, card: str) -> dict:
     cfg = pkg["config"].load_test_configuration(REPO / "configs" / "test.yaml")
     mcfg, ecfg = cfg.model, cfg.data
     model = pkg["ms"].from_config(mcfg, generator=torch.Generator().manual_seed(SEED),
@@ -473,12 +492,18 @@ def end_to_end(pkg, tmp: pathlib.Path, device, meta: pathlib.Path) -> dict:
     kernel.launches = 0
     pair = sampler().next_sample()
     r, f, u, m = recon(pair.fully_sampled, pair.undersampled)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
     results, timings = pkg["ev"].evaluate_files_device(recon, sampler())
     torch.cuda.synchronize()
     launches = kernel.launches
-    print(f"main path: 1 visual slice + {len(results)}-slice device sweep -> "
-          f"siren_forward launches {launches}")
-    check(launches == 1 + len(results), f"expected {1 + len(results)} kernel launches")
+    peak_mb = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+    pieces = sweep_pieces(pkg["ev"], len(results))
+    print(f"main path: 1 visual slice + {len(results)}-slice device sweep in {pieces} "
+          f"batched piece(s) -> siren_forward launches {launches}; the sweep's peak device "
+          f"memory {peak_mb:.1f} MiB above the {base_mem / 2**20:.1f} MiB held before it")
+    check(launches == 1 + pieces, f"expected {1 + pieces} kernel launches")
 
     check(tuple(r.shape) == tuple(f.shape) == tuple(u.shape) == (SLICE_SIZE,) * 2,
           f"recon shape {tuple(r.shape)}")
@@ -522,11 +547,11 @@ def end_to_end(pkg, tmp: pathlib.Path, device, meta: pathlib.Path) -> dict:
     for _ in range(REPS // 2):
         for which in ("bf16", "int8", "int8", "bf16"):
             steady[which].append(sweep(which))
-    out = {"launches": launches}
+    out = {"launches": launches, "pieces": pieces, "peak_mb": peak_mb}
     for which, runs in steady.items():
         med = {k: statistics.median(t[k] for t in runs) for k in runs[0]}
         print(f"{which} sweep timings (steady, median of {len(runs)}): " + " ".join(
-            f"{k}={v:.4f}" for k, v in med.items()))
+            f"{k}={v:.4f}" for k, v in med.items()) + f" [{card}]")
         rates = [total / (t["dispatch_seconds"] + t["execute_fetch_seconds"]) for t in runs]
         out[f"{which}_slices_per_sec"] = statistics.median(rates)
     return out
@@ -636,11 +661,18 @@ def train_path(pkg, tmp: pathlib.Path, device, train_meta: pathlib.Path,
 
     per_epoch = -(-len(trainer.train_dataset) // trainer.batch_size)
     val_batches = -(-len(trainer.val_dataset) // trainer.batch_size)
+    graphs = [(t.scan_epoch.captures, t.scan_epoch.replays) for t in (trainer, resumed)]
     print(f"train path: {len(trainer.train_dataset)} train patches, "
           f"{len(trainer.val_dataset)} val patches, {per_epoch} steps an epoch; "
           f"2 epochs + 1 resumed -> train fwd launches {fwd_n}, train bwd launches "
-          f"{bwd_n}, eval forward launches {eval_n}")
+          f"{bwd_n}, eval forward launches {eval_n} (replays count what their graph "
+          f"launches); CUDA graphs (captures, replays): first run {graphs[0]}, resumed run "
+          f"{graphs[1]}")
     check(per_epoch == 16 and steps == 32, f"expected 32 steps, got {steps}")
+    # first run: train epoch 0 eager, epoch 1 replayed; validation (eager at
+    # the initial losses) replayed both epochs. Resumed: epoch 2 eager, its
+    # validation replayed
+    check(graphs == [(2, 3), (1, 1)], f"graph captures and replays {graphs}")
     check(resumed.state.step == 48, f"resumed run ended at step {resumed.state.step}")
     check(resumed.run_dir == trainer.run_dir, "the resumed run picked another run dir")
     check(fwd_n == 48 and bwd_n == 48, "train kernel launches != train steps")
@@ -669,17 +701,125 @@ def train_path(pkg, tmp: pathlib.Path, device, train_meta: pathlib.Path,
 
     # steady epochs, after the counts were read: the same command resumed for
     # STEADY_EPOCHS more; an epoch's seconds (its 16 train steps and its 4
-    # validation batches) are the trainer's own, read from progress_log.csv
-    cli.main(argv + ["--set", f"training.epochs={3 + STEADY_EPOCHS}",
-                     "--set", "training.continue_training=true"])
+    # validation batches) are the trainer's own, read from progress_log.csv;
+    # the first is eager, the second captures its train graph, the rest are
+    # one replay each
+    steady = cli.main(argv + ["--set", f"training.epochs={3 + STEADY_EPOCHS}",
+                              "--set", "training.continue_training=true"])
     with open(run / "progress_log.csv") as fh:
         secs = [float(r["epoch_seconds"]) for r in csv.DictReader(fh)]
     check(len(secs) == STEADY_EPOCHS, f"{len(secs)} steady epochs logged")
-    return {"fwd": fwd_n, "bwd": bwd_n, "eval": eval_n, "epoch_seconds": secs,
-            "steps_per_epoch": per_epoch, "val_batches": val_batches, "run_dir": run}
+    check(steady.scan_epoch.replays == 2 * STEADY_EPOCHS - 1, "steady epochs not replayed")
+    return {"fwd": fwd_n, "bwd": bwd_n, "eval": eval_n, "epoch_seconds": secs[2:],
+            "eager_epoch_seconds": secs[0], "capture_epoch_seconds": secs[1],
+            "steps_per_epoch": per_epoch,
+            "val_batches": val_batches, "run_dir": run}
 
 
 # ---------------------------------------------------------------- phase 7
+def graph_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path, val_meta: pathlib.Path,
+               card: str) -> dict:
+    """The graphed epoch (Trainer with ``device_data``: the first epoch
+    eager, then one graph replay a train and a validation epoch) against the
+    per-step loop (Trainer without, batches from the host), from one seeded
+    init on the train path's data; two per-step runs show how far the loop
+    repeats itself. Then one graphed epoch under torch.profiler."""
+    cfg = pkg["config"].load_train_configuration(REPO / "configs" / "train.yaml")
+    tcfg, mcfg, dcfg = cfg.training, cfg.model, cfg.data
+    tr = pkg["trainer"]
+    use_pallas = mcfg.use_pallas if tcfg.use_pallas is None else tcfg.use_pallas
+
+    def dataset(path):
+        return pkg["dataset"].MRIDataset(
+            path, center_fraction=dcfg.center_fraction, acceleration=dcfg.acceleration,
+            mri_type=dcfg.train.mri_type, max_slice_num=dcfg.train.max_slice_num,
+            outer_patch_size=mcfg.outer_patch_size, inner_patch_size=mcfg.inner_patch_size)
+
+    data = (dataset(meta), dataset(val_meta))
+
+    def run(name, device_data):
+        model = pkg["ms"].from_config(mcfg, tcfg.precision,
+                                      generator=torch.Generator().manual_seed(tcfg.seed),
+                                      device=device)
+        t = tr.Trainer(model, tr.create_train_state(model, tcfg.optimizer, tcfg.lr),
+                       pkg["losses"].make_loss_fn(tcfg.criterion), *data, tmp / name,
+                       batch_size=tcfg.batch_size, save_interval=1000,
+                       base_seed=tcfg.seed + 1, use_pallas=use_pallas, sin5=tcfg.sin5,
+                       device_data=device_data, device=device, log=lambda *_: None)
+        t.initial_errors()
+        t.train(GRAPH_EPOCHS)
+        curve = list(t.initial_losses) + [r[k] for r in t._progress
+                                          for k in ("train_loss", "val_loss")]
+        flat = torch.cat([q.detach().reshape(-1) for q in model.parameters()])
+        return np.array(curve), flat, t
+
+    (la, pa, ta), (lb, pb, _), (lc, pc, tc) = (
+        run("per_step_a", False), run("per_step_b", False), run("graphed", True))
+    spread = (float(np.abs(la - lb).max()), (pa - pb).abs().max().item())
+    gap = (float(np.abs(lc - la).max()), (pc - pa).abs().max().item())
+    repeats = spread == (0.0, 0.0)
+    print(f"per-step loop, two runs of {GRAPH_EPOCHS} epochs from one seed: max |d loss| "
+          f"{spread[0]:.3e}, max |d parameter| {spread[1]:.3e} "
+          f"({'bit for bit' if repeats else 'not bit for bit'})")
+    print(f"graphed epochs vs the per-step loop: max |d loss| {gap[0]:.3e}, max |d "
+          f"parameter| {gap[1]:.3e} (bar: {'0, bit for bit' if repeats else 'twice the '
+          'per-step runs\' own gap'}); graphs (captures, replays) "
+          f"({tc.scan_epoch.captures}, {tc.scan_epoch.replays})")
+    check(tc.scan_epoch.replays == 2 * GRAPH_EPOCHS - 1, "graphed run did not replay")
+    if repeats:
+        check(gap == (0.0, 0.0), "the graphed run differs from a per-step loop that repeats")
+    else:
+        check(gap[0] <= 2 * spread[0] and gap[1] <= 2 * spread[1],
+              "the graphed run is further from the per-step loop than its own repeatability")
+
+    # one more graphed epoch and one more per-step epoch, profiled
+    counters = (pkg["stk"].siren_chain_train_fwd_cuda, pkg["stk"].siren_chain_train_bwd_cuda)
+    out = {"spread": spread, "gap": gap}
+    n = -(-len(data[0]) // tcfg.batch_size)
+    epoch = GRAPH_EPOCHS
+    for label, t in (("graphed", tc), ("per-step", ta)):
+        # unprofiled: the epoch's wall time and the host's share of it
+        walls, hosts = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t._epoch_loss(data[0], train=True, epoch=epoch)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            # the graphed epoch's host time up to its replay's return; the
+            # per-step loop's ends in fetching its loss: its wall time
+            hosts.append(t.scan_epoch.launch_seconds if t.scan_epoch else walls[-1])
+            epoch += 1
+        wall, host = statistics.median(walls), statistics.median(hosts)
+        # profiled: device busy time, idle share, kernels by name
+        before = [k.launches for k in counters]
+        torch.cuda.synchronize()
+        with pkg["profiling"].device_trace(tmp / f"trace_{label}") as prof:
+            t0 = time.perf_counter()
+            t._epoch_loss(data[0], train=True, epoch=epoch)
+            torch.cuda.synchronize()
+            pwall = time.perf_counter() - t0
+        epoch += 1
+        counted = [k.launches - b for k, b in zip(counters, before)]
+        rows = device_rows(prof, 1)
+        busy = sum(ms for _, ms, _ in rows)
+        seen = [sum(c for name, _, c in rows if key in name)
+                for key in ("TrainEpilogue", "chain_kernel")]
+        idle = max(0.0, 1 - busy / (pwall * 1e3))
+        print(f"{label} train epoch ({n} steps of {tcfg.batch_size}), median of 3: wall "
+              f"{wall * 1e3:.4f} ms = {n / wall:.2f} steps/s, {n * tcfg.batch_size / wall:.1f} "
+              f"patches/s; host {host * 1e3:.4f} ms {'up to the replay' if t.scan_epoch else ''}"
+              f"; under the profiler: wall {pwall * 1e3:.4f} ms, device busy {busy:.4f} ms, "
+              f"idle share {idle:.1%}; train fwd / bwd launches counted {counted[0]} / "
+              f"{counted[1]}, kernels seen by the profiler {seen[0]} / {seen[1]} [{card}]")
+        check(counted == seen, f"{label}: launch counters {counted}, profiler {seen}")
+        check(counted == [n, n], f"{label}: {counted} launches for {n} steps")
+        out[label] = {"wall_ms": wall * 1e3, "host_ms": host * 1e3, "busy_ms": busy,
+                      "idle": idle}
+    return out
+
+
+# ---------------------------------------------------------------- phase 9
 # |dPSNR| per slice of the int8 rows against the bf16 rows of the same
 # command, on the run directory phase 6 leaves (8 epochs from a seeded init,
 # PSNR near 24 dB). The bf16 run takes data.sin5=false (degree-7 hidden
@@ -716,7 +856,9 @@ def quantized_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path,
     print(f"quantised eval path: test CLI on {run_dir.name}, {len(rows)} slices + {visual} "
           f"visual -> siren_forward_int8 launches {n_int8}, siren_forward launches {n_bf16}")
     check(len(rows) == total, f"{len(rows)} int8 rows, expected {total}")
-    check(n_int8 == total + visual and n_bf16 == 0, "int8 path launch counts")
+    pieces = sweep_pieces(pkg["ev"], total)
+    check(n_int8 == pieces + visual and n_bf16 == 0,
+          f"int8 path launch counts: expected {pieces} batched piece(s) + {visual} visual")
     check(all(np.isfinite([r.psnr, r.ssim, r.nrmse]).all() for r in rows),
           "non-finite int8 metrics")
     out = tmp / "test_out" / "int8"
@@ -771,7 +913,61 @@ def time_train_steps(pkg, device) -> dict:
         if fused:
             out["host_enqueue"] = host_enqueue_ms(lambda: step(state, fully, under, 1))
             out["profile"] = profile_device(lambda: step(state, fully, under, 1))
+            # Adam's update alone, over this model's parameters and gradients
+            params = list(model.parameters())
+            for label_, opt in (
+                    ("adam_fused", state.optimizer),
+                    ("adam_foreach", torch.optim.Adam(params, lr=cfg.training.lr,
+                                                      capturable=True))):
+                out[label_] = cuda_median_ms(opt.step)
+                out[label_ + "_device"] = device_ms(opt.step)
     return out
+
+
+def report_train_step(step_ms: dict, card: str) -> None:
+    print(f"train step, batch {TRAIN_BATCH}, configs/train.yaml (bf16, Adam): fused "
+          f"{step_ms['fused']:.4f} ms, module path under autograd {step_ms['module']:.4f} ms "
+          f"(median of 10, eager, before any CUDA graph) [{card}]")
+    print(f"Adam's update alone, capturable (CUDA events around the call, median of {REPS}; "
+          f"device time by torch.profiler): fused, the port's {step_ms['adam_fused']:.4f} ms "
+          f"(device {step_ms['adam_fused_device']:.4f} ms), multi-tensor "
+          f"{step_ms['adam_foreach']:.4f} ms (device {step_ms['adam_foreach_device']:.4f} ms) "
+          f"[{card}]")
+    prof = step_ms["profile"]
+    print(f"fused train step: host enqueues it in {step_ms['host_enqueue']:.4f} ms [{card}]")
+    if prof is None:
+        print("fused train step, device time by kernel: not measured (the profiler "
+              "recorded no device activity)")
+        return
+    host = prof["host"]
+    print(f"fused train step, host side (torch.profiler, own CPU time per step; the "
+          f"profiler's own cost included), top 15 of {len(host)} ops, "
+          f"{sum(ms for _, ms, _ in host):.4f} ms in all [{card}]:")
+    for name, ms_, calls in host[:15]:
+        print(f"  {ms_:8.4f} ms  {calls:4d} calls  {name[:90]}")
+    print(f"fused train step under the profiler: wall {prof['wall_ms']:.4f} ms, device "
+          f"busy {prof['busy_ms']:.4f} ms (idle share "
+          f"{max(0.0, 1 - prof['busy_ms'] / prof['wall_ms']):.1%}) [{card}]")
+    for name, ms_ in prof["kernels"][:12]:
+        print(f"  {ms_:8.4f} ms  {name[:100]}")
+    rest = sum(ms_ for _, ms_ in prof["kernels"][12:])
+    print(f"  {rest:8.4f} ms  ({len(prof['kernels']) - 12} more kernels)")
+    groups = {"backward chain kernel": ("chain_kernel",),
+              "backward dW kernel and the dW and dbase sums": ("dw_", "ordered_sum"),
+              "forward kernel": ("TrainEpilogue",),
+              "Adam (multi_tensor_apply kernels)": ("multi_tensor_apply",)}
+    share = {g: sum(ms_ for n, ms_ in prof["kernels"] if any(k in n for k in keys))
+             for g, keys in groups.items()}
+    share["encoder, modulator, repack, loss under autograd (all other kernels)"] = (
+        prof["busy_ms"] - sum(share.values()))
+    print("fused train step, device time: " + "; ".join(
+        f"{g} {ms_:.4f} ms" for g, ms_ in share.items()) + f" [{card}]")
+
+
+def device_ms(fn, reps: int = 5) -> float | None:
+    """Device time per call (torch.profiler), or None where it sees none."""
+    prof = profile_device(fn, reps)
+    return None if prof is None else prof["busy_ms"]
 
 
 def host_enqueue_ms(fn, reps: int = 10) -> float:
@@ -785,10 +981,22 @@ def host_enqueue_ms(fn, reps: int = 10) -> float:
     return ms
 
 
+def device_rows(prof, reps: int) -> list:
+    """(kernel name, device ms per call, launches per call) of a profile's
+    device rows, but annotated ranges (Optimizer.step#...), whose time is
+    their kernels' over again."""
+    return [(e.key, e.device_time_total / 1e3 / reps, e.count // reps)
+            for e in prof.key_averages()
+            if getattr(e, "device_type", None) is not None
+            and "cuda" in str(e.device_type).lower() and e.device_time_total > 0
+            and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
+
+
 def profile_device(fn, reps: int = 5) -> dict | None:
     """Device time by kernel over ``reps`` calls, from torch.profiler: (wall
-    ms per call, device-busy ms per call, [(kernel name, ms per call)]), or
-    None where the profiler sees no device activity."""
+    ms per call, device-busy ms per call, [(kernel name, ms per call)]) and
+    the host ops by their own CPU time per call, or None where the profiler
+    sees no device activity."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -799,16 +1007,15 @@ def profile_device(fn, reps: int = 5) -> dict | None:
             fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / reps * 1e3
-    # device rows only, and no annotated range (Optimizer.step#...), whose
-    # time is its kernels' over again
-    rows = [(e.key, e.device_time_total / 1e3 / reps) for e in prof.key_averages()
-            if getattr(e, "device_type", None) is not None
-            and "cuda" in str(e.device_type).lower() and e.device_time_total > 0
-            and not getattr(e, "is_user_annotation", False) and "#" not in e.key]
+    rows = [(name, ms) for name, ms, _ in device_rows(prof, reps)]
     if not rows:
         return None
     rows.sort(key=lambda r: -r[1])
-    return {"wall_ms": wall, "busy_ms": sum(ms for _, ms in rows), "kernels": rows}
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3 / reps, e.count // reps)
+                   for e in prof.key_averages() if e.self_cpu_time_total > 0),
+                  key=lambda r: -r[1])
+    return {"wall_ms": wall, "busy_ms": sum(ms for _, ms in rows), "kernels": rows,
+            "host": host}
 
 
 def bwd_parts_ms(fn, card: str) -> dict:
@@ -917,7 +1124,7 @@ def main() -> int:
     from mri_inr_tpu_torch.ops import siren_kernel as sk
     from mri_inr_tpu_torch.ops import siren_train_kernel as stk
     from mri_inr_tpu_torch.train import losses, trainer
-    from mri_inr_tpu_torch.utils import visualization
+    from mri_inr_tpu_torch.utils import profiling, visualization
 
     device = torch.device("cuda", torch.cuda.current_device())
     card = card_line()
@@ -941,15 +1148,17 @@ def main() -> int:
     pkg = dict(config=config, dataset=dataset, synthetic=synthetic, preprocessing=preprocessing,
                ev=ev, ms=ms, sk=sk, stk=stk, fk=fk, cli_train=cli_train, cli_test=cli_test,
                cli_preprocess=cli_preprocess, losses=losses, trainer=trainer,
-               visualization=visualization)
+               visualization=visualization, profiling=profiling)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         pre = preprocess_path(pkg, tmp, device)
-        e2e = end_to_end(pkg, tmp, device, pre["meta"])
+        e2e = end_to_end(pkg, tmp, device, pre["meta"], card)
+        step_ms = time_train_steps(pkg, device)
+        report_train_step(step_ms, card)
+        graph_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card)
         trn = train_path(pkg, tmp, device, pre["meta"], pre["val_meta"])
         qnt = quantized_path(pkg, tmp, device, pre["meta"], trn["run_dir"])
         time_preprocessing(pkg, tmp, device, card)
-    step_ms = time_train_steps(pkg, device)
 
     # ---- eval forward kernel
     mods, kp = cmp["inputs"]
@@ -969,8 +1178,9 @@ def main() -> int:
         launches_train_path=trn["eval"])]
     print(f"evaluate_files_device steady: bf16 chain {e2e['bf16_slices_per_sec']:.2f} "
           f"slices/s, int8 chain {e2e['int8_slices_per_sec']:.2f} slices/s "
-          f"({VOLUMES * SLICES_PER_VOLUME} slices, bucket 1024, median of {REPS} each, in "
-          f"turns) [{card}]")
+          f"({VOLUMES * SLICES_PER_VOLUME} slices in {e2e['pieces']} batched piece(s), median "
+          f"of {REPS} each, in turns; peak memory of the first sweep {e2e['peak_mb']:.1f} "
+          f"MiB) [{card}]")
 
     # ---- int8 eval forward kernel, with the weight pack as the main path
     # hands it over (made once by make_apply_fn)
@@ -1042,39 +1252,17 @@ def main() -> int:
             peak=PEAK_F32_FLOPS, unit="f32 FLOP", library_ms=t_lib))
         print(f"dft2c {shape}: the FFT kernel takes {t_kernel / t_lib:.2f}x the torch.fft "
               f"route's time [{card}]")
-    print(f"train step, batch {TRAIN_BATCH}, configs/train.yaml (bf16, Adam): fused "
-          f"{step_ms['fused']:.4f} ms, module path under autograd {step_ms['module']:.4f} ms "
-          f"(median of 10) [{card}]")
-    prof = step_ms["profile"]
-    print(f"fused train step: host enqueues it in {step_ms['host_enqueue']:.4f} ms [{card}]")
-    if prof is None:
-        print("fused train step, device time by kernel: not measured (the profiler "
-              "recorded no device activity)")
-    else:
-        print(f"fused train step under the profiler: wall {prof['wall_ms']:.4f} ms, device "
-              f"busy {prof['busy_ms']:.4f} ms (idle share "
-              f"{max(0.0, 1 - prof['busy_ms'] / prof['wall_ms']):.1%}) [{card}]")
-        for name, ms_ in prof["kernels"][:12]:
-            print(f"  {ms_:8.4f} ms  {name[:100]}")
-        rest = sum(ms_ for _, ms_ in prof["kernels"][12:])
-        print(f"  {rest:8.4f} ms  ({len(prof['kernels']) - 12} more kernels)")
-        groups = {"backward chain kernel": ("chain_kernel",),
-                  "backward dW kernel and the dW and dbase sums": ("dw_", "ordered_sum"),
-                  "forward kernel": ("TrainEpilogue",),
-                  "Adam (multi_tensor_apply kernels)": ("multi_tensor_apply",)}
-        share = {g: sum(ms_ for n, ms_ in prof["kernels"] if any(k in n for k in keys))
-                 for g, keys in groups.items()}
-        share["encoder, modulator, repack, loss under autograd (all other kernels)"] = (
-            prof["busy_ms"] - sum(share.values()))
-        print("fused train step, device time: " + "; ".join(
-            f"{g} {ms_:.4f} ms" for g, ms_ in share.items()) + f" [{card}]")
     secs = trn["epoch_seconds"]
     med, n = statistics.median(secs), trn["steps_per_epoch"]
-    print(f"steady train epochs through the CLI (device_data, {n} steps of batch "
-          f"{TRAIN_BATCH} and {trn['val_batches']} validation batches an epoch, "
-          f"{len(secs)} epochs): median {med:.4f} s an epoch (min {min(secs):.4f}, max "
+    print(f"steady graphed train epochs through the CLI (device_data, {n} steps of batch "
+          f"{TRAIN_BATCH} and {trn['val_batches']} validation batches an epoch, one replay "
+          f"each, {len(secs)} epochs): median {med:.4f} s an epoch (min {min(secs):.4f}, max "
           f"{max(secs):.4f}) = {n / med:.2f} steps/s (min {n / max(secs):.2f}, max "
-          f"{n / min(secs):.2f}), {n * TRAIN_BATCH / med:.1f} patches/s [{card}]")
+          f"{n / min(secs):.2f}), {n * TRAIN_BATCH / med:.1f} patches/s; the run's first "
+          f"epoch (eager, the capture's warm-up, then the validation graph's capture) "
+          f"{trn['eager_epoch_seconds']:.4f} s, its second (the train graph's capture, "
+          f"then its first replay) {trn['capture_epoch_seconds']:.4f} s; one eager train "
+          f"step {step_ms['fused']:.4f} ms [{card}]")
 
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -28,6 +28,7 @@ from mri_inr_tpu_torch.train import losses
 from mri_inr_tpu_torch.train.trainer import (Trainer, create_train_state,
                                              splice_pretrained_encoder)
 from mri_inr_tpu_torch.utils.device import resolve_device
+from mri_inr_tpu_torch.utils.profiling import device_trace
 
 
 def _reject_unported(cfg) -> None:
@@ -83,6 +84,10 @@ def main(argv: list[str] | None = None) -> Trainer:
     cfg = config_lib.load_train_configuration(args.config, args.overrides)
     tcfg, mcfg, dcfg = cfg.training, cfg.model, cfg.data
     _reject_unported(cfg)
+    if tcfg.debug_nans and tcfg.device_data and device.type == "cuda":
+        raise ValueError(
+            "training.debug_nans (anomaly detection) cannot run inside the CUDA graph of a "
+            "training.device_data epoch on the card; set one of the two to false")
 
     # resume-vs-fresh: an explicit training.model_path pins the run dir,
     # otherwise the newest {name}_{timestamp} dir with its highest step
@@ -142,7 +147,8 @@ def main(argv: list[str] | None = None) -> Trainer:
     if tcfg.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     trainer.initial_errors()
-    trainer.train(tcfg.epochs, initial_epoch)
+    with device_trace(tcfg.profile_dir):
+        trainer.train(tcfg.epochs, initial_epoch)
     print(f"done; final step {trainer.state.step}; artifacts in {run_dir}")
     return trainer
 

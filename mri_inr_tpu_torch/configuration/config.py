@@ -23,14 +23,19 @@ the port they mean:
 - ``training.use_pallas`` (default: follow ``model.use_pallas``): train
   through the fused forward and backward kernels instead of the module path
   under autograd.
-- ``training.device_data``: keep the tiles on the device and gather every
-  batch there (the counterpart of the TPU's one-dispatch scan epoch).
-- ``training.debug_nans``: ``torch.autograd.set_detect_anomaly``.
+- ``training.device_data``: keep the tiles on the device and run each epoch
+  through ``make_scan_epoch`` (the counterpart of the TPU's one-dispatch
+  scan epoch: on the card one CUDA graph replay an epoch on the fused path).
+- ``training.debug_nans``: ``torch.autograd.set_detect_anomaly``; with
+  ``training.device_data`` on the card the train CLI raises (anomaly
+  detection cannot run inside a CUDA graph).
+- ``training.profile_dir``: a ``torch.profiler`` trace of the training
+  epochs, written there (``utils/profiling.device_trace``).
 - ``training.data_axis_size`` (the mesh), ``training.logging``
   (TensorBoard), ``data.*.online``, ``data.low_memory``,
   ``criterion: perceptual``, ``encoder_type: vgg``, ``data.online`` and
   ``data.halo_fold`` of the test config: not ported yet, the CLIs raise on
-  them. ``training.profile_dir`` is accepted and ignored.
+  them.
 """
 
 from __future__ import annotations

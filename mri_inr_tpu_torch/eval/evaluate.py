@@ -1,20 +1,28 @@
 """Slice reconstruction and the metric sweep (counterpart of
 ``mri_inr_tpu/eval/evaluate.py``).
 
-Per slice: tile the undersampled image, pad the patch batch to a multiple of
-``patch_bucket``, classify black patches (masked, not filtered: a masked
-patch still counts in the fold's denominator), run the forward, weighted-fold
-the reconstruction, plain-fold the fully-sampled and undersampled tiles for
-reference images, and score PSNR / SSIM / NRMSE of fully-sampled vs
-reconstruction. Artifacts: ``metrics_error.csv`` (FILENAME,PSNR,SSIM,NRMSE)
-and a mean/std/min/max ``metrics_summary.txt``.
+Per slice: tile the undersampled image, classify black patches (masked,
+not filtered: a masked patch still counts in the fold's denominator), run
+the forward, weighted-fold the reconstruction, plain-fold the fully-sampled
+and undersampled tiles for reference images, and score PSNR / SSIM / NRMSE
+of fully-sampled vs reconstruction. Artifacts: ``metrics_error.csv``
+(FILENAME,PSNR,SSIM,NRMSE) and a mean/std/min/max ``metrics_summary.txt``.
+
+One slice at a time (``SliceReconstructor.__call__``, the visual pass) pads
+its patch batch to a multiple of ``patch_bucket``, as the JAX package's
+per-slice program does. The metric sweeps score a stack of K slices of one
+shape batched (``SliceReconstructor.metrics_stack``, the counterpart of the
+JAX package's ``_build_many``): one forward for all K * n patches, no
+padding, then the masks, the folds and the metrics of the K slices at once;
+a stack of more than :data:`PIECE_PATCHES` patches runs in pieces of whole
+slices, one forward a piece.
 
 Three sweeps give the same rows: :func:`evaluate_files` (one slice at a
 time, also returns the images), :func:`evaluate_files_chunked` (``chunk``
-slices per upload, one copy back per chunk) and
-:func:`evaluate_files_device` (every slice uploaded once per shape group).
-``--shard I:N`` runs write ``metrics_shard*/`` directories that
-:func:`merge_shard_csvs` combines.
+slices a stack, one copy back per chunk) and :func:`evaluate_files_device`
+(every shape group uploaded once and scored as one stack). ``--shard I:N``
+runs write ``metrics_shard*/`` directories that :func:`merge_shard_csvs`
+combines.
 
 Not carried over: the TPU mesh and halo fold, and the device sweep's padding
 to a bucket of slices and its ``steady_probe``, which exist to reuse compiled
@@ -34,6 +42,12 @@ import torch
 from mri_inr_tpu_torch.eval import metrics as metrics_mod
 from mri_inr_tpu_torch.ops import tiling
 from mri_inr_tpu_torch.utils.device import resolve_device
+
+#: the most patches one forward of a metric sweep takes: a stack runs in
+#: pieces of whole slices up to this many (81 slices of 320 x 320). The
+#: card holds a few tens of KB a patch in flight (the tile, the encoder's
+#: bf16 maps, the modulations, the output), about 1 GB at this count.
+PIECE_PATCHES = 32768
 
 
 def _bucket(n: int, multiple: int) -> int:
@@ -103,13 +117,28 @@ class SliceReconstructor:
     def metrics_stack(self, fully_stack: torch.Tensor,
                       under_stack: torch.Tensor) -> torch.Tensor:
         """(K, H, W) stacks on the device -> a device (3, K) tensor of
-        (psnr, ssim, nrmse) rows; one forward launch per slice, no host
-        synchronisation."""
+        (psnr, ssim, nrmse) rows, in the stack's order; no host
+        synchronisation. The slices run batched, in pieces of whole slices
+        of at most :data:`PIECE_PATCHES` patches (one slice at least): one
+        forward a piece over its patches, unpadded, then its masks, folds
+        and metrics, as :meth:`_run` does for one slice with
+        ``metrics_only``."""
+        outer, inner, siren = self.outer, self.inner, self.siren
+        k, height, width = under_stack.shape
+        grid = tiling.grid_shape(height, width, inner)
+        n = grid[0] * grid[1]
+        per = max(1, PIECE_PATCHES // n)
         cols = []
-        for fully, under in zip(fully_stack, under_stack):
-            m = self._run(fully, under, metrics_only=True)
+        for start in range(0, k, per):
+            fully, under = fully_stack[start : start + per], under_stack[start : start + per]
+            patches = tiling.image_to_patches(under, outer, inner)  # (k', n, outer, outer)
+            valid = tiling.classify_black_patches(patches)
+            pred = self.apply_fn(patches.reshape(-1, outer, outer)).float()
+            pred = tiling.mask_black_patches(pred.reshape(-1, n, siren, siren), valid)
+            recon = tiling.patches_to_image_weighted_average(pred, grid, siren, inner)
+            m = metrics_mod.image_metrics(fully.float(), recon)
             cols.append(torch.stack([m["psnr"], m["ssim"], m["nrmse"]]))
-        return torch.stack(cols, dim=1)
+        return torch.cat(cols, dim=1)
 
     def metrics_chunk_async(self, fully_stack: np.ndarray,
                             under_stack: np.ndarray) -> torch.Tensor:
@@ -202,11 +231,12 @@ def evaluate_files_device(reconstructor: SliceReconstructor, sampler,
     """Device-resident sweep: the slices are stacked per image shape and
     uploaded once, every slice is scored on the device, and each shape
     group's (3, K) metrics come back in one copy (the one synchronisation of
-    the group). The rows are those of :func:`evaluate_files`, in the
-    sampler's order.
+    the group); a group runs batched (:meth:`SliceReconstructor.metrics_stack`:
+    one forward per piece of :data:`PIECE_PATCHES` patches). The rows are
+    those of :func:`evaluate_files`, in the sampler's order.
 
     Returns ``(results, timings)``: ``stage_seconds`` (load, stack, upload),
-    ``dispatch_seconds`` (enqueueing every slice's work) and
+    ``dispatch_seconds`` (enqueueing every group's work) and
     ``execute_fetch_seconds`` (waiting for the device and copying back)."""
     total = len(sampler) if num_samples is None else min(num_samples, len(sampler))
     device = reconstructor.device

@@ -320,9 +320,12 @@ cudaError_t launch(typename Epi::Args args, const void* swt, cudaStream_t stream
     --cm.stages;
   const size_t smem = G::smem_bytes(cm.L, cm.stages, extra);
   if (smem > (size_t)limit) return cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(forward_kernel<H, Epi>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
+  // the shared-memory ceiling every launch stays under, raised once per
+  // instantiation at its first use: a launch inside a CUDA graph's capture
+  // then puts nothing but the kernel on the stream
+  static const cudaError_t raised = cudaFuncSetAttribute(
+      forward_kernel<H, Epi>, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (raised != cudaSuccess) return raised;
   const long long tiles = (long long)cm.B * ((cm.S + TM - 1) / TM);
   if (tiles > 0x7ffffffeLL) return cudaErrorInvalidConfiguration;
   const long long pairs = (tiles + 1) / 2;

@@ -750,10 +750,15 @@ cudaError_t launch(Args args, const void* sw, const void* swt, void* work, float
     --args.stages;
   const size_t smem = Chain<H>::smem_bytes(L, args.stages);
   if (smem > (size_t)limit || Dw<H>::SMEM > (size_t)limit) return cudaErrorInvalidConfiguration;
-  err = cudaFuncSetAttribute(chain_kernel<H, DEG, MORLET>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
+  // the shared-memory ceilings, raised once per instantiation at its first
+  // use: a launch inside a CUDA graph's capture then puts nothing but the
+  // kernels on the stream
+  static const cudaError_t raised_chain = cudaFuncSetAttribute(
+      chain_kernel<H, DEG, MORLET>, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  if (raised_chain != cudaSuccess) return raised_chain;
+  static const cudaError_t raised_dw = cudaFuncSetAttribute(
+      dw_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Dw<H>::SMEM);
+  if (raised_dw != cudaSuccess) return raised_dw;
   args.group = chain_group(B, S);
   const int parts = (B + args.group - 1) / args.group;
   const long long blocks = (long long)parts * ((S + TM - 1) / TM);
@@ -770,9 +775,6 @@ cudaError_t launch(Args args, const void* sw, const void* swt, void* work, float
   if (err != cudaSuccess) return err;
 
   const int splits = dw_splits(B, S, H, L);
-  err = cudaFuncSetAttribute(dw_kernel<H>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)Dw<H>::SMEM);
-  if (err != cudaSuccess) return err;
   dw_kernel<H><<<(L - 1) * ((H + 127) / 128) * splits, DW_THREADS, Dw<H>::SMEM, stream>>>(
       ws_map, partial, B, S, L, splits);
   err = cudaGetLastError();

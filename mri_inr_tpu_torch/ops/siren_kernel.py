@@ -545,15 +545,26 @@ def fused_forward(model, tiles: torch.Tensor, *, block_b: int = 8,
     return out.reshape(tiles.shape[0], s, s)
 
 
+@torch.no_grad()
+def pack_weights(model, quantized: bool = False):
+    """``(kp, ikp, s_wt)`` for :func:`fused_forward`: the repacked weights,
+    the int8 ones when ``quantized`` (else None) and ``kp.s_w`` transposed
+    per layer, as the CUDA kernel reads it."""
+    kp = extract_kernel_params(
+        model, coordinate_grid(model.siren_patch_size, module_device(model)))
+    ikp = quantize_kernel_params(model, kp) if quantized else None
+    return kp, ikp, kp.s_w.transpose(1, 2).contiguous()
+
+
 class WeightPack:
-    """``model``'s kernel weights for :func:`fused_forward`: ``(kp, ikp,
-    s_wt)``, the repacked weights, the int8 ones when ``quantized`` (else
-    None) and ``kp.s_w`` transposed per layer, as the CUDA kernel reads it.
-    Packed when made and again, on a call, whenever a parameter of the model
-    has changed since: in place (its ``_version`` counter, which every
-    in-place update such as an optimizer step or ``load_state_dict`` moves)
-    or by a new tensor (its storage). So an apply function built once
-    follows the training's updates. ``packs`` counts the packings."""
+    """``model``'s kernel weights for :func:`fused_forward`
+    (:func:`pack_weights`). Packed when made and again, on a call, whenever
+    a parameter of the model has changed since: in place (its ``_version``
+    counter, which an in-place update such as ``load_state_dict`` or a
+    plain optimizer step moves) or by a new tensor (its storage). So an
+    apply function built once follows such updates. An update that moves no
+    ``_version`` (the replay of a CUDA graph; fused Adam's kernel) must be
+    followed by :meth:`invalidate`. ``packs`` counts the packings."""
 
     def __init__(self, model, quantized: bool = False):
         self.model, self.quantized = model, quantized
@@ -563,15 +574,14 @@ class WeightPack:
     def _state(self) -> tuple:
         return tuple((p.data_ptr(), p._version) for p in self.model.parameters())
 
-    @torch.no_grad()
+    def invalidate(self) -> None:
+        """Repack on the next call, whatever the counters say."""
+        self._key = None
+
     def __call__(self):
         key = self._state()
         if key != self._key:
-            model = self.model
-            kp = extract_kernel_params(
-                model, coordinate_grid(model.siren_patch_size, module_device(model)))
-            ikp = quantize_kernel_params(model, kp) if self.quantized else None
-            self._value = (kp, ikp, kp.s_w.transpose(1, 2).contiguous())
+            self._value = pack_weights(self.model, self.quantized)
             self._key = key
             self.packs += 1
         return self._value
@@ -593,7 +603,8 @@ def make_apply_fn(model, *, use_pallas: bool = True, block_b: int = 16,
     where the model lives. The fused path packs the weights (and quantises
     them, with ``quantized``) here, and again on a call only when a
     parameter has changed since (:class:`WeightPack`, the function's
-    ``pack``)."""
+    ``pack``). Its ``forward(tiles, packed)`` takes the weights from the
+    caller instead, as :func:`pack_weights` gives them."""
     dev = resolve_device(device)
     if module_device(model) != dev:
         raise ValueError(f"model is on {module_device(model)}, not on {dev}")
@@ -602,11 +613,14 @@ def make_apply_fn(model, *, use_pallas: bool = True, block_b: int = 16,
         return functools.partial(_module_apply, model)
     pack = WeightPack(model, quantized)
 
-    def apply(tiles: torch.Tensor) -> torch.Tensor:
-        kp, ikp, s_wt = pack()
+    def forward(tiles: torch.Tensor, packed) -> torch.Tensor:
+        kp, ikp, s_wt = packed
         return fused_forward(model, tiles, block_b=block_b, quantized=quantized, sin7=sin7,
                              sin_bf16=sin_bf16, sin5=sin5, ksplit=ksplit, packed=(kp, ikp),
                              s_wt=s_wt)
 
-    apply.pack = pack
+    def apply(tiles: torch.Tensor) -> torch.Tensor:
+        return forward(tiles, pack())
+
+    apply.pack, apply.forward = pack, forward
     return apply

@@ -14,6 +14,10 @@
 - plain recomposition: fold with ``kernel=outer``, ones normalisation.
 - black patches (``mean < 1e-10``) are a validity mask: a masked patch is
   zeroed but still counts in the denominator.
+
+Extraction and the folds take one image, or a stack of K images of one
+shape with a leading K dimension: (K, H, W) -> (K, n, outer, outer) and
+(K, n, s, s) -> (K, nv*inner, nh*inner); a stack runs as one batch.
 """
 
 from __future__ import annotations
@@ -34,22 +38,23 @@ def grid_shape(height: int, width: int, inner_patch_size: int) -> tuple[int, int
 
 def image_to_patches(image: torch.Tensor, outer_patch_size: int,
                      inner_patch_size: int) -> torch.Tensor:
-    """(H, W) image -> (nv * nh, outer, outer) patches, row-major."""
+    """(H, W) image -> (nv * nh, outer, outer) patches, row-major; a (K, H, W)
+    stack -> (K, nv * nh, outer, outer)."""
     if (outer_patch_size - inner_patch_size) % 2:
         raise ValueError(
             f"outer - inner must be even for centred padding, got "
             f"{outer_patch_size} - {inner_patch_size}"
         )
-    height, width = image.shape
+    height, width = image.shape[-2:]
     pad = (outer_patch_size - inner_patch_size) // 2
     vpad = (inner_patch_size - height % inner_patch_size) % inner_patch_size
     hpad = (inner_patch_size - width % inner_patch_size) % inner_patch_size
     # F.pad's reflect mode takes a batched (N, C, H, W) input
-    padded = F.pad(image[None, None], (pad, pad + hpad, pad, pad + vpad),
-                   mode="reflect")[0, 0]
-    windows = padded.unfold(0, outer_patch_size, inner_patch_size).unfold(
-        1, outer_patch_size, inner_patch_size)
-    return windows.reshape(-1, outer_patch_size, outer_patch_size)
+    stack = image.reshape(-1, 1, height, width)
+    padded = F.pad(stack, (pad, pad + hpad, pad, pad + vpad), mode="reflect")[:, 0]
+    windows = padded.unfold(1, outer_patch_size, inner_patch_size).unfold(
+        2, outer_patch_size, inner_patch_size)
+    return windows.reshape(*image.shape[:-2], -1, outer_patch_size, outer_patch_size)
 
 
 @functools.lru_cache(maxsize=None)
@@ -65,16 +70,25 @@ def generate_weight_matrix(tile_size: int, device: str | torch.device = "cpu") -
     return torch.from_numpy(_weight_matrix_np(tile_size)).to(device)
 
 
+@functools.lru_cache(maxsize=None)
+def _weight_matrix_on(tile_size: int, device: torch.device) -> torch.Tensor:
+    """:func:`generate_weight_matrix`, made once per (size, device): an
+    upload from host memory on every fold would make the host wait for the
+    device's stream."""
+    return generate_weight_matrix(tile_size, device)
+
+
 def _fold(patches: torch.Tensor, grid: tuple[int, int], kernel: int,
           stride: int) -> torch.Tensor:
-    """Overlap-add of (nv*nh, kernel, kernel) patches into (nv*s, nh*s):
-    block (r, c) covers rows ``r*stride - pad .. + kernel`` with
-    ``pad = (kernel - stride) // 2``; out-of-bounds parts are dropped."""
+    """Overlap-add of (..., nv*nh, kernel, kernel) patches into
+    (..., nv*s, nh*s): block (r, c) covers rows ``r*stride - pad .. + kernel``
+    with ``pad = (kernel - stride) // 2``; out-of-bounds parts are dropped."""
     nv, nh = grid
-    cols = patches.reshape(nv * nh, kernel * kernel).t()[None]
+    lead = patches.shape[:-3]
+    cols = patches.reshape(-1, nv * nh, kernel * kernel).transpose(1, 2)
     out = F.fold(cols, (nv * stride, nh * stride), kernel, stride=stride,
                  padding=(kernel - stride) // 2)
-    return out[0, 0]
+    return out.reshape(*lead, nv * stride, nh * stride)
 
 
 @functools.lru_cache(maxsize=None)
@@ -97,8 +111,8 @@ def patches_to_image_weighted_average(patches: torch.Tensor, grid: tuple[int, in
                                       siren_patch_size: int,
                                       inner_patch_size: int) -> torch.Tensor:
     """Blend (N, siren, siren) model outputs into a (nv*inner, nh*inner)
-    image with radial weights."""
-    weights = generate_weight_matrix(siren_patch_size, patches.device)
+    image with radial weights; (K, N, siren, siren) into K images."""
+    weights = _weight_matrix_on(siren_patch_size, patches.device)
     num = _fold(patches * weights, grid, siren_patch_size, inner_patch_size)
     return num / _fold_den(grid, siren_patch_size, inner_patch_size, True,
                            patches.device)
@@ -106,7 +120,8 @@ def patches_to_image_weighted_average(patches: torch.Tensor, grid: tuple[int, in
 
 def patches_to_image(patches: torch.Tensor, grid: tuple[int, int],
                      outer_patch_size: int, inner_patch_size: int) -> torch.Tensor:
-    """Uniform-average recomposition of (N, outer, outer) patches."""
+    """Uniform-average recomposition of (N, outer, outer) patches; of
+    (K, N, outer, outer) into K images."""
     num = _fold(patches, grid, outer_patch_size, inner_patch_size)
     return num / _fold_den(grid, outer_patch_size, inner_patch_size, False,
                            patches.device)
@@ -125,5 +140,7 @@ def classify_black_patches(patches: torch.Tensor) -> torch.Tensor:
 
 
 def mask_black_patches(values: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
-    """Zero the entries of (N, ...) ``values`` whose patch is black."""
-    return values * valid.reshape(valid.shape + (1,) * (values.ndim - 1)).to(values.dtype)
+    """Zero the entries of (N, ...) ``values`` whose patch is black; ``valid``
+    is (N,), or (K, N) for (K, N, ...) values."""
+    return values * valid.reshape(valid.shape + (1,) * (values.ndim - valid.ndim)).to(
+        values.dtype)

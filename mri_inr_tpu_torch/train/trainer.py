@@ -23,9 +23,12 @@ In PyTorch's idiom:
 - the per-step dropout seed is an integer in [0, 2^23) drawn by a numpy
   generator keyed on (base seed, step), so a resumed run continues the same
   stream;
-- ``device_data`` keeps each dataset's tiles on the device and gathers every
-  batch there from the epoch's index matrix (:func:`make_epoch_perm`); a
-  Python loop over the batches takes the place of ``lax.scan``.
+- ``device_data`` keeps each dataset's tiles on the device and runs each
+  epoch through :func:`make_scan_epoch`, the counterpart of the JAX
+  package's one-dispatch ``lax.scan`` epoch: every batch is gathered on the
+  device from the epoch's index matrix (:func:`make_epoch_perm`), and on the
+  card the fused path's epoch is one CUDA graph, captured once and replayed
+  once per epoch.
 
 Not ported: the device mesh and ``shard_map`` step, TensorBoard scalars
 (``tensorboard=True`` raises).
@@ -46,6 +49,7 @@ from torch import nn
 from mri_inr_tpu_torch.data.dataset import epoch_index_batches
 from mri_inr_tpu_torch.eval.evaluate import SliceReconstructor
 from mri_inr_tpu_torch.models.siren import SirenLayer
+from mri_inr_tpu_torch.ops import siren_kernel as sk
 from mri_inr_tpu_torch.ops import siren_train_kernel as stk
 from mri_inr_tpu_torch.ops import tiling
 from mri_inr_tpu_torch.ops.siren_kernel import make_apply_fn
@@ -64,9 +68,14 @@ class TrainState:
 
 
 def make_optimizer(name: str, lr: float, params) -> torch.optim.Optimizer:
-    """``adam`` (b1 0.9, b2 0.999, eps 1e-8: optax's defaults) or ``sgd``."""
+    """``adam`` (b1 0.9, b2 0.999, eps 1e-8: optax's defaults) or ``sgd``.
+    For parameters on the card Adam is ``fused`` (one kernel a step) and
+    ``capturable``: its step count is a device tensor, so a CUDA graph
+    replays its update. Torch refuses both flags for CPU parameters."""
+    params = list(params)
     if name == "adam":
-        return torch.optim.Adam(params, lr=lr)
+        card = any(p.is_cuda for p in params)
+        return torch.optim.Adam(params, lr=lr, capturable=card, fused=card or None)
     if name == "sgd":
         return torch.optim.SGD(params, lr=lr)
     raise ValueError(f"Unknown optimizer {name!r}")
@@ -111,14 +120,14 @@ def _fused(model, use_pallas: bool) -> bool:
     return bool(use_pallas) and not getattr(model, "residual", False)
 
 
-def make_train_step(model, loss_fn, outer: int, siren: int, *, use_pallas: bool = False,
-                    sin5: bool = False, freeze_encoder: bool = False):
-    """Build ``step(state, fully, under, base_seed) -> loss`` (a 0-d tensor
-    on the batch's device, detached). ``state`` is updated in place."""
-    fused = _fused(model, use_pallas)
+def _make_step_body(model, loss_fn, outer: int, siren: int, *, fused: bool, sin5: bool,
+                    freeze_encoder: bool):
+    """``body(state, fully, under, seed) -> loss``: one optimizer step on
+    ``state`` with the dropout ``seed`` (an int; on the fused path also a
+    (1,) float32 tensor holding one), ``state.step`` left alone."""
     dropout_layers = [m for m in model.modules() if isinstance(m, SirenLayer)]
 
-    def forward(under: torch.Tensor, seed: int) -> torch.Tensor:
+    def forward(under: torch.Tensor, seed) -> torch.Tensor:
         if fused:
             return stk.fused_train_apply(model, under, seed, sin5=sin5)
         # module path: F.dropout-style masks from an explicit generator
@@ -133,18 +142,32 @@ def make_train_step(model, loss_fn, outer: int, siren: int, *, use_pallas: bool 
             for layer in dropout_layers:
                 layer.dropout_generator = None
 
-    def step(state: TrainState, fully: torch.Tensor, under: torch.Tensor,
-             base_seed: int) -> torch.Tensor:
+    def body(state: TrainState, fully: torch.Tensor, under: torch.Tensor, seed) -> torch.Tensor:
         target = tiling.extract_center_batch(fully, outer, siren).float()
         state.optimizer.zero_grad(set_to_none=True)
-        pred = forward(under, step_seed(base_seed, state.step))
+        pred = forward(under, seed)
         loss = loss_fn(pred.float(), target)
         loss.backward()
         if freeze_encoder:
             _freeze_encoder_grads(model)
         state.optimizer.step()
-        state.step += 1
         return loss.detach()
+
+    return body
+
+
+def make_train_step(model, loss_fn, outer: int, siren: int, *, use_pallas: bool = False,
+                    sin5: bool = False, freeze_encoder: bool = False):
+    """Build ``step(state, fully, under, base_seed) -> loss`` (a 0-d tensor
+    on the batch's device, detached). ``state`` is updated in place."""
+    body = _make_step_body(model, loss_fn, outer, siren, fused=_fused(model, use_pallas),
+                           sin5=sin5, freeze_encoder=freeze_encoder)
+
+    def step(state: TrainState, fully: torch.Tensor, under: torch.Tensor,
+             base_seed: int) -> torch.Tensor:
+        loss = body(state, fully, under, step_seed(base_seed, state.step))
+        state.step += 1
+        return loss
 
     return step
 
@@ -161,6 +184,7 @@ def make_eval_step(model, loss_fn, outer: int, siren: int, *, use_pallas: bool =
         target = tiling.extract_center_batch(fully, outer, siren).float()
         return loss_fn(apply_fn(under).float(), target)
 
+    eval_step.apply_fn = apply_fn
     return eval_step
 
 
@@ -170,6 +194,212 @@ def make_epoch_perm(n: int, batch_size: int, seed: int, shuffle: bool) -> np.nda
     from the epoch's start): shared by the host loop and the device-resident
     epoch."""
     return np.stack(epoch_index_batches(n, batch_size, seed, shuffle)).astype(np.int32)
+
+
+def epoch_seeds(base_seed: int, step0: int, num_batches: int) -> np.ndarray:
+    """The dropout seeds of train steps ``step0 .. step0 + num_batches - 1``
+    (:func:`step_seed`) as the (num_batches,) float32 array an epoch's seed
+    buffer holds (every seed is below 2^23, so exact)."""
+    return np.array([step_seed(base_seed, s) for s in range(step0, step0 + num_batches)],
+                    np.float32)
+
+
+def _launch_counters() -> tuple:
+    """The kernel wrappers whose ``launches`` a graph replay must advance."""
+    return (stk.siren_chain_train_fwd_cuda, stk.siren_chain_train_bwd_cuda,
+            sk.siren_forward_cuda, sk.siren_forward_int8_cuda)
+
+
+@dataclass
+class _Buffers:
+    """An epoch's two inputs: the permutation and the seeds, in static
+    device tensors a graph reads, staged through pinned host memory."""
+
+    host_perm: torch.Tensor
+    host_seeds: torch.Tensor
+    perm: torch.Tensor
+    seeds: torch.Tensor
+    copied: torch.cuda.Event | None = None
+
+
+@dataclass
+class _Graph:
+    graph: torch.cuda.CUDAGraph
+    loss: torch.Tensor  # the mean loss each replay writes
+    launches: tuple  # kernel launches one replay makes, per _launch_counters()
+    fingerprint: tuple  # the parameters' and the optimizer state's storage
+
+
+class ScanEpoch:
+    """``epoch(state, fully_all, under_all, perm, base_seed, train) -> loss``:
+    one epoch over device-resident tiles, the counterpart of the JAX
+    package's ``make_scan_epoch``. ``perm`` is the epoch's (num_batches,
+    batch) index matrix (:func:`make_epoch_perm`); the result is the mean
+    loss, a 0-d tensor (on the card a graph's output: read it before the next
+    epoch). A train epoch steps the optimizer once a batch and advances
+    ``state.step`` by ``num_batches``; step ``i`` of the epoch draws its
+    dropout from ``seeds[i]`` of :func:`epoch_seeds`.
+
+    On the card the fused path's epoch is one CUDA graph per (tiles, shape,
+    train flag). The first epoch of each runs eagerly on a side stream: it
+    is the warm-up torch's capture recipe asks for (Adam's state, the kernel
+    libraries and their function attributes, cuBLAS), and a real epoch. The
+    second is captured, which runs nothing, and then replayed, like every
+    later one: the host copies the permutation and the seeds into the
+    graph's static buffers, replays, and the caller reads one loss. The
+    eval graph repacks the kernel weights from the parameters inside the
+    graph, once an epoch. A capture or a replay that fails raises.
+
+    The kernel wrappers count launches in Python, which a replay does not
+    run: a capture takes back what it counted, and each replay adds the
+    launches the graph holds. A replay updates the parameters without
+    moving their ``_version`` (fused Adam does not move it either): a
+    caller that keeps a
+    :class:`~mri_inr_tpu_torch.ops.siren_kernel.WeightPack` invalidates it
+    after a train epoch (``Trainer.invalidate_packs``). A change of the
+    optimizer's state tensors (``restore_state``'s ``load_state_dict``)
+    drops the graphs; the next epoch runs eagerly again.
+
+    The module path and every epoch on the CPU run the same body as a plain
+    loop over the same buffers. The module path is not graphed: its dropout
+    draws from a ``torch.Generator`` seeded per step on the host."""
+
+    def __init__(self, model, loss_fn, outer: int, siren: int, *, use_pallas: bool = False,
+                 sin5: bool = False, freeze_encoder: bool = False, log=print):
+        self.model, self.loss_fn, self.outer, self.siren, self.log = (
+            model, loss_fn, outer, siren, log)
+        self.fused = _fused(model, use_pallas)
+        self._train_body = _make_step_body(model, loss_fn, outer, siren, fused=self.fused,
+                                           sin5=sin5, freeze_encoder=freeze_encoder)
+        self._eval_apply = make_apply_fn(model, use_pallas=use_pallas, sin5=sin5,
+                                         device=module_device(model))
+        self._buffers: dict = {}
+        self._graphs: dict = {}
+        self._warm: set = set()
+        self._said_unfused = False
+        self.captures = self.replays = 0
+        self.launch_seconds = 0.0  # host time of the last epoch up to its replay's return
+
+    # ------------------------------------------------------------------
+    def _stage(self, key, device: torch.device, perm: np.ndarray, seeds: np.ndarray):
+        bufs = self._buffers.get(key)
+        if bufs is None:
+            pin = device.type == "cuda"
+            hp = torch.empty(perm.shape, dtype=torch.int64, pin_memory=pin)
+            hs = torch.empty(seeds.shape, dtype=torch.float32, pin_memory=pin)
+            bufs = self._buffers[key] = _Buffers(
+                hp, hs, torch.empty_like(hp, device=device), torch.empty_like(hs, device=device))
+        if bufs.copied is not None:  # the last epoch's copies have left the pinned memory
+            bufs.copied.synchronize()
+        bufs.host_perm.copy_(torch.from_numpy(perm))
+        bufs.host_seeds.copy_(torch.from_numpy(seeds))
+        bufs.perm.copy_(bufs.host_perm, non_blocking=True)
+        bufs.seeds.copy_(bufs.host_seeds, non_blocking=True)
+        if device.type == "cuda":
+            bufs.copied = torch.cuda.Event()
+            bufs.copied.record()
+        return bufs
+
+    def _run(self, state, fully_all, under_all, bufs: _Buffers, seeds: np.ndarray,
+             train: bool) -> torch.Tensor:
+        """The epoch's body: the loop a graph captures."""
+        losses = []
+        packed = None
+        if not train and self.fused:
+            packed = sk.pack_weights(self.model)
+        for i in range(bufs.perm.shape[0]):
+            idx = bufs.perm[i]
+            fully = fully_all.index_select(0, idx)
+            under = under_all.index_select(0, idx)
+            if train:
+                seed = bufs.seeds[i : i + 1] if self.fused else int(seeds[i])
+                losses.append(self._train_body(state, fully, under, seed))
+                continue
+            with torch.no_grad():
+                target = tiling.extract_center_batch(fully, self.outer, self.siren).float()
+                pred = (self._eval_apply.forward(under, packed) if self.fused
+                        else self._eval_apply(under))
+                losses.append(self.loss_fn(pred.float(), target))
+        return torch.stack(losses).mean()
+
+    @staticmethod
+    def _fingerprint(state) -> tuple:
+        opt = [v.data_ptr() for st in state.optimizer.state.values() for v in st.values()
+               if isinstance(v, torch.Tensor)]
+        return (id(state.optimizer), *(p.data_ptr() for p in state.model.parameters()), *opt)
+
+    def _capture(self, key, state, fully_all, under_all, bufs, train, fingerprint) -> _Graph:
+        if torch.is_anomaly_enabled():
+            raise ValueError(
+                "anomaly detection (training.debug_nans) cannot be captured into the CUDA "
+                "graph of a device-resident epoch (training.device_data)")
+        counters = _launch_counters()
+        before = [k.launches for k in counters]
+        graph = torch.cuda.CUDAGraph()
+        if train:  # the graph's steps allocate their gradients from its pool
+            state.optimizer.zero_grad(set_to_none=True)
+        with torch.cuda.graph(graph):
+            loss = self._run(state, fully_all, under_all, bufs, None, train)
+        launches = tuple(k.launches - b for k, b in zip(counters, before))
+        for k, n in zip(counters, launches):  # recorded, not run
+            k.launches -= n
+        self.captures += 1
+        entry = self._graphs[key] = _Graph(graph, loss, launches, fingerprint)
+        return entry
+
+    def _graphed(self, key, state, fully_all, under_all, bufs, train) -> torch.Tensor:
+        fingerprint = self._fingerprint(state)
+        entry = self._graphs.get(key)
+        if entry is not None and entry.fingerprint != fingerprint:
+            self._graphs.clear()
+            self._warm.clear()
+            entry = None
+        if entry is None and key not in self._warm:
+            side = torch.cuda.Stream(fully_all.device)
+            side.wait_stream(torch.cuda.current_stream(fully_all.device))
+            with torch.cuda.stream(side):
+                loss = self._run(state, fully_all, under_all, bufs, None, train)
+            torch.cuda.current_stream(fully_all.device).wait_stream(side)
+            self._warm.add(key)
+            return loss
+        if entry is None:
+            entry = self._capture(key, state, fully_all, under_all, bufs, train, fingerprint)
+        entry.graph.replay()
+        for k, n in zip(_launch_counters(), entry.launches):
+            k.launches += n
+        self.replays += 1
+        return entry.loss
+
+    def __call__(self, state, fully_all: torch.Tensor, under_all: torch.Tensor,
+                 perm: np.ndarray, base_seed: int, train: bool) -> torch.Tensor:
+        t0 = time.perf_counter()
+        device = fully_all.device
+        nb = perm.shape[0]
+        seeds = (epoch_seeds(base_seed, state.step, nb) if train
+                 else np.zeros(nb, np.float32))
+        key = (fully_all.data_ptr(), under_all.data_ptr(), tuple(fully_all.shape),
+               tuple(perm.shape), train)
+        bufs = self._stage(key, device, perm, seeds)
+        if self.fused and device.type == "cuda":
+            loss = self._graphed(key, state, fully_all, under_all, bufs, train)
+        else:
+            if device.type == "cuda" and not self._said_unfused:
+                self.log("device_data on the module path: epochs run step by step, not as "
+                         "a CUDA graph (its dropout draws from a generator seeded per step)")
+                self._said_unfused = True
+            loss = self._run(state, fully_all, under_all, bufs, seeds, train)
+        if train:
+            state.step += nb
+        self.launch_seconds = time.perf_counter() - t0
+        return loss
+
+
+def make_scan_epoch(model, loss_fn, outer: int, siren: int, *, use_pallas: bool = False,
+                    sin5: bool = False, freeze_encoder: bool = False, log=print) -> ScanEpoch:
+    """The one-dispatch epoch over device-resident tiles (counterpart of the
+    JAX package's ``make_scan_epoch``): see :class:`ScanEpoch`."""
+    return ScanEpoch(model, loss_fn, outer, siren, use_pallas=use_pallas, sin5=sin5,
+                     freeze_encoder=freeze_encoder, log=log)
 
 
 class Trainer:
@@ -210,6 +440,9 @@ class Trainer:
         self.eval_step = make_eval_step(
             model, loss_fn, outer_patch_size, siren_patch_size, use_pallas=use_pallas,
             sin5=sin5, device=self.device)
+        self.scan_epoch = make_scan_epoch(
+            model, loss_fn, outer_patch_size, siren_patch_size, use_pallas=use_pallas,
+            sin5=sin5, freeze_encoder=freeze_encoder, log=log) if device_data else None
         self._dev_tiles: dict = {}
         # snapshot rendering shares the fused eval path when training fused
         self.reconstructor = SliceReconstructor(
@@ -230,30 +463,41 @@ class Trainer:
 
     def _epoch_loss(self, dataset, train: bool, epoch: int) -> float:
         if self.device_data and hasattr(dataset, "fully_tiles"):
-            return self._device_epoch_loss(dataset, train, epoch)
-        losses = []
-        for fully, under in dataset.batches(self.batch_size, seed=epoch, shuffle=train,
-                                            prefetch=2):
-            fully = torch.from_numpy(fully).to(self.device)
-            under = torch.from_numpy(under).to(self.device)
-            losses.append(self._run_batch(fully, under, train))
-        return float(torch.stack(losses).mean())
+            loss = self._scan_epoch_loss(dataset, train, epoch)
+        else:
+            losses = []
+            for fully, under in dataset.batches(self.batch_size, seed=epoch, shuffle=train,
+                                                prefetch=2):
+                fully = torch.from_numpy(fully).to(self.device)
+                under = torch.from_numpy(under).to(self.device)
+                losses.append(self._run_batch(fully, under, train))
+            loss = float(torch.stack(losses).mean())
+        if train:
+            self.invalidate_packs()
+        return loss
 
-    def _device_epoch_loss(self, dataset, train: bool, epoch: int) -> float:
-        """An epoch over device-resident tiles: uploaded once per dataset,
-        batches gathered on the device by the epoch's index matrix (the host
-        loop's composition), one host synchronisation at the end."""
+    def _scan_epoch_loss(self, dataset, train: bool, epoch: int) -> float:
+        """An epoch over device-resident tiles through :func:`make_scan_epoch`:
+        the tiles uploaded once per dataset, batches in the host loop's
+        composition (:func:`make_epoch_perm`), one host synchronisation."""
         key = id(dataset)
         if key not in self._dev_tiles:
             self._dev_tiles[key] = (
                 torch.from_numpy(dataset.fully_tiles).to(self.device),
                 torch.from_numpy(dataset.under_tiles).to(self.device))
         fully_all, under_all = self._dev_tiles[key]
-        perm = torch.from_numpy(
-            make_epoch_perm(len(dataset), self.batch_size, epoch, shuffle=train)
-        ).to(self.device, torch.int64)
-        losses = [self._run_batch(fully_all[idx], under_all[idx], train) for idx in perm]
-        return float(torch.stack(losses).mean())
+        perm = make_epoch_perm(len(dataset), self.batch_size, epoch, shuffle=train)
+        return float(self.scan_epoch(self.state, fully_all, under_all, perm, self.base_seed,
+                                     train))
+
+    def invalidate_packs(self) -> None:
+        """Make the validation step and the snapshots repack the kernel
+        weights; called after every train epoch, whose updates may have
+        moved no parameter's ``_version`` (a CUDA graph's replay; fused
+        Adam's kernel)."""
+        for apply_fn in (self.eval_step.apply_fn, self.reconstructor.apply_fn):
+            if hasattr(apply_fn, "pack"):
+                apply_fn.pack.invalidate()
 
     def initial_errors(self) -> tuple[float, float]:
         """Train and validation loss before training."""

@@ -126,6 +126,34 @@ def test_device_sweep_rows_come_in_sampler_order(corpus, reconstructor):
                                    rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("piece", [None, 77], ids=["one-piece", "77-patch-pieces"])
+def test_device_sweep_in_pieces_keeps_the_rows_and_their_order(corpus, monkeypatch,
+                                                               quantized, piece):
+    """Two shape groups (six 96 x 96 slices of 36 patches; three 96 x 80 of
+    30), each scored batched, whole or in pieces of at most 77 patches (two
+    slices of either shape: the three-slice group ends in a piece of one):
+    the rows of the per-slice ``evaluate_files`` within 1e-6, in the
+    sampler's order, with one forward a piece."""
+    model = ModulatedSiren(**WIDTHS, device="cpu", generator=torch.Generator().manual_seed(0))
+    rec = tev.SliceReconstructor(make_apply_fn(model, device="cpu", sin5=True,
+                                               quantized=quantized),
+                                 patch_bucket=64, device="cpu")
+    want = tev.evaluate_files(rec, MRISampler(corpus), progress_every=0)
+    if piece is not None:
+        monkeypatch.setattr(tev, "PIECE_PATCHES", piece)
+    calls = []
+    apply_fn = rec.apply_fn
+    rec.apply_fn = lambda tiles: calls.append(tiles.shape[0]) or apply_fn(tiles)
+    got, _ = tev.evaluate_files_device(rec, MRISampler(corpus), log=lambda *_: None)
+    assert [r.slice_id for r in got] == [r.slice_id for r in want]
+    for g, w in zip(got, want):
+        np.testing.assert_allclose([g.psnr, g.ssim, g.nrmse], [w.psnr, w.ssim, w.nrmse],
+                                   rtol=0, atol=1e-6)
+    sizes = sorted(calls)
+    assert sizes == ([30 * 3, 36 * 6] if piece is None else [30, 30 * 2] + [36 * 2] * 3)
+
+
 def test_metrics_chunk_matches_stack(corpus, reconstructor):
     pairs = [MRISampler(corpus, test_files=[synthetic.synthetic_stem(0)]).next_sample()
              for _ in range(2)]

@@ -26,8 +26,10 @@ from mri_inr_tpu.ops.siren_kernel import make_apply_fn as jax_make_apply_fn
 from mri_inr_tpu_torch.data.dataset import MRISampler, undersample_column
 from mri_inr_tpu_torch.data.synthetic import phantom_volume
 from mri_inr_tpu_torch.eval import evaluate as tev
+from mri_inr_tpu_torch.eval import metrics
 from mri_inr_tpu_torch.interop import load_flax_params
 from mri_inr_tpu_torch.models.modulated_siren import ModulatedSiren
+from mri_inr_tpu_torch.ops import tiling
 from mri_inr_tpu_torch.ops.siren_kernel import make_apply_fn
 
 # the test workers share the cores: one torch thread each, so no idle
@@ -169,3 +171,71 @@ def test_metrics_artifacts(tmp_path, jax_rows):
     for name in ("metrics_error.csv", "metrics_summary.txt"):
         assert (tmp_path / "port" / name).read_text() == (tmp_path / "jax" / name).read_text()
     assert tev.read_metrics_csv(tmp_path / "port" / "metrics_error.csv") == rows
+
+
+# ------------------------------------------------- batched metric stacks
+def _per_slice_rows(rec, fully, under):
+    rows = []
+    for f, u in zip(fully, under):
+        m = rec._run(f, u, metrics_only=True)
+        rows.append([float(m["psnr"]), float(m["ssim"]), float(m["nrmse"])])
+    return np.array(rows).T
+
+
+@pytest.fixture(scope="module")
+def flair_stack(corpus):
+    """The corpus's 7 FLAIR slices; the first undersampled slice's top half
+    zeroed: black patches."""
+    sampler = MRISampler(corpus)
+    pairs = [sampler.next_sample() for _ in range(len(sampler))]
+    under = np.stack([p.undersampled for p in pairs])
+    under[0, : SIZE // 2] = 0.0
+    return torch.from_numpy(np.stack([p.fully_sampled for p in pairs])), torch.from_numpy(under)
+
+
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+@pytest.mark.parametrize("piece", [None, 100, 10], ids=["one-piece", "2-slice-pieces",
+                                                         "under-a-slice"])
+def test_metrics_stack_batched_equals_per_slice_rows(flair_stack, pipelines, monkeypatch,
+                                                     quantized, piece):
+    """One forward a piece, unpadded, for the whole stack: the rows of the
+    per-slice ``_run`` (bucket-padded) within 1e-6, the stack's order kept.
+    A 96 x 96 slice has 36 patches: 7 slices are one piece of 252 patches,
+    or pieces of 2, 2, 2 and 1 slices at 100 patches a piece, or one slice a
+    piece below a slice's count. Both chains: the bf16 kernel's plain version
+    and the int8 one's."""
+    params, _, _ = pipelines
+    model = ModulatedSiren(**WIDTHS, device="cpu")
+    load_flax_params(model, params)
+    rec = tev.SliceReconstructor(make_apply_fn(model, device="cpu", sin5=True,
+                                               quantized=quantized),
+                                 patch_bucket=64, device="cpu")
+    fully, under = flair_stack
+    assert not tiling.classify_black_patches(tiling.image_to_patches(under[0], 32, 16)).all()
+    if piece is not None:
+        monkeypatch.setattr(tev, "PIECE_PATCHES", piece)
+    calls = []
+    apply_fn = rec.apply_fn
+    rec.apply_fn = lambda tiles: calls.append(tiles.shape[0]) or apply_fn(tiles)
+    got = rec.metrics_stack(fully, under).numpy()
+    want = _per_slice_rows(rec, fully, under)
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-6)
+    per = {None: 7, 100: 2, 10: 1}[piece]
+    sizes = [36 * min(per, 7 - s) for s in range(0, 7, per)]
+    assert calls[:len(sizes)] == sizes  # then the per-slice reference's padded batches
+    assert calls[len(sizes):] == [64] * 7
+
+
+def test_batched_metrics_equal_single_image_calls(flair_stack):
+    """Per-slice data ranges, means and SSIM windows: the metrics of a
+    (K, H, W) stack are those of its K single-image calls (1e-6 relative:
+    the same sums, reduced over a stack's last two dimensions)."""
+    fully, under = flair_stack
+    pred = under * 0.9 + 0.05 * fully  # a second image per slice, ranges unlike the gt's
+    batched = metrics.image_metrics(fully, pred)
+    for name, values in batched.items():
+        assert values.shape == (7,)
+        single = torch.stack([metrics.image_metrics(f, p)[name] for f, p in zip(fully, pred)])
+        np.testing.assert_allclose(values.numpy(), single.numpy(), rtol=1e-6, atol=0,
+                                   err_msg=name)
+    assert len({round(float(v), 3) for v in metrics.joint_data_range(fully, pred)}) > 1

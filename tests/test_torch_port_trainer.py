@@ -127,6 +127,24 @@ def test_optimizers_match_optax_on_one_gradient_sequence(name):
         ttrainer.make_optimizer("lion", 1e-3, [tp])
 
 
+def test_the_card_tests_adam_reference_is_optax():
+    """tests/test_torch_port_graph_cuda.py holds Adam on the card (where no
+    JAX is installed) to optax's update written out in float32 numpy; here
+    that transcription is held to optax itself on the same gradient
+    sequence, within 1e-7 (measured 6e-8)."""
+    import test_torch_port_graph_cuda as graph_cuda
+
+    p0, grads = graph_cuda.gradient_sequence()
+    tx = jtrainer.make_optimizer("adam", 1e-3)
+    jp = jnp.asarray(p0)
+    jst = tx.init(jp)
+    for g in grads:
+        upd, jst = tx.update(jnp.asarray(g), jst, jp)
+        jp = optax.apply_updates(jp, upd)
+    np.testing.assert_allclose(graph_cuda.optax_adam_f32(p0, grads), np.asarray(jp), rtol=0,
+                               atol=1e-7)
+
+
 def test_step_seed_is_a_pure_function_in_range():
     seeds = [ttrainer.step_seed(1, s) for s in range(200)]
     assert seeds == [ttrainer.step_seed(1, s) for s in range(200)]
@@ -219,6 +237,140 @@ def test_eval_step_follows_sin5_and_runs_without_dropout(datasets):
     assert a != float(ev9(state, fully, under))
     assert abs(float(evm(state, fully, under)) - float(ev9(state, fully, under))) < 1e-2
     assert all(p.grad is None for p in model.parameters())
+
+
+# ------------------------------------------------------ make_scan_epoch
+def _tiles(dataset):
+    return torch.from_numpy(dataset.fully_tiles), torch.from_numpy(dataset.under_tiles)
+
+
+@pytest.mark.parametrize("use_pallas", [True, False], ids=["fused", "module"])
+def test_scan_epoch_equals_the_per_step_loop(datasets, use_pallas):
+    """The epoch's CPU loop (the body a CUDA graph captures on the card) and
+    the per-step functions over the same batches: two train epochs with
+    dropout 0.1 and Adam, then a validation epoch; losses and parameters
+    bit for bit (the same operations on the same values: the seed buffer
+    holds the per-step seeds exactly, and the eval body packs the weights as
+    ``WeightPack`` does)."""
+    train, val = datasets
+
+    def state_of():
+        model = _model(dropout=0.1)
+        return model, ttrainer.create_train_state(model, "adam", 1e-3)
+
+    model_a, state_a = state_of()
+    epoch = ttrainer.make_scan_epoch(model_a, tlosses.mse, 32, 24, use_pallas=use_pallas,
+                                     sin5=True)
+    model_b, state_b = state_of()
+    step = ttrainer.make_train_step(model_b, tlosses.mse, 32, 24, use_pallas=use_pallas,
+                                    sin5=True)
+    ev = ttrainer.make_eval_step(model_b, tlosses.mse, 32, 24, use_pallas=use_pallas, sin5=True,
+                                 device="cpu")
+    got, want = [], []
+    for e, (dataset, is_train) in enumerate([(train, True), (train, True), (val, False)]):
+        fully_all, under_all = _tiles(dataset)
+        perm = ttrainer.make_epoch_perm(len(dataset), 32, e, shuffle=is_train)
+        got.append(float(epoch(state_a, fully_all, under_all, perm, 7, is_train)))
+        losses = []
+        for idx in torch.from_numpy(perm).long():
+            f, u = fully_all[idx], under_all[idx]
+            losses.append(step(state_b, f, u, 7) if is_train else ev(state_b, f, u))
+        want.append(float(torch.stack(losses).mean()))
+    assert got == want
+    assert state_a.step == state_b.step == 2 * -(-len(train) // 32)
+    assert np.array_equal(_flat(model_a), _flat(model_b))
+    assert epoch.captures == epoch.replays == 0  # no graph on the CPU
+
+
+@pytest.mark.parametrize("sin5", [True, False], ids=["sin5", "deg9"])
+def test_scan_epoch_matches_jax(sin5):
+    """One 3-step epoch (48 tiles, batch 16, shuffled) against the JAX
+    package's ``make_scan_epoch(use_pallas=True, interpret=True)``, dropout
+    0, SGD at lr 1e-3: the bars of test_three_sgd_steps_match_jax (mean loss
+    1e-5, parameters 1e-6)."""
+    data = np.random.default_rng(1)
+    fully = data.uniform(size=(48, 32, 32)).astype(np.float32)
+    under = data.uniform(size=(48, 32, 32)).astype(np.float32)
+    perm = ttrainer.make_epoch_perm(48, 16, 0, shuffle=True)
+    assert perm.shape == (3, 16)
+    jm = JaxModel(dropout=0.0, **WIDTHS)
+    jstate = jtrainer.create_train_state(jm, jax.random.key(0), jnp.zeros((4, 32, 32)),
+                                         "sgd", 1e-3)
+    tm = _model(dropout=0.0)
+    load_flax_params(tm, jax.device_get(jstate.params))
+    tstate = ttrainer.create_train_state(tm, "sgd", 1e-3)
+    jepoch = jtrainer.make_scan_epoch(jm, jlosses.mse, 32, 24, use_pallas=True,
+                                      interpret=True, sin5=sin5)
+    jstate, jloss = jepoch(jstate, jnp.asarray(fully), jnp.asarray(under), jnp.asarray(perm),
+                           jax.random.key(1), True)
+    tepoch = ttrainer.make_scan_epoch(tm, tlosses.mse, 32, 24, use_pallas=True, sin5=sin5)
+    tloss = tepoch(tstate, torch.from_numpy(fully), torch.from_numpy(under), perm, 1, True)
+    assert abs(float(tloss) - float(jloss)) <= 1e-5
+    assert tstate.step == int(jstate.step) == 3
+    want = params_from_flax(jax.device_get(jstate.params))
+    for name, p in tm.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), rtol=0,
+                                   atol=1e-6, err_msg=name)
+
+
+def test_epoch_seed_buffer_follows_step_seed_across_a_resume(datasets, tmp_path):
+    """The seed buffer of each train epoch holds ``step_seed(base, s)`` for
+    its steps; a run restored from a checkpoint continues the stream where
+    it stopped, and ends where a straight run ends (bit for bit)."""
+    train, _ = datasets
+    nb = -(-len(train) // 32)
+    assert np.array_equal(ttrainer.epoch_seeds(5, 3, 4),
+                          np.array([ttrainer.step_seed(5, s) for s in range(3, 7)], np.float32))
+
+    def seeds_of(trainer):
+        (bufs,) = [b for k, b in trainer.scan_epoch._buffers.items() if k[-1]]
+        return bufs.seeds.tolist()
+
+    straight = _trainer(datasets, tmp_path / "a", device_data=True)
+    seen = []
+    for e in range(2):
+        straight._epoch_loss(train, train=True, epoch=e)
+        seen.append(seeds_of(straight))
+    base = straight.base_seed
+    assert seen == [[ttrainer.step_seed(base, s) for s in range(e * nb, (e + 1) * nb)]
+                    for e in range(2)]
+
+    first = _trainer(datasets, tmp_path / "b", device_data=True)
+    first._epoch_loss(train, train=True, epoch=0)
+    tckpt.save_state(tmp_path / "b", first.state.step, first.state)
+    resumed = _trainer(datasets, tmp_path / "c", device_data=True)
+    tckpt.restore_state(tmp_path / "b", nb, resumed.state)
+    resumed._epoch_loss(train, train=True, epoch=1)
+    assert seeds_of(resumed) == seen[1]
+    assert resumed.state.step == straight.state.step == 2 * nb
+    assert np.array_equal(_flat(resumed.model), _flat(straight.model))
+
+
+def test_post_epoch_invalidation_repacks_after_an_update_that_keeps_versions(datasets,
+                                                                            tmp_path):
+    """A CUDA graph's replay updates the parameters in place without moving
+    their ``_version``, as ``p.data.add_`` does. ``WeightPack`` then keeps
+    the old packed weights; the trainer's invalidation after a train epoch
+    makes validation (and the snapshots) repack: the validation loss equals
+    a fresh ``make_apply_fn``'s, bit for bit."""
+    _, val = datasets
+    t = _trainer(datasets, tmp_path / "run")
+    fully, under = (torch.from_numpy(a) for a in next(val.batches(32, seed=0)))
+    before = float(t.eval_step(t.state, fully, under))
+    versions = [p._version for p in t.model.parameters()]
+    with torch.no_grad():  # the packed weights: the SIREN's and the modulator's
+        for p in [*t.model.net.parameters(), *t.model.modulator.parameters()]:
+            p.data.add_(0.01)
+    assert [p._version for p in t.model.parameters()] == versions
+    fresh = ttrainer.make_eval_step(t.model, tlosses.mse, 32, 24, use_pallas=True, sin5=True,
+                                    device="cpu")
+    want = float(fresh(t.state, fully, under))
+    assert float(t.eval_step(t.state, fully, under)) != want  # stale without it
+    t.invalidate_packs()
+    after = float(t.eval_step(t.state, fully, under))
+    assert after == want and after != before
+    pack = t.reconstructor.apply_fn.pack
+    assert pack._key is None  # the snapshots repack too
 
 
 # ---------------------------------------------------------------- Trainer
