@@ -55,7 +55,21 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    directory phase 8 left: ``data.quantized=true`` over the 16 slices, its
    rows against a bf16 run of the same command and two slices against the
    CPU run through the plain int8 version;
-10. times with CUDA events (warm-up, then the median): every kernel and its
+10. the autoencoder-pretraining path on the phase-4 slices at
+   configs/train.yaml's width (H=256, L=5, latent 256, batch 400):
+   ``train_encoder --model conv`` for 2 epochs, ``--evaluate`` on its
+   ``_full`` file (one slice again on the CPU); the train CLI with that
+   ``model.encoder_path`` (the spliced encoder equals the autoencoder's
+   before the first step, then 2 graphed epochs whose loss falls);
+   ``train_encoder --model vgg`` (at ``--lr 1e-4``, see ``AE_LR``) and
+   ``--model perceptual`` for 1 epoch each, the train CLI with ``encoder_type=vgg`` on the VGG file and with
+   ``criterion=perceptual`` on the perceptual file for 2 epochs each, and
+   with ``data.low_memory=true`` for 1 epoch (step by step); each run's
+   initial validation loss against the same model's on the CPU through the
+   plain versions (1e-3 relative; where bf16 rounding alone parts them
+   further, as in the VGG run, 1e-3 in fp32 on both sides and 1e-2 in
+   bf16); autoencoder epochs/s and the VGG and perceptual runs' steps/s;
+11. times with CUDA events (warm-up, then the median): every kernel and its
    plain version per call, for the DFT also the ``torch.fft`` route, for the
    backward also its chain and weight-gradient kernels apart (device time
    from ``torch.profiler``), one volume's preprocessing, the steady bf16 and
@@ -893,6 +907,209 @@ def quantized_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path,
     return {"launches": n_int8}
 
 
+# --------------------------------------------------------------- phase 10
+AE_EPOCHS = {"conv": 2, "vgg": 1, "perceptual": 1}
+# The VGG autoencoder's rate. One epoch of its 13 ReLU convs (no
+# normalisation) at train_encoder's default 1e-3 left trunk features of mean
+# 3e-4 to 2.4e8 over seeds 0-7, and 0.16 to 1.27 over six runs of seed 0
+# (cuDNN's backward does not repeat bit for bit). Above a mean of about 1 the
+# SIREN's modulations reach 60 to 110, where its forward is ill-posed (the
+# plain version moves by up to 2 when the modulations move by 1e-6), and the
+# spliced run does not train in its 32 steps, through the kernels and
+# through their plain versions alike: 5 of those 14 runs
+# (scripts/torch_vgg_splice_probe.py). At 1e-4 the features of seeds 0-7
+# kept a mean of at most 0.12 and every spliced run trained.
+AE_LR = {"vgg": "1e-4"}
+# each train run's initial validation loss, card (CUDA kernels, cuDNN) against
+# the CPU (plain versions), relative; TF32 is off. A run whose bf16 rounding
+# alone puts the two further apart (the VGG run: its 13 bf16 convs put the
+# latent 6.3e-3 from float64 on the CPU, and one run's loss read 2.55e-3 from
+# the CPU's on an H100) is held at the bar in fp32 on both sides, and its
+# bf16 gap at BF16_DEEP_BAR
+INITIAL_LOSS_BAR = 1e-3
+BF16_DEEP_BAR = 1e-2
+
+
+def initial_val_loss(pkg, argv: list[str], device, *extra: str) -> float:
+    """The validation half of ``Trainer.initial_errors`` for the train CLI
+    command ``argv`` (and ``extra`` overrides), with the same seeded model,
+    splice, loss and data, on ``device`` (the CPU: the plain versions)."""
+    cli, tr = pkg["cli_train"], pkg["trainer"]
+    sets = [argv[i + 1] for i, a in enumerate(argv) if a == "--set"] + list(extra)
+    cfg = pkg["config"].load_train_configuration(REPO / "configs" / "train.yaml", sets)
+    tcfg, mcfg, dcfg = cfg.training, cfg.model, cfg.data
+    dev = torch.device(device)
+    model = cli.build_model(cfg, dev, log=lambda *_: None)
+    use_pallas = tcfg.use_pallas if tcfg.use_pallas is not None else mcfg.use_pallas
+    with tempfile.TemporaryDirectory() as run:
+        t = tr.Trainer(model, tr.create_train_state(model, tcfg.optimizer, tcfg.lr),
+                       cli.build_loss_fn(cfg, dev), None, cli._dataset(dcfg.val, dcfg, mcfg),
+                       run, batch_size=tcfg.batch_size, use_pallas=use_pallas, sin5=tcfg.sin5,
+                       device=dev, log=lambda *_: None)
+        return t._epoch_loss(t.val_dataset, train=False, epoch=0)
+
+
+def pretraining_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path,
+                     val_meta: pathlib.Path, card: str) -> dict:
+    """The autoencoder-pretraining path and the train CLI runs its files
+    feed, the low-memory dataset beside them."""
+    te, cli, stk, sk = pkg["train_encoder"], pkg["cli_train"], pkg["stk"], pkg["sk"]
+    t_phase = time.perf_counter()
+    counters = (stk.siren_chain_train_fwd_cuda, stk.siren_chain_train_bwd_cuda,
+                sk.siren_forward_cuda)
+    for k in counters:
+        k.launches = 0
+    files, ae = {}, {}
+    for name, epochs in AE_EPOCHS.items():
+        out = tmp / "ae" / name
+        lr = ["--lr", AE_LR[name]] if name in AE_LR else []
+        res = te.main(["--dataset", str(meta), "--output", str(out), "--model", name,
+                       "--epochs", str(epochs), *lr])
+        check(bool(np.isfinite(res["losses"]).all()), f"{name} autoencoder loss {res['losses']}")
+        files[name] = te.checkpoint_paths(out, name, epochs - 1)
+        check(all(f.is_file() for f in files[name]), f"{name} autoencoder files")
+        ae[name] = res
+    vgg_ae = te.build_autoencoder("vgg", device=device)[0]
+    vgg_ae.load_state_dict(torch.load(files["vgg"][1], map_location=device, weights_only=True))
+    tiles = torch.from_numpy(pkg["dataset"].MRIDataset(meta).fully_tiles[:TRAIN_BATCH])
+    with torch.no_grad():
+        feats = vgg_ae.trunk(tiles.to(device))
+    print(f"vgg autoencoder's trunk features on {TRAIN_BATCH} train tiles: mean "
+          f"{float(feats.mean()):.6f}, max {float(feats.max()):.6f} (a mean above about 1 "
+          "puts the spliced SIREN where it cannot train; see AE_LR)")
+    del vgg_ae, feats
+    conv_losses = ae["conv"]["losses"]
+    check(conv_losses[1] < conv_losses[0], f"conv autoencoder loss did not fall: {conv_losses}")
+    rows = te.main(["--dataset", str(meta), "--output", str(tmp / "ae_eval"), "--model", "conv",
+                    "--evaluate", str(files["conv"][1]), "--num-samples", "2"])
+    cpu_rows = te.main(["--dataset", str(meta), "--output", str(tmp / "ae_eval_cpu"),
+                        "--model", "conv", "--evaluate", str(files["conv"][1]),
+                        "--num-samples", "1", "--device", "cpu"])
+    check((tmp / "ae_eval" / "ae_metrics.csv").is_file(), "ae_metrics.csv missing")
+    check(all(np.isfinite(list(m.values())).all() for _, m in rows), "non-finite AE metrics")
+    dpsnr = abs(rows[0][1]["psnr"] - cpu_rows[0][1]["psnr"])
+    print("train_encoder --evaluate (conv, 2 epochs): " + "; ".join(
+        f"{sid} PSNR {m['psnr']:.4f} SSIM {m['ssim']:.4f} NRMSE {m['nrmse']:.4f}"
+        for sid, m in rows) + f"; card vs CPU on {cpu_rows[0][0]}: |dPSNR| {dpsnr:.2e} "
+        "(<= 1e-3) dB")
+    check(dpsnr <= 1e-3, "autoencoder evaluation: card and CPU disagree")
+
+    base = ["--config", str(REPO / "configs" / "train.yaml"),
+            "--set", f"data.train.dataset={meta}", "--set", f"data.val.dataset={val_meta}",
+            "--set", "training.save_interval=1000", "--set", "training.device_data=true"]
+
+    def argv(name, epochs, *extra):
+        sets = [f"training.output_dir={tmp / 'pretrain_out'}", f"training.output_name={name}",
+                f"training.epochs={epochs}", *extra]
+        return base + [x for item in sets for x in ("--set", item)]
+
+    runs = {
+        "conv": (2, f"model.encoder_path={files['conv'][0]}"),
+        "vgg": (2, "model.encoder_type=vgg", f"model.encoder_path={files['vgg'][0]}"),
+        "perceptual": (2, "training.criterion=perceptual",
+                       f"training.perceptual_encoder_path={files['perceptual'][0]}"),
+        "low_memory": (1, "data.low_memory=true"),
+    }
+    # the CPU's initial validation losses, in a thread beside the card's runs
+    # (they need only the autoencoders' files)
+    cpu_pool = ThreadPoolExecutor(1)
+    cpu_futures = {name: cpu_pool.submit(initial_val_loss, pkg, argv(name, epochs, *extra), "cpu")
+                   for name, (epochs, *extra) in runs.items()}
+    # the splice, before the first step: the SIREN's encoder is the autoencoder's
+    spliced = cli.main(argv("conv_splice", 0, *runs["conv"][1:]))
+    want = torch.load(files["conv"][0], map_location="cpu", weights_only=True)
+    for k, v in spliced.model.encoder.encoder.state_dict().items():
+        check(torch.equal(v.cpu(), want[f"encoder.{k}"]), f"spliced encoder {k}")
+    trainers = {name: cli.main(argv(name, epochs, *extra))
+                for name, (epochs, *extra) in runs.items()}
+    torch.cuda.synchronize()
+    fwd_n, bwd_n, eval_n = (k.launches for k in counters)
+    steps = sum(t.state.step for t in trainers.values())
+    print(f"pretraining path: autoencoders {', '.join(f'{n} {e} epoch(s)' for n, e in AE_EPOCHS.items())}"
+          f"; train CLI runs {', '.join(f'{n} {t.state.step} steps' for n, t in trainers.items())}"
+          f" -> train fwd launches {fwd_n}, train bwd launches {bwd_n}, eval forward launches "
+          f"{eval_n}; CUDA graphs (captures, replays): " + ", ".join(
+              f"{n} ({t.scan_epoch.captures}, {t.scan_epoch.replays})"
+              for n, t in trainers.items()))
+    check(fwd_n == bwd_n == steps, f"train kernel launches {fwd_n} / {bwd_n} for {steps} steps")
+    check(eval_n > 0, "no eval forward launch on the pretraining path")
+    for name in ("conv", "vgg", "perceptual"):
+        t = trainers[name]
+        check(t.scan_epoch.replays > 0, f"{name}: no graph replay")
+        first, last = t.initial_losses[0], t._progress[-1]["train_loss"]
+        check(last < first, f"{name}: train loss {last} not below the initial {first}")
+    check(trainers["low_memory"].scan_epoch.replays == 0 and
+          type(trainers["low_memory"].train_dataset).__name__ == "MRIDatasetLowMemory",
+          "the low-memory run did not run step by step")
+    enc = trainers["vgg"].model.encoder.encoder
+    check(type(enc).__name__ == "VGGEncoder", "vgg run without a VGG encoder")
+
+    # each run's initial validation loss against the CPU's (the splice run and
+    # the conv run start from the same model)
+    cpu_val = {name: f.result() for name, f in cpu_futures.items()}
+    cpu_pool.shutdown()
+    relative = lambda a, b: abs(a - b) / abs(b)
+    for name, t in [("conv_splice", spliced), *trainers.items()]:
+        run = name.replace("_splice", "")
+        card_val, want_val = t.initial_losses[1], cpu_val[run]
+        rel = relative(card_val, want_val)
+        print(f"{name}: initial validation loss card {card_val:.8f}, CPU {want_val:.8f}, "
+              f"relative {rel:.2e} (<= {INITIAL_LOSS_BAR:g}); losses " + "; ".join(
+                  f"epoch {r['epoch']} train {r['train_loss']:.6f} val {r['val_loss']:.6f}"
+                  for r in t._progress))
+        if rel > INITIAL_LOSS_BAR and name != "conv_splice":
+            fp32 = argv(run, runs[run][0], *runs[run][1:])
+            card32, cpu32 = (initial_val_loss(pkg, fp32, d, "training.precision=fp32")
+                             for d in (device, "cpu"))
+            print(f"{name} in fp32: card {card32:.8f}, CPU {cpu32:.8f}, relative "
+                  f"{relative(card32, cpu32):.2e} (<= {INITIAL_LOSS_BAR:g}); the bf16 gap "
+                  f"{rel:.2e} (<= {BF16_DEEP_BAR:g}); the CPU's bf16 loss is "
+                  f"{relative(want_val, cpu32):.2e} from its fp32 loss")
+            check(relative(card32, cpu32) <= INITIAL_LOSS_BAR and rel <= BF16_DEEP_BAR,
+                  f"{name}: initial validation loss card vs CPU")
+        else:
+            check(rel <= INITIAL_LOSS_BAR, f"{name}: initial validation loss card vs CPU")
+    pretrain_seconds = time.perf_counter() - t_phase
+
+    # rates, after the counts were read
+    for name, res in ae.items():
+        secs = res["epoch_seconds"]
+        print(f"train_encoder --model {name}: {len(secs)} epoch(s) of "
+              f"{res['steps_per_epoch']} steps at batch 256, last epoch {secs[-1]:.4f} s = "
+              f"{1 / secs[-1]:.3f} epochs/s (the first epoch includes cuDNN's first calls) "
+              f"[{card}]")
+    for name in ("vgg", "perceptual"):
+        t = trainers[name]
+        n = -(-len(t.train_dataset) // t.batch_size)
+        secs = []
+        for epoch in range(2, 5):  # replays of the run's train graph
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            t._epoch_loss(t.train_dataset, train=True, epoch=epoch)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+        med = statistics.median(secs)
+        print(f"train CLI run {name}: a graphed train epoch ({n} steps of {t.batch_size}) "
+              f"{med * 1e3:.4f} ms, median of 3 = {n / med:.2f} steps/s; its CLI epochs "
+              f"(eager; capture + replay, with validation) " + ", ".join(
+                  f"{r['epoch_seconds']:.4f} s" for r in t._progress) + f" [{card}]")
+        # where a step's device time goes: one more replayed epoch, profiled
+        prof = profile_device(lambda: t._epoch_loss(t.train_dataset, train=True, epoch=5),
+                              reps=1)
+        if prof is None:
+            print(f"train CLI run {name}: device time by kernel not measured (no device "
+                  "activity recorded)")
+            continue
+        print(f"train CLI run {name}, a graphed epoch under the profiler: wall "
+              f"{prof['wall_ms']:.4f} ms, device busy {prof['busy_ms']:.4f} ms; top kernels "
+              f"per step [{card}]:")
+        for kname, ms_ in prof["kernels"][:6]:
+            print(f"  {ms_ / n:8.4f} ms  {kname[:110]}")
+    print(f"pretraining phase: {pretrain_seconds:.1f} s up to the checks, "
+          f"{time.perf_counter() - t_phase:.1f} s with the rates")
+    return {"fwd": fwd_n, "bwd": bwd_n, "eval": eval_n}
+
+
 def time_train_steps(pkg, device) -> dict:
     """One whole train step at the width and batch of configs/train.yaml:
     fused kernels, and the module path under autograd for comparison."""
@@ -1115,6 +1332,7 @@ def main() -> int:
     from mri_inr_tpu_torch.cli import preprocess as cli_preprocess
     from mri_inr_tpu_torch.cli import test as cli_test
     from mri_inr_tpu_torch.cli import train as cli_train
+    from mri_inr_tpu_torch.cli import train_encoder
     from mri_inr_tpu_torch.configuration import config
     from mri_inr_tpu_torch.data import dataset, kspace, preprocessing, synthetic
     from mri_inr_tpu_torch.eval import evaluate as ev
@@ -1147,7 +1365,8 @@ def main() -> int:
 
     pkg = dict(config=config, dataset=dataset, synthetic=synthetic, preprocessing=preprocessing,
                ev=ev, ms=ms, sk=sk, stk=stk, fk=fk, cli_train=cli_train, cli_test=cli_test,
-               cli_preprocess=cli_preprocess, losses=losses, trainer=trainer,
+               cli_preprocess=cli_preprocess, train_encoder=train_encoder, losses=losses,
+               trainer=trainer,
                visualization=visualization, profiling=profiling)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
@@ -1158,6 +1377,7 @@ def main() -> int:
         graph_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card)
         trn = train_path(pkg, tmp, device, pre["meta"], pre["val_meta"])
         qnt = quantized_path(pkg, tmp, device, pre["meta"], trn["run_dir"])
+        ptr = pretraining_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card)
         time_preprocessing(pkg, tmp, device, card)
 
     # ---- eval forward kernel
@@ -1175,7 +1395,7 @@ def main() -> int:
         2 * batch * seq * hidden * hidden * (layers - 1),
         nbytes_of(*args) + batch * seq * 4, card,
         f32_ops=siren_f32_ops(batch * seq, hidden, layers, "eval"),
-        launches_train_path=trn["eval"])]
+        launches_train_path=trn["eval"], launches_pretraining_path=ptr["eval"])]
     print(f"evaluate_files_device steady: bf16 chain {e2e['bf16_slices_per_sec']:.2f} "
           f"slices/s, int8 chain {e2e['int8_slices_per_sec']:.2f} slices/s "
           f"({VOLUMES * SLICES_PER_VOLUME} slices in {e2e['pieces']} batched piece(s), median "
@@ -1209,7 +1429,8 @@ def main() -> int:
         cuda_median_ms(lambda: stk.siren_chain_train_fwd_reference(*targs, **tkw), reps=5,
                        warmup=1),
         2 * chain, nbytes_of(*targs) + TRAIN_BATCH * seq * 4, card,
-        f32_ops=siren_f32_ops(TRAIN_BATCH * seq, hidden, layers, "train_fwd")))
+        f32_ops=siren_f32_ops(TRAIN_BATCH * seq, hidden, layers, "train_fwd"),
+        launches_pretraining_path=ptr["fwd"]))
     grads = stk.siren_chain_train_bwd_cuda(*targs, cot, **tkw)
     parts = bwd_parts_ms(lambda: stk.siren_chain_train_bwd_cuda(*targs, cot, **tkw), card)
     # the gradient needs the forward's product, dW and dx per hidden layer:
@@ -1223,7 +1444,8 @@ def main() -> int:
                        reps=5, warmup=1),
         6 * chain, nbytes_of(*targs, cot, *grads), card,
         executed_flops=2 * chain * (3 * layers - 4 + layers - 1) // (layers - 1),
-        f32_ops=siren_f32_ops(TRAIN_BATCH * seq, hidden, layers, "train_bwd"), **parts))
+        f32_ops=siren_f32_ops(TRAIN_BATCH * seq, hidden, layers, "train_bwd"),
+        launches_pretraining_path=ptr["bwd"], **parts))
 
     # ---- DFT kernel: the preprocessing call (inverse, magnitude) at one
     # fastMRI brain volume; the other shapes beside it

@@ -6,9 +6,9 @@ imports nothing of JAX or of the reference package. Module names mirror the
 reference's (``ops/siren_kernel.py`` here ports ``mri_inr_tpu/ops/
 siren_kernel.py``, and so on), so each counterpart is easy to find.
 
-This slice ports the evaluation path: conv encoder -> modulator -> fused
-SIREN forward (a hand-written CUDA kernel, ``ops/csrc/siren_forward.cu``)
--> weighted overlap-add fold -> PSNR / SSIM / NRMSE.
+It covers evaluation, training, preprocessing, the quantised evaluation and
+the autoencoder pretraining (``cli/``), with every TPU kernel of the JAX
+package as a hand-written CUDA kernel under ``ops/csrc/``.
 
 Entry points run on the card (``cuda``) unless the caller passes
 ``device="cpu"``; without a card and without that argument they raise.

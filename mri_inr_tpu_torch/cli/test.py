@@ -40,7 +40,7 @@ from mri_inr_tpu_torch.utils.device import resolve_device
 
 
 def _reject_unported(cfg) -> None:
-    ecfg, mcfg = cfg.data, cfg.model
+    ecfg = cfg.data
     if ecfg.online:
         raise NotImplementedError(
             "data.online (the online k-space pipeline) is not ported yet "
@@ -49,9 +49,6 @@ def _reject_unported(cfg) -> None:
         raise NotImplementedError(
             "data.halo_fold (the distributed fold over a device mesh) is not ported "
             "yet (ROADMAP queue 1, item 17)")
-    if mcfg.encoder_type == "vgg":
-        raise NotImplementedError(
-            "encoder_type=vgg is not ported yet (ROADMAP queue 1, item 15)")
 
 
 def _restore(model: torch.nn.Module, model_path: pathlib.Path) -> str:

@@ -8,7 +8,12 @@ snapshots.
         [--set training.epochs=10] [--set training.lr=3e-4] [--device cpu|cuda]
 
 The default device is ``cuda`` and a missing card raises; ``--device cpu``
-runs the kernels' plain PyTorch versions.
+runs the kernels' plain PyTorch versions. ``model.encoder_path`` takes a file
+of ``python -m mri_inr_tpu_torch.cli.train_encoder`` (``--model conv`` for
+the ``custom`` encoder, ``--model vgg`` for ``encoder_type=vgg``, whose trunk
+only is spliced); ``criterion=perceptual`` takes ``--model perceptual``'s
+file as ``training.perceptual_encoder_path``. ``data.low_memory`` trains on
+``MRIDatasetLowMemory``, step by step.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 import yaml
 
 from mri_inr_tpu_torch.configuration import config as config_lib
-from mri_inr_tpu_torch.data.dataset import MRIDataset
+from mri_inr_tpu_torch.data.dataset import MRIDataset, MRIDatasetLowMemory
 from mri_inr_tpu_torch.models import modulated_siren as ms
 from mri_inr_tpu_torch.train import checkpoint as ckpt_lib
 from mri_inr_tpu_torch.train import losses
@@ -32,43 +37,62 @@ from mri_inr_tpu_torch.utils.profiling import device_trace
 
 
 def _reject_unported(cfg) -> None:
-    tcfg, mcfg, dcfg = cfg.training, cfg.model, cfg.data
+    tcfg, dcfg = cfg.training, cfg.data
     if dcfg.train.online or dcfg.val.online:
         raise NotImplementedError(
             "data.*.online (the online k-space pipeline) is not ported yet "
             "(ROADMAP queue 1, item 13)")
-    if dcfg.low_memory:
-        raise NotImplementedError(
-            "data.low_memory (MRIDatasetLowMemory) is not ported yet "
-            "(ROADMAP queue 1, item 14)")
-    if mcfg.encoder_type == "vgg":
-        raise NotImplementedError(
-            "encoder_type=vgg is not ported yet (ROADMAP queue 1, item 15)")
     if tcfg.data_axis_size not in (None, 1):
         raise NotImplementedError(
             "training.data_axis_size > 1 (data-parallel training) is not ported "
             "yet (ROADMAP queue 1, item 17)")
 
 
-def _load_encoder_state(path: str) -> dict:
+def _load_state(path: str, key: str) -> dict:
+    """A state dict saved by ``torch.save`` (``train_encoder``'s files)."""
     p = pathlib.Path(path)
     if p.is_dir():
         raise NotImplementedError(
-            f"model.encoder_path={path!r} is a directory (an Orbax checkpoint of "
-            "the JAX package); loading it needs the checkpoint interop tool "
-            "(ROADMAP queue 1, item 18)")
+            f"{key}={path!r} is a directory (an Orbax checkpoint of the JAX package); "
+            "loading it needs the checkpoint interop tool (ROADMAP queue 1, item 18)")
     # weights_only: an encoder checkpoint is a state dict of tensors
     state = torch.load(p, map_location="cpu", weights_only=True)
     return state.get("model", state)
 
 
-def _dataset(split, dcfg, mcfg) -> MRIDataset:
-    return MRIDataset(
+def _dataset(split, dcfg, mcfg):
+    cls = MRIDatasetLowMemory if dcfg.low_memory else MRIDataset
+    return cls(
         split.dataset, center_fraction=dcfg.center_fraction,
         acceleration=dcfg.acceleration, mri_type=split.mri_type,
         max_slice_num=split.max_slice_num, num_samples=split.num_samples,
         seed=split.seed, outer_patch_size=mcfg.outer_patch_size,
         inner_patch_size=mcfg.inner_patch_size)
+
+
+def build_model(cfg, device: torch.device, log=print):
+    """The seeded model of ``cfg`` on ``device``, with the pretrained encoder
+    of ``model.encoder_path`` spliced in."""
+    mcfg, tcfg = cfg.model, cfg.training
+    model = ms.from_config(mcfg, tcfg.precision,
+                           generator=torch.Generator().manual_seed(tcfg.seed),
+                           device=device)
+    if mcfg.encoder_path:
+        splice_pretrained_encoder(model, _load_state(mcfg.encoder_path, "model.encoder_path"))
+        log(f"loaded pretrained {mcfg.encoder_type} encoder from {mcfg.encoder_path}")
+    return model
+
+
+def build_loss_fn(cfg, device: torch.device):
+    """The criterion of ``cfg``; ``perceptual`` with the frozen encoder of
+    ``training.perceptual_encoder_path`` on ``device``."""
+    tcfg = cfg.training
+    state = None
+    if tcfg.criterion == "perceptual":
+        if not tcfg.perceptual_encoder_path:
+            raise ValueError("criterion=perceptual requires training.perceptual_encoder_path")
+        state = _load_state(tcfg.perceptual_encoder_path, "training.perceptual_encoder_path")
+    return losses.make_loss_fn(tcfg.criterion, state, cfg.model.siren_patch_size, device)
 
 
 def main(argv: list[str] | None = None) -> Trainer:
@@ -115,14 +139,9 @@ def main(argv: list[str] | None = None) -> Trainer:
     print(f"train patches: {len(train_ds)}, val patches: {len(val_ds)}")
     train_ds.write_manifest(run_dir / "processed_files.txt")
 
-    model = ms.from_config(mcfg, tcfg.precision,
-                           generator=torch.Generator().manual_seed(tcfg.seed),
-                           device=device)
-    if mcfg.encoder_path:
-        splice_pretrained_encoder(model, _load_encoder_state(mcfg.encoder_path))
-        print(f"loaded pretrained {mcfg.encoder_type} encoder from {mcfg.encoder_path}")
+    model = build_model(cfg, device)
     state = create_train_state(model, tcfg.optimizer, tcfg.lr)
-    loss_fn = losses.make_loss_fn(tcfg.criterion)
+    loss_fn = build_loss_fn(cfg, device)
 
     use_pallas = tcfg.use_pallas if tcfg.use_pallas is not None else mcfg.use_pallas
     if use_pallas and not mcfg.residual:

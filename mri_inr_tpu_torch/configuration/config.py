@@ -31,11 +31,12 @@ the port they mean:
   detection cannot run inside a CUDA graph).
 - ``training.profile_dir``: a ``torch.profiler`` trace of the training
   epochs, written there (``utils/profiling.device_trace``).
+- ``model.encoder_path`` and ``training.perceptual_encoder_path``: files
+  of ``python -m mri_inr_tpu_torch.cli.train_encoder`` (torch state dicts),
+  not the JAX package's Orbax directories.
 - ``training.data_axis_size`` (the mesh), ``training.logging``
-  (TensorBoard), ``data.*.online``, ``data.low_memory``,
-  ``criterion: perceptual``, ``encoder_type: vgg``, ``data.online`` and
-  ``data.halo_fold`` of the test config: not ported yet, the CLIs raise on
-  them.
+  (TensorBoard), ``data.*.online``, ``data.online`` and ``data.halo_fold``
+  of the test config: not ported yet, the CLIs raise on them.
 """
 
 from __future__ import annotations

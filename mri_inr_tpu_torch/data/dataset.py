@@ -8,10 +8,9 @@ undersampled) patch batches in the JAX package's order:
 :func:`epoch_index_batches` is the one definition of an epoch's batch
 composition. ``MRISampler`` shuffles the selected rows once with
 ``default_rng(42).permutation`` and serves whole slices in that order.
-Everything here is numpy; the trainer and the evaluation move data to the
-device.
-
-Not ported yet: ``MRIDatasetLowMemory`` (``ROADMAP.md``).
+``MRIDatasetLowMemory`` (``data.low_memory``) holds per-slice patch counts
+only and tiles slices per batch, through a small LRU. Everything here is
+numpy; the trainer and the evaluation move data to the device.
 """
 
 from __future__ import annotations
@@ -198,6 +197,117 @@ class MRIDataset:
         """Write the manifest of the files used (``processed_files.txt``)."""
         lines = [r["path_fullysampled"] for r in self.rows]
         pathlib.Path(path).write_text("\n".join(lines) + "\n")
+
+
+class MRIDatasetLowMemory:
+    """The low-memory dataset: row metadata and per-slice patch counts only;
+    slices are loaded, tiled and gathered per batch, with an LRU of the last
+    ``cache_slices`` tiled slices. The same interface as
+    :class:`MRIDataset` except ``fully_tiles`` / ``under_tiles``, which it
+    does not hold (so the trainer runs its epochs step by step).
+
+    Without ``filter_black`` the counts come from the metadata's height and
+    width (no file read); with it each fully sampled slice is tiled once at
+    start-up and its kept-patch indices are stored."""
+
+    def __init__(self, metadata_path: str | pathlib.Path,
+                 center_fraction: float = 0.05, acceleration: int = 6,
+                 mri_type: str | None = "Flair", max_slice_num: int | None = 10,
+                 num_samples: int | None = None, seed: int = 31415,
+                 outer_patch_size: int = 32, inner_patch_size: int = 16,
+                 cache_slices: int = 16, filter_black: bool = False):
+        self.outer_patch_size = outer_patch_size
+        self.inner_patch_size = inner_patch_size
+        self.undersampled_col = undersample_column(center_fraction, acceleration)
+        rows = _select_rows(read_metadata(metadata_path), mri_type, max_slice_num,
+                            num_samples, seed)
+        if not rows:
+            raise ValueError(f"No slices selected from {metadata_path}")
+        self.rows = rows
+        self.cache_slices = cache_slices
+        self._cache: dict[int, tuple[np.ndarray, np.ndarray]] = {}
+        self.filter_black = filter_black
+        self._keep: list[np.ndarray | None] = [None] * len(rows)
+        counts = []
+        for i, row in enumerate(rows):
+            if filter_black:
+                img = np.load(row["path_fullysampled"]).astype(np.float32)
+                tiles, _ = tile_image_np(img, outer_patch_size, inner_patch_size)
+                keep = np.flatnonzero(native.patch_means(tiles) >= BLACK_PATCH_THRESHOLD)
+                self._keep[i] = keep
+                counts.append(len(keep))
+            else:
+                nv = -(-int(row["height"]) // inner_patch_size)
+                nh = -(-int(row["width"]) // inner_patch_size)
+                counts.append(nv * nh)
+        self._offsets = np.concatenate([[0], np.cumsum(counts)])
+
+    def __len__(self) -> int:
+        return int(self._offsets[-1])
+
+    def _tiles_for(self, slice_idx: int) -> tuple[np.ndarray, np.ndarray]:
+        hit = self._cache.pop(slice_idx, None)
+        if hit is None:
+            pair = _load_pair(self.rows[slice_idx], self.undersampled_col)
+            hit = tuple(tile_image_np(img, self.outer_patch_size, self.inner_patch_size)[0]
+                        for img in (pair.fully_sampled, pair.undersampled))
+        self._cache[slice_idx] = hit  # (re)inserted as the most recent
+        while len(self._cache) > self.cache_slices:
+            self._cache.pop(next(iter(self._cache)))
+        return hit
+
+    def _kept_tiles_for(self, slice_idx: int) -> tuple[np.ndarray, np.ndarray]:
+        f, u = self._tiles_for(slice_idx)
+        keep = self._keep[slice_idx]
+        if keep is not None:
+            f, u = f[keep], u[keep]
+        return f, u
+
+    def __getitem__(self, idx: int) -> tuple[np.ndarray, np.ndarray]:
+        slice_idx = int(np.searchsorted(self._offsets, idx, "right") - 1)
+        f, u = self._kept_tiles_for(slice_idx)
+        local = idx - int(self._offsets[slice_idx])
+        return f[local], u[local]
+
+    def batches(self, batch_size: int, seed: int, shuffle: bool = True,
+                prefetch: int = 0):
+        """Batches of exactly ``batch_size`` rows, ceil(n / batch) of them,
+        the last wrapped with patches from the epoch's start. Shuffling is
+        slice-major (``default_rng(seed).shuffle`` of the slices, a slice's
+        patches kept together), so a batch touches few files; with
+        ``shuffle=False`` the epoch is :class:`MRIDataset`'s."""
+
+        def generate():
+            if len(self) == 0:
+                return
+            order = np.arange(len(self.rows))
+            if shuffle:
+                np.random.default_rng(seed).shuffle(order)
+            num_batches = max(1, -(-len(self) // batch_size))
+            emitted, have = 0, 0
+            buf_f, buf_u = [], []
+            while emitted < num_batches:
+                for slice_idx in order:
+                    if have >= batch_size or emitted >= num_batches:
+                        break
+                    f, u = self._kept_tiles_for(int(slice_idx))
+                    buf_f.append(f)
+                    buf_u.append(u)
+                    have += f.shape[0]
+                    while have >= batch_size and emitted < num_batches:
+                        cat_f, cat_u = np.concatenate(buf_f), np.concatenate(buf_u)
+                        yield cat_f[:batch_size], cat_u[:batch_size]
+                        emitted += 1
+                        buf_f, buf_u = [cat_f[batch_size:]], [cat_u[batch_size:]]
+                        have = buf_f[0].shape[0]
+
+        if prefetch > 0:
+            return prefetch_iter(generate(), depth=prefetch)
+        return generate()
+
+    get_slice = MRIDataset.get_slice
+    get_random_slice = MRIDataset.get_random_slice
+    write_manifest = MRIDataset.write_manifest
 
 
 class MRISampler:

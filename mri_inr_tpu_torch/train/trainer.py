@@ -86,26 +86,34 @@ def create_train_state(model: nn.Module, optimizer: str, lr: float) -> TrainStat
 
 
 def splice_pretrained_encoder(model: nn.Module, autoencoder_state: dict) -> nn.Module:
-    """Install a pretrained conv autoencoder's encoder (the ``encoder.``
-    subtree of its state dict) as the model's latent encoder; it is then
-    fine-tuned jointly with the SIREN. A ``trunk.`` subtree is a VGG
-    autoencoder's, which is not ported."""
+    """Install pretrained autoencoder weights into the model's latent
+    encoder; they are then fine-tuned jointly with the SIREN. A conv
+    autoencoder's state dict carries an ``encoder.`` subtree, which replaces
+    the ``custom`` encoder; a VGG autoencoder's carries a ``trunk.``
+    subtree, which replaces the ``vgg`` encoder's conv stack and leaves its
+    latent head (``fc``) as initialised. Loads are strict."""
+    enc = model.encoder.encoder
     if any(k.startswith("trunk.") for k in autoencoder_state):
-        raise NotImplementedError(
-            "the vgg encoder is not ported yet (ROADMAP queue 1, item 15)")
-    sub = {k[len("encoder."):]: v for k, v in autoencoder_state.items()
-           if k.startswith("encoder.")}
-    if not sub:
-        raise ValueError("the state dict has no 'encoder.' subtree")
-    model.encoder.encoder.load_state_dict(sub, strict=True)
+        if not hasattr(enc, "trunk"):
+            raise ValueError("a VGG autoencoder's trunk needs model.encoder_type=vgg")
+        sub, target = "trunk.", enc.trunk
+    else:
+        sub, target = "encoder.", enc
+    state = {k[len(sub):]: v for k, v in autoencoder_state.items() if k.startswith(sub)}
+    if not state:
+        raise ValueError("the state dict has no 'encoder.' or 'trunk.' subtree")
+    target.load_state_dict(state, strict=True)
     return model
 
 
 def _freeze_encoder_grads(model: nn.Module) -> None:
     """Zero the latent encoder's conv-stack gradients
     (``training.freeze_encoder``): it stays at its loaded initialisation
-    while the modulator and the SIREN train."""
-    for p in model.encoder.encoder.parameters():
+    while the modulator and the SIREN train. For the ``vgg`` encoder only
+    the trunk is frozen and its latent head (``fc``) trains, as in the JAX
+    package."""
+    enc = model.encoder.encoder
+    for p in getattr(enc, "trunk", enc).parameters():
         if p.grad is not None:
             p.grad.zero_()
 
@@ -453,6 +461,7 @@ class Trainer:
         self.initial_losses: tuple[float, float] | None = None
         self._progress: list[dict] = []
         self._start_time = time.time()
+        self._said_per_step = self._said_no_plots = False
         (self.run_dir / "snapshots").mkdir(parents=True, exist_ok=True)
 
     # ------------------------------------------------------------------
@@ -465,6 +474,10 @@ class Trainer:
         if self.device_data and hasattr(dataset, "fully_tiles"):
             loss = self._scan_epoch_loss(dataset, train, epoch)
         else:
+            if self.device_data and not self._said_per_step:
+                self.log(f"device_data: {type(dataset).__name__} holds no tiles to keep on "
+                         "the device; its epochs run step by step from host batches")
+                self._said_per_step = True
             losses = []
             for fully, under in dataset.batches(self.batch_size, seed=epoch, shuffle=train,
                                                 prefetch=2):
@@ -549,6 +562,11 @@ class Trainer:
             self._write_progress_log()
 
     def _render_snapshots(self, epoch: int):
+        if not visualization.have_matplotlib():
+            if not self._said_no_plots:
+                self.log("matplotlib is not installed: snapshot renders left out")
+                self._said_no_plots = True
+            return
         out = self.run_dir / "snapshots"
         for split, dataset in (("train", self.train_dataset), ("val", self.val_dataset)):
             for i in range(self.snapshot_slices):

@@ -17,7 +17,7 @@ preprocessed (96x96 phantom slices, H=64, L=3, a 64-patch bucket).
 - On weights transplanted from the JAX package the CLI's rows agree with the
   JAX package's ``evaluate_files`` (Pallas kernel in interpret mode) by
   ``slice_id`` within the bars of tests/test_torch_port_eval.py: PSNR 1e-3
-  dB, SSIM and NRMSE 1e-5.
+  dB, SSIM and NRMSE 1e-5; with ``encoder_type=vgg`` too, on two slices.
 """
 
 import jax
@@ -244,8 +244,7 @@ def test_cli_matches_jax_on_transplanted_weights(corpus, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(corpus, run_dir, tmp_path):
-    for extra, item in ((["data.online=true"], "item 13"), (["data.halo_fold=true"], "item 17"),
-                        (["model.encoder_type=vgg"], "item 15")):
+    for extra, item in ((["data.online=true"], "item 13"), (["data.halo_fold=true"], "item 17")):
         with pytest.raises(NotImplementedError, match=item):
             cli_test.main(_argv(corpus, run_dir, tmp_path, "no", *extra))
     with pytest.raises(NotImplementedError, match="item 17"):
@@ -253,3 +252,23 @@ def test_cli_refuses_what_is_not_ported(corpus, run_dir, tmp_path):
     (tmp_path / "orbax_like").mkdir()
     with pytest.raises(NotImplementedError, match="item 18"):
         cli_test.main(_argv(corpus, tmp_path / "orbax_like", tmp_path, "no"))
+
+
+def test_cli_vgg_encoder_matches_jax_on_transplanted_weights(corpus, tmp_path):
+    jm = JaxModel(dropout=0.0, encoder_type="vgg", **WIDTHS)
+    params = jax.device_get(jax.jit(jm.init)(jax.random.key(4), jnp.zeros((2, 32, 32)))["params"])
+    tm = ModulatedSiren(**WIDTHS, encoder_type="vgg", device="cpu")
+    load_flax_params(tm, params)
+    ckpt_lib.save_state(tmp_path / "run", 3, create_train_state(tm, "adam", 1e-4))
+    got = cli_test.main(_argv(corpus, tmp_path / "run", tmp_path, "vgg", "model.encoder_type=vgg",
+                              "data.metric_samples=2"))
+    jrec = jev.SliceReconstructor(jax_make_apply_fn(jm, interpret=True, sin5=True),
+                                  patch_bucket=64)
+    want = jev.evaluate_files(jrec, params, JaxSampler(corpus, num_samples=2), progress_every=0)
+    got, want = _by_id(got), _by_id(want)
+    assert set(got) == set(want) and len(got) == 2
+    for sid, (p, s, n) in want.items():
+        gp, gs, gn = got[sid]
+        assert abs(gp - p) <= 1e-3, sid
+        assert abs(gs - s) <= 1e-5, sid
+        assert abs(gn - n) <= 1e-5, sid

@@ -125,6 +125,13 @@ def test_from_config_full_width():
     assert len(model.net.layers) == 5
 
 
-def test_vgg_encoder_is_not_ported_yet():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LatentEncoder(encoder_type="vgg")
+def test_vgg_encoder_is_a_latent_encoder():
+    enc = LatentEncoder(latent_dim=24, encoder_type="vgg")
+    assert type(enc.encoder).__name__ == "VGGEncoder"
+    x = torch.from_numpy(np.random.default_rng(0).uniform(size=(2, 32, 32)).astype(np.float32))
+    assert enc(x).shape == (2, 24)
+    model = ModulatedSiren(dim_hidden=32, latent_dim=24, num_layers=2, encoder_type="vgg",
+                           device="cpu")
+    assert model(x).shape == (2, 24, 24)
+    with pytest.raises(ValueError, match="encoder_type"):
+        LatentEncoder(encoder_type="resnet")

@@ -19,6 +19,7 @@ from mri_inr_tpu_torch import interop
 from mri_inr_tpu_torch import native as tnative
 from mri_inr_tpu_torch.data import dataset as tds
 from mri_inr_tpu_torch.models.modulated_siren import ModulatedSiren
+from mri_inr_tpu_torch.models.perceptual import PerceptualEncoderV2
 from mri_inr_tpu_torch.train import losses as tlosses
 from mri_inr_tpu_torch.train import trainer as ttrainer
 
@@ -141,8 +142,12 @@ def test_sobel_maps_are_a_zero_padded_correlation():
 def test_make_loss_fn():
     assert tlosses.make_loss_fn("mse") is tlosses.mse
     assert tlosses.make_loss_fn("edge") is tlosses.edge_loss
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="perceptual_encoder_path"):
         tlosses.make_loss_fn("perceptual")
+    state = PerceptualEncoderV2(generator=torch.Generator().manual_seed(0)).state_dict()
+    loss = tlosses.make_loss_fn("perceptual", state)
+    x = torch.rand(2, 24, 24, generator=torch.Generator().manual_seed(1))
+    assert float(loss(x, x)) == 0.0 and float(loss(x, 1 - x)) > 0
     with pytest.raises(ValueError):
         tlosses.make_loss_fn("bogus")
 

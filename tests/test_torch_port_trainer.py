@@ -38,6 +38,7 @@ from mri_inr_tpu_torch.cli import train as cli_train
 from mri_inr_tpu_torch.data.dataset import MRIDataset
 from mri_inr_tpu_torch.interop import load_flax_params, params_from_flax
 from mri_inr_tpu_torch.models.modulated_siren import ModulatedSiren
+from mri_inr_tpu_torch.models.perceptual import PerceptualEncoderV2
 from mri_inr_tpu_torch.ops import siren_train_kernel as tstk
 from mri_inr_tpu_torch.train import checkpoint as tckpt
 from mri_inr_tpu_torch.train import losses as tlosses
@@ -208,6 +209,24 @@ def test_freeze_encoder_keeps_the_conv_stack(datasets):
     assert not torch.equal(net0, model.net.layers[1].weight)
 
 
+def test_freeze_encoder_keeps_the_vgg_trunk_and_trains_its_head(datasets):
+    """For ``encoder_type=vgg`` only the trunk is frozen; the latent head
+    trains, as the JAX package's ``_freeze_encoder_grads`` does."""
+    train, _ = datasets
+    fully, under = (torch.from_numpy(a[:8]) for a in next(train.batches(32, seed=0)))
+    model = _model(dropout=0.0, encoder_type="vgg")
+    enc = model.encoder.encoder
+    trunk0 = [p.detach().clone() for p in enc.trunk.parameters()]
+    fc0 = enc.fc.weight.detach().clone()
+    state = ttrainer.create_train_state(model, "adam", 1e-3)
+    step = ttrainer.make_train_step(model, tlosses.mse, 32, 24, use_pallas=True,
+                                    freeze_encoder=True)
+    step(state, fully, under, 1)
+    for a, b in zip(trunk0, enc.trunk.parameters()):
+        assert torch.equal(a, b)
+    assert not torch.equal(fc0, enc.fc.weight)
+
+
 def test_splice_pretrained_encoder():
     donor, model = _model(seed=5), _model(seed=0)
     ae_state = {f"encoder.{k}": v for k, v in donor.encoder.encoder.state_dict().items()}
@@ -216,8 +235,17 @@ def test_splice_pretrained_encoder():
     for a, b in zip(donor.encoder.encoder.parameters(), model.encoder.encoder.parameters()):
         assert torch.equal(a, b)
     assert not torch.equal(donor.net.layers[1].weight, model.net.layers[1].weight)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttrainer.splice_pretrained_encoder(model, {"trunk.conv.weight": torch.zeros(1)})
+    # a VGG autoencoder's trunk: only into a vgg encoder, whose fc stays
+    with pytest.raises(ValueError, match="encoder_type=vgg"):
+        ttrainer.splice_pretrained_encoder(model, {"trunk.conv_0.weight": torch.zeros(1)})
+    vgg_donor, vgg = _model(seed=5, encoder_type="vgg"), _model(seed=0, encoder_type="vgg")
+    fc0 = vgg.encoder.encoder.fc.weight.detach().clone()
+    trunk = {f"trunk.{k}": v for k, v in vgg_donor.encoder.encoder.trunk.state_dict().items()}
+    ttrainer.splice_pretrained_encoder(vgg, {**trunk, "decoder.out.weight": torch.zeros(1)})
+    for a, b in zip(vgg_donor.encoder.encoder.trunk.parameters(),
+                    vgg.encoder.encoder.trunk.parameters()):
+        assert torch.equal(a, b)
+    assert torch.equal(fc0, vgg.encoder.encoder.fc.weight)
     with pytest.raises(ValueError):
         ttrainer.splice_pretrained_encoder(model, {"decoder.w": torch.zeros(1)})
 
@@ -427,6 +455,22 @@ def test_trainer_writes_the_artifacts(datasets, tmp_path):
     assert float(rows[1]["train_loss"]) < init[0]
 
 
+def test_trainer_without_matplotlib_saves_and_leaves_the_renders_out(datasets, tmp_path,
+                                                                     monkeypatch):
+    """A machine without matplotlib (the card's) trains through a
+    save_interval epoch: the checkpoint is written, the renders are left
+    out and the log says so once."""
+    monkeypatch.setattr(ttrainer.visualization, "have_matplotlib", lambda: False)
+    logs = []
+    t = _trainer(datasets, tmp_path / "run", save_interval=1, snapshot_slices=1,
+                 log=logs.append)
+    state = t.train(2)
+    assert tckpt.find_latest_step(tmp_path / "run") == state.step
+    assert len(list((tmp_path / "run" / "checkpoints").iterdir())) == 2
+    assert not list((tmp_path / "run" / "snapshots").iterdir())
+    assert logs.count("matplotlib is not installed: snapshot renders left out") == 1
+
+
 def test_sigterm_finishes_the_epoch_and_saves(datasets, tmp_path):
     t = _trainer(datasets, tmp_path / "run")
     real = t._epoch_loss
@@ -590,15 +634,34 @@ def test_train_cli_pinned_model_path_and_fresh_start(metadata, tmp_path):
 
 @pytest.mark.parametrize("override,match", [
     ("data.train.online=true", "item 13"),
-    ("data.low_memory=true", "item 14"),
-    ("model.encoder_type=vgg", "item 15"),
-    ("training.criterion=perceptual", "item 15"),
     ("training.logging=true", "item 17"),
     ("training.data_axis_size=4", "item 17"),
 ])
 def test_train_cli_names_what_is_not_ported(metadata, tmp_path, override, match):
     with pytest.raises(NotImplementedError, match=match):
         cli_train.main(_cli_args(metadata, tmp_path / "out", "training.epochs=1", override))
+
+
+@pytest.mark.parametrize("override", ["data.low_memory=true", "model.encoder_type=vgg",
+                                      "training.criterion=perceptual"])
+def test_train_cli_runs_what_it_once_refused(metadata, tmp_path, override):
+    """The low-memory dataset, the vgg encoder and the perceptual loss (with
+    a perceptual encoder's state dict) train through the CLI."""
+    extra = [override]
+    if "perceptual" in override:
+        path = tmp_path / "perceptual.pt"
+        torch.save(PerceptualEncoderV2(generator=torch.Generator().manual_seed(0)).state_dict(),
+                   path)
+        extra.append(f"training.perceptual_encoder_path={path}")
+    batch = "training.batch_size=8" if "vgg" in override else "training.batch_size=32"
+    t = cli_train.main(_cli_args(metadata, tmp_path / "out", "training.epochs=1", batch,
+                                 *extra))
+    assert t.state.step == -(-len(t.train_dataset) // int(batch.rsplit("=", 1)[1]))
+    assert np.isfinite([t._progress[0]["train_loss"], t._progress[0]["val_loss"]]).all()
+    if "vgg" in override:
+        assert type(t.model.encoder.encoder).__name__ == "VGGEncoder"
+    if "low_memory" in override:
+        assert type(t.train_dataset).__name__ == "MRIDatasetLowMemory"
 
 
 def test_train_cli_encoder_path(metadata, tmp_path):
