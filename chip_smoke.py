@@ -42,7 +42,10 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    and parameters, bit for bit where the per-step runs repeat; then a
    graphed and a per-step epoch timed (wall, the host's time up to the
    replay) and under torch.profiler (the device's idle share, the kernels
-   counted by name against the launch counters);
+   counted by name against the launch counters); the same comparison on the
+   module path (``model.use_pallas=false``) and on a residual model, whose
+   epochs are graphed too (their dropout is the fused path's counter hash of
+   a device seed), with their steps/s graphed and per-step;
 8. the training path through the train CLI's ``main``: configs/train.yaml
    (only paths, epochs, save_interval and device_data overridden) on the 16
    slices (6,400 patches, 16 steps of batch 400 an epoch) with 4 more as
@@ -69,7 +72,22 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    plain versions (1e-3 relative; where bf16 rounding alone parts them
    further, as in the VGG run, 1e-3 in fp32 on both sides and 1e-2 in
    bf16); autoencoder epochs/s and the VGG and perceptual runs' steps/s;
-11. times with CUDA events (warm-up, then the median): every kernel and its
+11. the online k-space path (``data/online.py``) on phantom k-space
+   (320x320, texture 0.2, 16 slices a volume, made in memory: this machine
+   has no ``h5py``, so ``OnlineKspaceDataset.from_volumes``):
+   configs/train_online.yaml at its width through the train CLI's
+   ``make_trainer`` (8 train volumes, 88 slices, 88 steps an epoch, remask
+   on; 2 validation volumes, 5 slices, masks fixed) for 3 epochs: one
+   capture per dataset and mode although the undersampled tiles change each
+   epoch, ``dft2c`` once per dataset for the fully sampled tiles and once
+   per mask epoch, the graphed run against two per-step runs over host
+   batches of the same tiles (bit for bit where they repeat), new
+   undersampled tiles each epoch, the loss falling; online against offline
+   tiles on the card (2e-6); the online device sweep of configs/test.yaml's
+   model over 940 slices of 60 stems (one ``dft2c`` per image stack, no image
+   data to the host) against the offline device sweep of the same volumes
+   and two slices on the CPU;
+12. times with CUDA events (warm-up, then the median): every kernel and its
    plain version per call, for the DFT also the ``torch.fft`` route, for the
    backward also its chain and weight-gradient kernels apart (device time
    from ``torch.profiler``), one volume's preprocessing, the steady bf16 and
@@ -732,16 +750,21 @@ def train_path(pkg, tmp: pathlib.Path, device, train_meta: pathlib.Path,
 
 # ---------------------------------------------------------------- phase 7
 def graph_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path, val_meta: pathlib.Path,
-               card: str) -> dict:
+               card: str, label: str = "fused path", overrides: tuple = ()) -> dict:
     """The graphed epoch (Trainer with ``device_data``: the first epoch
     eager, then one graph replay a train and a validation epoch) against the
     per-step loop (Trainer without, batches from the host), from one seeded
     init on the train path's data; two per-step runs show how far the loop
-    repeats itself. Then one graphed epoch under torch.profiler."""
-    cfg = pkg["config"].load_train_configuration(REPO / "configs" / "train.yaml")
+    repeats itself. Then a graphed and a per-step epoch timed, and on the
+    fused path each under torch.profiler. ``overrides``: ``--set`` items of
+    configs/train.yaml (the module path: ``model.use_pallas=false``, or a
+    residual model)."""
+    cfg = pkg["config"].load_train_configuration(REPO / "configs" / "train.yaml",
+                                                 list(overrides))
     tcfg, mcfg, dcfg = cfg.training, cfg.model, cfg.data
     tr = pkg["trainer"]
     use_pallas = mcfg.use_pallas if tcfg.use_pallas is None else tcfg.use_pallas
+    fused = use_pallas and not mcfg.residual
 
     def dataset(path):
         return pkg["dataset"].MRIDataset(
@@ -755,8 +778,9 @@ def graph_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path, val_meta: pat
         model = pkg["ms"].from_config(mcfg, tcfg.precision,
                                       generator=torch.Generator().manual_seed(tcfg.seed),
                                       device=device)
+        run_dir = tmp / label.replace(" ", "_") / name
         t = tr.Trainer(model, tr.create_train_state(model, tcfg.optimizer, tcfg.lr),
-                       pkg["losses"].make_loss_fn(tcfg.criterion), *data, tmp / name,
+                       pkg["losses"].make_loss_fn(tcfg.criterion), *data, run_dir,
                        batch_size=tcfg.batch_size, save_interval=1000,
                        base_seed=tcfg.seed + 1, use_pallas=use_pallas, sin5=tcfg.sin5,
                        device_data=device_data, device=device, log=lambda *_: None)
@@ -772,13 +796,14 @@ def graph_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path, val_meta: pat
     spread = (float(np.abs(la - lb).max()), (pa - pb).abs().max().item())
     gap = (float(np.abs(lc - la).max()), (pc - pa).abs().max().item())
     repeats = spread == (0.0, 0.0)
-    print(f"per-step loop, two runs of {GRAPH_EPOCHS} epochs from one seed: max |d loss| "
-          f"{spread[0]:.3e}, max |d parameter| {spread[1]:.3e} "
+    print(f"{label}: per-step loop, two runs of {GRAPH_EPOCHS} epochs from one seed: max "
+          f"|d loss| {spread[0]:.3e}, max |d parameter| {spread[1]:.3e} "
           f"({'bit for bit' if repeats else 'not bit for bit'})")
-    print(f"graphed epochs vs the per-step loop: max |d loss| {gap[0]:.3e}, max |d "
+    print(f"{label}: graphed epochs vs the per-step loop: max |d loss| {gap[0]:.3e}, max |d "
           f"parameter| {gap[1]:.3e} (bar: {'0, bit for bit' if repeats else 'twice the '
           'per-step runs\' own gap'}); graphs (captures, replays) "
           f"({tc.scan_epoch.captures}, {tc.scan_epoch.replays})")
+    check(tc.scan_epoch.fused == fused, f"{label}: the fused flag")
     check(tc.scan_epoch.replays == 2 * GRAPH_EPOCHS - 1, "graphed run did not replay")
     if repeats:
         check(gap == (0.0, 0.0), "the graphed run differs from a per-step loop that repeats")
@@ -791,7 +816,7 @@ def graph_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path, val_meta: pat
     out = {"spread": spread, "gap": gap}
     n = -(-len(data[0]) // tcfg.batch_size)
     epoch = GRAPH_EPOCHS
-    for label, t in (("graphed", tc), ("per-step", ta)):
+    for kind, t in (("graphed", tc), ("per-step", ta)):
         # unprofiled: the epoch's wall time and the host's share of it
         walls, hosts = [], []
         for _ in range(3):
@@ -805,10 +830,13 @@ def graph_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path, val_meta: pat
             hosts.append(t.scan_epoch.launch_seconds if t.scan_epoch else walls[-1])
             epoch += 1
         wall, host = statistics.median(walls), statistics.median(hosts)
+        out[kind] = {"wall_ms": wall * 1e3, "host_ms": host * 1e3}
+        if not fused:
+            continue
         # profiled: device busy time, idle share, kernels by name
         before = [k.launches for k in counters]
         torch.cuda.synchronize()
-        with pkg["profiling"].device_trace(tmp / f"trace_{label}") as prof:
+        with pkg["profiling"].device_trace(tmp / f"trace_{kind}") as prof:
             t0 = time.perf_counter()
             t._epoch_loss(data[0], train=True, epoch=epoch)
             torch.cuda.synchronize()
@@ -820,16 +848,21 @@ def graph_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path, val_meta: pat
         seen = [sum(c for name, _, c in rows if key in name)
                 for key in ("TrainEpilogue", "chain_kernel")]
         idle = max(0.0, 1 - busy / (pwall * 1e3))
-        print(f"{label} train epoch ({n} steps of {tcfg.batch_size}), median of 3: wall "
+        print(f"{kind} train epoch ({n} steps of {tcfg.batch_size}), median of 3: wall "
               f"{wall * 1e3:.4f} ms = {n / wall:.2f} steps/s, {n * tcfg.batch_size / wall:.1f} "
               f"patches/s; host {host * 1e3:.4f} ms {'up to the replay' if t.scan_epoch else ''}"
               f"; under the profiler: wall {pwall * 1e3:.4f} ms, device busy {busy:.4f} ms, "
               f"idle share {idle:.1%}; train fwd / bwd launches counted {counted[0]} / "
               f"{counted[1]}, kernels seen by the profiler {seen[0]} / {seen[1]} [{card}]")
-        check(counted == seen, f"{label}: launch counters {counted}, profiler {seen}")
-        check(counted == [n, n], f"{label}: {counted} launches for {n} steps")
-        out[label] = {"wall_ms": wall * 1e3, "host_ms": host * 1e3, "busy_ms": busy,
-                      "idle": idle}
+        check(counted == seen, f"{kind}: launch counters {counted}, profiler {seen}")
+        check(counted == [n, n], f"{kind}: {counted} launches for {n} steps")
+        out[kind] |= {"busy_ms": busy, "idle": idle}
+    if not fused:
+        g, p = out["graphed"]["wall_ms"], out["per-step"]["wall_ms"]
+        print(f"{label} train epoch ({n} steps of {tcfg.batch_size}), median of 3: graphed "
+              f"{g:.4f} ms = {n / g * 1e3:.2f} steps/s (host {out['graphed']['host_ms']:.4f} "
+              f"ms up to the replay), per-step {p:.4f} ms = {n / p * 1e3:.2f} steps/s "
+              f"[{card}]")
     return out
 
 
@@ -1110,6 +1143,328 @@ def pretraining_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path,
     return {"fwd": fwd_n, "bwd": bwd_n, "eval": eval_n}
 
 
+# ---------------------------------------------------------------- phase 11
+ONLINE_VOLUMES, ONLINE_VAL_VOLUMES, ONLINE_SLICES = 8, 2, 16
+ONLINE_EPOCHS = 3  # the first eager, the second captured and replayed, the third replayed
+SWEEP_STEMS, SWEEP_SLICES = 60, 940  # the reference's 940-slice sweep
+# online tiles against the offline pipeline's on the card: the same masks,
+# the same kernel, the same normalisation, so 0 is expected; 2e-6 is the
+# JAX package's bar for the same comparison
+ONLINE_PARITY_BAR = 2e-6
+
+
+def phantom_kspace(pkg, indices) -> list:
+    """Complex (ONLINE_SLICES, SLICE_SIZE, SLICE_SIZE) phantom volumes, made
+    in threads."""
+    syn = pkg["synthetic"]
+    with ThreadPoolExecutor(8) as pool:
+        return list(pool.map(lambda v: syn.synthetic_kspace(v, ONLINE_SLICES, SLICE_SIZE,
+                                                            SLICE_SIZE, texture=0.2), indices))
+
+
+def online_datasets(pkg, cfg, device, train, val):
+    """The train and validation splits of ``cfg`` as the train CLI makes them
+    online (the train split remasks as configured, validation never), from
+    in-memory (stems, volumes) pairs: this machine has no ``h5py``."""
+    dcfg, mcfg = cfg.data, cfg.model
+
+    def make(split, stems_vols, remask):
+        return pkg["online"].OnlineKspaceDataset.from_volumes(
+            *stems_vols, center_fraction=dcfg.center_fraction, acceleration=dcfg.acceleration,
+            max_slice_num=split.max_slice_num, num_samples=split.num_samples, seed=split.seed,
+            outer_patch_size=mcfg.outer_patch_size, inner_patch_size=mcfg.inner_patch_size,
+            remask_each_epoch=remask, device=device)
+
+    return make(dcfg.train, train, dcfg.train.remask_each_epoch), make(dcfg.val, val, False)
+
+
+def online_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
+    """The online k-space path: configs/train_online.yaml's training through
+    the graphed epoch, offline parity on the card, and the 940-slice online
+    device sweep of configs/test.yaml's model."""
+    t_phase = time.perf_counter()
+    syn = pkg["synthetic"]
+    t0 = time.perf_counter()
+    vols = phantom_kspace(pkg, range(300, 300 + ONLINE_VOLUMES + ONLINE_VAL_VOLUMES))
+    stems = [syn.synthetic_stem(v) for v in range(300, 300 + len(vols))]
+    train = (stems[:ONLINE_VOLUMES], vols[:ONLINE_VOLUMES])
+    val = (stems[ONLINE_VOLUMES:], vols[ONLINE_VOLUMES:])
+    print(f"online phase: {len(vols)} phantom volumes of {ONLINE_SLICES} x {SLICE_SIZE} x "
+          f"{SLICE_SIZE} k-space made on the host in {time.perf_counter() - t0:.2f} s")
+    out = online_train(pkg, tmp, device, card, train, val)
+    out["parity"] = online_parity(pkg, tmp, device, train)
+    out["sweep"] = online_sweep(pkg, tmp, device, card, train[1])
+    print(f"online phase: {time.perf_counter() - t_phase:.1f} s wall [{card}]")
+    return out
+
+
+def online_train(pkg, tmp: pathlib.Path, device, card: str, train, val) -> dict:
+    fk, stk, sk = pkg["fk"], pkg["stk"], pkg["sk"]
+    cfg = pkg["config"].load_train_configuration(
+        REPO / "configs" / "train_online.yaml",
+        [f"training.epochs={ONLINE_EPOCHS}", f"training.output_dir={tmp / 'online_out'}"])
+    tcfg, mcfg = cfg.training, cfg.model
+    print(f"online training, configs/train_online.yaml: H={mcfg.dim_hidden} latent="
+          f"{mcfg.latent_dim} L={mcfg.num_layers} dropout={mcfg.dropout} batch "
+          f"{tcfg.batch_size} {tcfg.optimizer} {tcfg.lr:g} {tcfg.criterion} {tcfg.precision} "
+          f"device_data={tcfg.device_data} remask={cfg.data.train.remask_each_epoch}")
+
+    def run(name, device_data, record=None):
+        train_ds, val_ds = online_datasets(pkg, cfg, device, train, val)
+        if record is not None:  # keep each mask epoch's tiles as the trainer got them
+            materialize = train_ds.materialize
+
+            def recording(epoch):
+                fully, under = materialize(epoch)
+                if int(epoch) not in record:
+                    record[int(epoch)] = (fully.data_ptr(), under.data_ptr(), under.clone())
+                return fully, under
+
+            train_ds.materialize = recording
+        run_cfg = copy.deepcopy(cfg)
+        run_cfg.training.device_data = device_data
+        t = pkg["cli_train"].make_trainer(run_cfg, train_ds, val_ds, tmp / "online" / name,
+                                          device, log=lambda *_: None)
+        t.initial_errors()
+        t.train(ONLINE_EPOCHS)
+        curve = list(t.initial_losses) + [r[k] for r in t._progress
+                                          for k in ("train_loss", "val_loss")]
+        flat = torch.cat([q.detach().reshape(-1) for q in t.model.parameters()])
+        return np.array(curve), flat, t
+
+    # ---- the main path, counted
+    counters = (fk.dft2c_ri_cuda, stk.siren_chain_train_fwd_cuda,
+                stk.siren_chain_train_bwd_cuda, sk.siren_forward_cuda)
+    seen: dict = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    lc, pc, tc = run("graphed", True, record=seen)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    dft_n, fwd_n, bwd_n, eval_n = (k.launches for k in counters)
+    peak_mb = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+    train_ds, val_ds = tc.train_dataset, tc.val_dataset
+    del train_ds.materialize  # the recording wrapper: the class's method again
+    per_epoch = -(-len(train_ds) // tcfg.batch_size)
+    val_batches = -(-len(val_ds) // tcfg.batch_size)
+    graphs = (tc.scan_epoch.captures, tc.scan_epoch.replays)
+    print(f"online training: {len(train_ds.slice_ids)} train slices ({len(train_ds)} patches, "
+          f"{per_epoch} steps an epoch), {len(val_ds.slice_ids)} val slices ({val_batches} "
+          f"batches); initial errors + {ONLINE_EPOCHS} epochs in {secs:.2f} s -> dft2c "
+          f"launches {dft_n}, train fwd {fwd_n}, train bwd {bwd_n}, eval forward {eval_n}; "
+          f"CUDA graphs (captures, replays) {graphs}; peak device memory {peak_mb:.1f} MiB "
+          f"above the {base_mem / 2**20:.1f} MiB held before [{card}]")
+    check(per_epoch == 88 and val_batches == 5, f"{per_epoch} steps, {val_batches} val batches")
+    # (a) one capture per (dataset, mode): the train set's train epochs and the
+    # val set's eval epochs; the train set's one eval epoch (the initial
+    # error) runs eagerly, as does each mode's first epoch
+    check(graphs == (2, ONLINE_EPOCHS - 1 + ONLINE_EPOCHS), f"graphs {graphs}")
+    # (c) fully sampled once per dataset, undersampled once per mask epoch:
+    # the train set's epochs 0-2, the val set's fixed masks once
+    want_dft = 2 + ONLINE_EPOCHS + 1
+    check(dft_n == want_dft, f"dft2c launches {dft_n}, expected {want_dft}")
+    check(fwd_n == bwd_n == ONLINE_EPOCHS * per_epoch, "train kernel launches != train steps")
+    check(eval_n == per_epoch + val_batches * (1 + ONLINE_EPOCHS), f"eval launches {eval_n}")
+    # (d) the tiles: one buffer, new undersampled tiles each epoch
+    check(sorted(seen) == list(range(ONLINE_EPOCHS)), f"mask epochs {sorted(seen)}")
+    check(len({(f, u) for f, u, _ in seen.values()}) == 1, "the tiles moved between epochs")
+    for e in range(1, ONLINE_EPOCHS):
+        check(not torch.equal(seen[e][2], seen[e - 1][2]),
+              f"epoch {e}'s undersampled tiles equal epoch {e - 1}'s")
+    fully0 = train_ds._fully.clone()
+    _, again = train_ds.materialize(0)
+    check(torch.equal(again, seen[0][2]), "materialising epoch 0 again differs")
+    check(torch.equal(train_ds.materialize(1)[0], fully0), "the fully sampled tiles moved")
+    # (e) the loss falls
+    logs = tc._progress
+    check(bool(np.isfinite(lc).all()), f"non-finite loss in {lc}")
+    check(logs[-1]["train_loss"] < tc.initial_losses[0], "the online train loss did not fall")
+    print("online losses: initial train {:.6f} val {:.6f}; ".format(*tc.initial_losses)
+          + "; ".join(f"epoch {r['epoch']} train {r['train_loss']:.6f} val "
+                      f"{r['val_loss']:.6f}" for r in logs))
+
+    # (b) the per-step loop over the same materialised tiles (host batches)
+    (la, pa, _), (lb, pb, _) = run("per_step_a", False), run("per_step_b", False)
+    spread = (float(np.abs(la - lb).max()), (pa - pb).abs().max().item())
+    gap = (float(np.abs(lc - la).max()), (pc - pa).abs().max().item())
+    repeats = spread == (0.0, 0.0)
+    print(f"online training, graphed vs the per-step loop: max |d loss| {gap[0]:.3e}, max |d "
+          f"parameter| {gap[1]:.3e}; two per-step runs apart {spread[0]:.3e} / "
+          f"{spread[1]:.3e} ({'bit for bit' if repeats else 'not bit for bit'})")
+    if repeats:
+        check(gap == (0.0, 0.0), "online: the graphed run differs from a repeating loop")
+    else:
+        check(gap[0] <= 2 * spread[0] and gap[1] <= 2 * spread[1],
+              "online: the graphed run is further from the loop than its repeatability")
+
+    # steady: graphed epochs (materialisation + 88-step train replay) and the
+    # materialisation alone, after the counts were read
+    walls = []
+    epoch = ONLINE_EPOCHS
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tc._epoch_loss(train_ds, train=True, epoch=epoch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        epoch += 1
+    fresh = iter(range(100, 1000))
+    mat_ms = cuda_median_ms(lambda: train_ds.materialize(next(fresh)), reps=5, warmup=1)
+    dft_ms = cuda_median_ms(lambda: pkg["fk"].reconstruct_magnitude_ri_dft(train_ds._k),
+                            reps=5, warmup=1)
+    wall = statistics.median(walls)
+    nsl = train_ds._k.shape[0] * train_ds._k.shape[1]
+    print(f"online train epoch, graphed ({per_epoch} steps of {tcfg.batch_size}, its mask "
+          f"epoch materialised first), median of 3: {wall * 1e3:.4f} ms = "
+          f"{per_epoch / wall:.2f} steps/s; materialisation alone (masks drawn and uploaded, "
+          f"one dft2c over {nsl} slices, min-max, select, tiles into the buffer) "
+          f"{mat_ms:.4f} ms, of which dft2c {dft_ms:.4f} ms (CUDA events, median of 5) "
+          f"[{card}]")
+    return {"dft": dft_n, "fwd": fwd_n, "bwd": bwd_n, "eval": eval_n, "peak_mb": peak_mb,
+            "epoch_ms": wall * 1e3, "steps_per_sec": per_epoch / wall, "mat_ms": mat_ms,
+            "dft_ms": dft_ms}
+
+
+def online_parity(pkg, tmp: pathlib.Path, device, train) -> float:
+    """Remask off, two 16-slice volumes with max_slice_num 10 (the filter
+    after the normalisation): the online tiles against MRIDataset over the
+    port's offline preprocessing of the same volumes, both on the card."""
+    cf, acc = MASKS[0]
+    stems, vols = train[0][:2], train[1][:2]
+    online = pkg["online"].OnlineKspaceDataset.from_volumes(
+        stems, vols, center_fraction=cf, acceleration=acc, max_slice_num=10,
+        remask_each_epoch=False, device=device)
+    fully, under = (t.cpu().numpy() for t in online.materialize(0))
+    rows = []
+    for stem, vol in zip(stems, vols):
+        rows += pkg["preprocessing"].process_kspace_volume(vol, stem, tmp / "online_parity",
+                                                           [(cf, acc)], device=device)
+    offline = pkg["dataset"].MRIDataset(
+        pkg["preprocessing"].write_metadata(rows, tmp / "online_parity"), center_fraction=cf,
+        acceleration=acc, max_slice_num=10)
+    check(fully.shape == offline.fully_tiles.shape, f"{fully.shape} vs offline")
+    gap = max(float(np.abs(fully - offline.fully_tiles).max()),
+              float(np.abs(under - offline.under_tiles).max()))
+    print(f"online vs offline tiles on the card, 2 volumes of {ONLINE_SLICES} slices, "
+          f"max_slice_num 10 ({len(online.slice_ids)} slices kept after the volume "
+          f"min-max): max |diff| {gap:.3e} (<= {ONLINE_PARITY_BAR:g})")
+    check(gap <= ONLINE_PARITY_BAR, "online and offline tiles disagree")
+    return gap
+
+
+def online_sweep(pkg, tmp: pathlib.Path, device, card: str, vols) -> dict:
+    """configs/test.yaml's model through OnlineSampler -> evaluate_files_device
+    over 940 of 60 x 16 slices (the stems cycle through the 8 train volumes'
+    k-space; each stem's masks are its own), against the offline device
+    sweep of the same volumes and two slices on the CPU."""
+    ev, fk, sk, syn = pkg["ev"], pkg["fk"], pkg["sk"], pkg["synthetic"]
+    cfg = pkg["config"].load_test_configuration(REPO / "configs" / "test.yaml",
+                                                ["data.max_slice_num=null"])
+    mcfg, ecfg = cfg.model, cfg.data
+    model = pkg["ms"].from_config(mcfg, generator=torch.Generator().manual_seed(SEED),
+                                  device=device)
+
+    def pipeline(m, dev):
+        apply_fn = sk.make_apply_fn(m, use_pallas=mcfg.use_pallas, sin_bf16=ecfg.sin_bf16,
+                                    sin5=ecfg.sin5, ksplit=ecfg.ksplit, device=dev)
+        return ev.SliceReconstructor(apply_fn, outer_patch_size=mcfg.outer_patch_size,
+                                     inner_patch_size=mcfg.inner_patch_size,
+                                     siren_patch_size=mcfg.siren_patch_size,
+                                     patch_bucket=ecfg.batch_patches, device=dev)
+
+    recon = pipeline(model, device)
+    stems = [syn.synthetic_stem(500 + i) for i in range(SWEEP_STEMS)]
+    sweep_vols = [vols[i % len(vols)] for i in range(SWEEP_STEMS)]
+    cf, acc = ecfg.center_fraction, ecfg.acceleration
+
+    # ---- the main path, counted: k-space upload, epoch-0 image stacks (one
+    # dft2c each), the sweep
+    counters = (fk.dft2c_ri_cuda, sk.siren_forward_cuda)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    for k in counters:
+        k.launches = 0
+    t0 = time.perf_counter()
+    ds = pkg["online"].OnlineKspaceDataset.from_volumes(
+        stems, sweep_vols, center_fraction=cf, acceleration=acc, max_slice_num=None,
+        outer_patch_size=mcfg.outer_patch_size, inner_patch_size=mcfg.inner_patch_size,
+        remask_each_epoch=False, device=device)
+    upload_s = time.perf_counter() - t0
+    sampler = pkg["online"].OnlineSampler(ds, num_samples=SWEEP_SLICES, host_prefetch=False)
+    rows, timings = ev.evaluate_files_device(recon, sampler, log=lambda *_: None)
+    torch.cuda.synchronize()
+    dft_n, fwd_n = (k.launches for k in counters)
+    peak_mb = (torch.cuda.max_memory_allocated() - base_mem) / 2**20
+    pieces = sweep_pieces(ev, SWEEP_SLICES)
+    print(f"online sweep: {SWEEP_STEMS} stems x {ONLINE_SLICES} slices, k-space "
+          f"{ds._k.numel() * 4 / 2**30:.2f} GiB packed and uploaded in {upload_s:.2f} s; "
+          f"{len(rows)} slices scored in {pieces} batched pieces -> dft2c launches {dft_n}, "
+          f"siren_forward launches {fwd_n}; stage {timings['stage_seconds']:.4f} s (the two "
+          f"image stacks made on the card), dispatch {timings['dispatch_seconds']:.4f} s, "
+          f"execute+fetch {timings['execute_fetch_seconds']:.4f} s; peak device memory "
+          f"{peak_mb:.1f} MiB above the {base_mem / 2**20:.1f} MiB held before [{card}]")
+    check(dft_n == 2 and fwd_n == pieces, f"launches {dft_n}, {fwd_n}")
+    order = pkg["dataset"].sampler_order(len(ds.slice_ids), 42, SWEEP_SLICES)
+    check([r.slice_id for r in rows] == [ds.slice_id(i) for i in order],
+          "rows not in sampler order")
+    check(ds._imgs_np is None and not ds._slice_cache, "image data crossed to the host")
+    check(all(np.isfinite([r.psnr, r.ssim, r.nrmse]).all() for r in rows), "non-finite rows")
+
+    # the offline device sweep over the same slices
+    off_dir = tmp / "online_sweep_offline"
+    meta_rows = []
+    for stem, vol in zip(stems, sweep_vols):
+        meta_rows += pkg["preprocessing"].process_kspace_volume(vol, stem, off_dir, [(cf, acc)],
+                                                                device=device)
+    meta = pkg["preprocessing"].write_metadata(meta_rows, off_dir)
+    off_sampler = pkg["dataset"].MRISampler(meta, center_fraction=cf, acceleration=acc,
+                                            mri_type=ecfg.mri_type, max_slice_num=None,
+                                            num_samples=SWEEP_SLICES)
+    off_rows, _ = ev.evaluate_files_device(recon, off_sampler, log=lambda *_: None)
+    check([r.slice_id for r in off_rows] == [r.slice_id for r in rows],
+          "offline and online sweeps score other slices")
+    worst = np.max([[abs(a.psnr - b.psnr), abs(a.ssim - b.ssim), abs(a.nrmse - b.nrmse)]
+                    for a, b in zip(rows, off_rows)], axis=0)
+    print(f"online vs offline device sweep, {len(rows)} rows in the same order: max |d PSNR| "
+          f"{worst[0]:.3e} (<= 0.05), |d SSIM| {worst[1]:.3e}, |d NRMSE| {worst[2]:.3e} "
+          f"(<= 1e-3)")
+    check(worst[0] <= 0.05 and worst[1] <= 1e-3 and worst[2] <= 1e-3,
+          "online and offline sweeps disagree")
+
+    # two slices on the CPU through the plain versions
+    cpu_recon = pipeline(copy.deepcopy(model).to("cpu"), "cpu")
+    for r in rows[:2]:
+        pair = ds.get_slice(order[rows.index(r)])
+        check(pair.slice_id == r.slice_id, "get_slice order")
+        m = {k: float(v) for k, v in cpu_recon(pair.fully_sampled, pair.undersampled)[3].items()}
+        dp, ds_, dn = abs(m["psnr"] - r.psnr), abs(m["ssim"] - r.ssim), abs(m["nrmse"] - r.nrmse)
+        print(f"online sweep, cpu vs card [{r.slice_id}]: PSNR {m['psnr']:.4f} vs {r.psnr:.4f} "
+              f"(|d| {dp:.2e} <= 0.05), SSIM |d| {ds_:.2e}, NRMSE |d| {dn:.2e} (<= 1e-3)")
+        check(dp <= 0.05 and ds_ <= 1e-3 and dn <= 1e-3, "online sweep CPU cross-check")
+
+    # steady sweeps (the image stacks cached), stage excluded
+    rates = []
+    for _ in range(5):
+        s = pkg["online"].OnlineSampler(ds, num_samples=SWEEP_SLICES, host_prefetch=False)
+        t = ev.evaluate_files_device(recon, s, log=lambda *_: None)[1]
+        rates.append(SWEEP_SLICES / (t["dispatch_seconds"] + t["execute_fetch_seconds"]))
+    dft_ms = cuda_median_ms(lambda: fk.reconstruct_magnitude_ri_dft(ds._k), reps=5, warmup=1)
+    mat_ms = cuda_median_ms(lambda: ds._images(0), reps=5, warmup=1)
+    nsl = ds._k.shape[0] * ds._k.shape[1]
+    print(f"online sweep steady: median {statistics.median(rates):.2f} slices/s (min "
+          f"{min(rates):.2f}, max {max(rates):.2f}; 5 sweeps, stage excluded); dft2c over the "
+          f"{nsl}-slice corpus {dft_ms:.4f} ms, the undersampled image stack's whole "
+          f"materialisation {mat_ms:.4f} ms (CUDA events, median of 5) [{card}]")
+    return {"dft": dft_n, "eval": fwd_n, "peak_mb": peak_mb,
+            "slices_per_sec": statistics.median(rates), "dft_ms": dft_ms, "mat_ms": mat_ms,
+            "worst": worst.tolist()}
+
+
 def time_train_steps(pkg, device) -> dict:
     """One whole train step at the width and batch of configs/train.yaml:
     fused kernels, and the module path under autograd for comparison."""
@@ -1334,7 +1689,7 @@ def main() -> int:
     from mri_inr_tpu_torch.cli import train as cli_train
     from mri_inr_tpu_torch.cli import train_encoder
     from mri_inr_tpu_torch.configuration import config
-    from mri_inr_tpu_torch.data import dataset, kspace, preprocessing, synthetic
+    from mri_inr_tpu_torch.data import dataset, kspace, online, preprocessing, synthetic
     from mri_inr_tpu_torch.eval import evaluate as ev
     from mri_inr_tpu_torch.models import modulated_siren as ms
     from mri_inr_tpu_torch.ops import _build
@@ -1366,7 +1721,7 @@ def main() -> int:
     pkg = dict(config=config, dataset=dataset, synthetic=synthetic, preprocessing=preprocessing,
                ev=ev, ms=ms, sk=sk, stk=stk, fk=fk, cli_train=cli_train, cli_test=cli_test,
                cli_preprocess=cli_preprocess, train_encoder=train_encoder, losses=losses,
-               trainer=trainer,
+               trainer=trainer, online=online,
                visualization=visualization, profiling=profiling)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
@@ -1375,9 +1730,13 @@ def main() -> int:
         step_ms = time_train_steps(pkg, device)
         report_train_step(step_ms, card)
         graph_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card)
+        for label, overrides in (("module path", ("model.use_pallas=false",)),
+                                 ("residual model", ("model.residual=true",))):
+            graph_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card, label, overrides)
         trn = train_path(pkg, tmp, device, pre["meta"], pre["val_meta"])
         qnt = quantized_path(pkg, tmp, device, pre["meta"], trn["run_dir"])
         ptr = pretraining_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card)
+        onl = online_path(pkg, tmp, device, card)
         time_preprocessing(pkg, tmp, device, card)
 
     # ---- eval forward kernel
@@ -1395,7 +1754,8 @@ def main() -> int:
         2 * batch * seq * hidden * hidden * (layers - 1),
         nbytes_of(*args) + batch * seq * 4, card,
         f32_ops=siren_f32_ops(batch * seq, hidden, layers, "eval"),
-        launches_train_path=trn["eval"], launches_pretraining_path=ptr["eval"])]
+        launches_train_path=trn["eval"], launches_pretraining_path=ptr["eval"],
+        launches_online_path=onl["eval"] + onl["sweep"]["eval"])]
     print(f"evaluate_files_device steady: bf16 chain {e2e['bf16_slices_per_sec']:.2f} "
           f"slices/s, int8 chain {e2e['int8_slices_per_sec']:.2f} slices/s "
           f"({VOLUMES * SLICES_PER_VOLUME} slices in {e2e['pieces']} batched piece(s), median "
@@ -1430,7 +1790,7 @@ def main() -> int:
                        warmup=1),
         2 * chain, nbytes_of(*targs) + TRAIN_BATCH * seq * 4, card,
         f32_ops=siren_f32_ops(TRAIN_BATCH * seq, hidden, layers, "train_fwd"),
-        launches_pretraining_path=ptr["fwd"]))
+        launches_pretraining_path=ptr["fwd"], launches_online_path=onl["fwd"]))
     grads = stk.siren_chain_train_bwd_cuda(*targs, cot, **tkw)
     parts = bwd_parts_ms(lambda: stk.siren_chain_train_bwd_cuda(*targs, cot, **tkw), card)
     # the gradient needs the forward's product, dW and dx per hidden layer:
@@ -1445,7 +1805,7 @@ def main() -> int:
         6 * chain, nbytes_of(*targs, cot, *grads), card,
         executed_flops=2 * chain * (3 * layers - 4 + layers - 1) // (layers - 1),
         f32_ops=siren_f32_ops(TRAIN_BATCH * seq, hidden, layers, "train_bwd"),
-        launches_pretraining_path=ptr["bwd"], **parts))
+        launches_pretraining_path=ptr["bwd"], launches_online_path=onl["bwd"], **parts))
 
     # ---- DFT kernel: the preprocessing call (inverse, magnitude) at one
     # fastMRI brain volume; the other shapes beside it
@@ -1471,7 +1831,8 @@ def main() -> int:
         records.append(kernel_record(
             "dft2c", "mri_inr_tpu/ops/fft_kernel.py:50", pre["launches"],
             cmp_dft["max_abs_err"], t_kernel, t_plain, fft_ops, nbytes, card,
-            peak=PEAK_F32_FLOPS, unit="f32 FLOP", library_ms=t_lib))
+            peak=PEAK_F32_FLOPS, unit="f32 FLOP", library_ms=t_lib,
+            launches_online_path=onl["dft"] + onl["sweep"]["dft"]))
         print(f"dft2c {shape}: the FFT kernel takes {t_kernel / t_lib:.2f}x the torch.fft "
               f"route's time [{card}]")
     secs = trn["epoch_seconds"]

@@ -17,7 +17,11 @@ slices (default: every selected slice) and writes ``metrics_error.csv``,
 The default device is ``cuda`` and a missing card raises; ``--device cpu``
 runs the kernels' plain PyTorch versions. ``data.quantized=true`` takes the
 int8 kernel. Where ``matplotlib`` is not installed the two plots are left
-out (and ``data.visual_samples`` must be 0).
+out (and ``data.visual_samples`` must be 0). ``data.online=true`` reads a
+directory of raw ``.h5`` k-space volumes as ``data.dataset`` and scores the
+slices the ``OnlineKspaceDataset`` reconstructs on the device with the
+offline pipeline's fixed masks (no ``.npy`` files; ``data.test_files`` is
+refused); with ``data.device_sweep`` no image data crosses to the host.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ import torch
 
 from mri_inr_tpu_torch.configuration import config as config_lib
 from mri_inr_tpu_torch.data.dataset import MRISampler
+from mri_inr_tpu_torch.data.online import OnlineKspaceDataset, OnlineSampler
 from mri_inr_tpu_torch.eval import evaluate as ev
 from mri_inr_tpu_torch.models import modulated_siren as ms
 from mri_inr_tpu_torch.ops.siren_kernel import make_apply_fn
@@ -41,10 +46,6 @@ from mri_inr_tpu_torch.utils.device import resolve_device
 
 def _reject_unported(cfg) -> None:
     ecfg = cfg.data
-    if ecfg.online:
-        raise NotImplementedError(
-            "data.online (the online k-space pipeline) is not ported yet "
-            "(ROADMAP queue 1, item 13)")
     if ecfg.halo_fold:
         raise NotImplementedError(
             "data.halo_fold (the distributed fold over a device mesh) is not ported "
@@ -119,16 +120,29 @@ def evaluate(cfg, device: torch.device, shard: str | None = None,
     output_dir = pathlib.Path(ecfg.output_dir) / ecfg.output_name
     output_dir.mkdir(parents=True, exist_ok=True)
 
-    sampler_kwargs = dict(center_fraction=ecfg.center_fraction,
-                          acceleration=ecfg.acceleration, mri_type=ecfg.mri_type,
-                          max_slice_num=ecfg.max_slice_num, num_samples=ecfg.num_samples)
-    sampler = MRISampler(ecfg.dataset, **sampler_kwargs)
-    # an explicit file list serves the visual pass only; the metric sweep
-    # keeps the full selection
-    visual_sampler = sampler
-    if ecfg.test_files:
-        visual_sampler = MRISampler(ecfg.dataset, test_files=list(ecfg.test_files),
-                                    **sampler_kwargs)
+    if ecfg.online:
+        if ecfg.test_files:
+            raise ValueError("data.test_files needs the offline sampler (data.online=false)")
+        online_ds = OnlineKspaceDataset(
+            ecfg.dataset, center_fraction=ecfg.center_fraction,
+            acceleration=ecfg.acceleration, mri_type=ecfg.mri_type,
+            max_slice_num=ecfg.max_slice_num, outer_patch_size=mcfg.outer_patch_size,
+            inner_patch_size=mcfg.inner_patch_size, remask_each_epoch=False, device=device)
+        # the device sweep reads the stacks on the device: no bulk copy to the host
+        sampler = OnlineSampler(online_ds, num_samples=ecfg.num_samples,
+                                host_prefetch=False if ecfg.device_sweep else None)
+        visual_sampler = sampler
+    else:
+        sampler_kwargs = dict(center_fraction=ecfg.center_fraction,
+                              acceleration=ecfg.acceleration, mri_type=ecfg.mri_type,
+                              max_slice_num=ecfg.max_slice_num, num_samples=ecfg.num_samples)
+        sampler = MRISampler(ecfg.dataset, **sampler_kwargs)
+        # an explicit file list serves the visual pass only; the metric sweep
+        # keeps the full selection
+        visual_sampler = sampler
+        if ecfg.test_files:
+            visual_sampler = MRISampler(ecfg.dataset, test_files=list(ecfg.test_files),
+                                        **sampler_kwargs)
     if shard:
         i, n = (int(x) for x in shard.split(":"))
         sampler = sampler.shard(i, n)

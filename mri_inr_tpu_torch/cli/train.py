@@ -13,7 +13,12 @@ of ``python -m mri_inr_tpu_torch.cli.train_encoder`` (``--model conv`` for
 the ``custom`` encoder, ``--model vgg`` for ``encoder_type=vgg``, whose trunk
 only is spliced); ``criterion=perceptual`` takes ``--model perceptual``'s
 file as ``training.perceptual_encoder_path``. ``data.low_memory`` trains on
-``MRIDatasetLowMemory``, step by step.
+``MRIDatasetLowMemory``, step by step. ``data.train.online`` takes a
+directory of raw ``.h5`` k-space volumes (``configs/train_online.yaml``):
+the ``OnlineKspaceDataset`` remasks each epoch on the device when
+``remask_each_epoch``; the validation split is online too when asked, or
+when it names no dataset and the train split is online, always with its
+masks fixed.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ import yaml
 
 from mri_inr_tpu_torch.configuration import config as config_lib
 from mri_inr_tpu_torch.data.dataset import MRIDataset, MRIDatasetLowMemory
+from mri_inr_tpu_torch.data.online import OnlineKspaceDataset
 from mri_inr_tpu_torch.models import modulated_siren as ms
 from mri_inr_tpu_torch.train import checkpoint as ckpt_lib
 from mri_inr_tpu_torch.train import losses
@@ -37,11 +43,7 @@ from mri_inr_tpu_torch.utils.profiling import device_trace
 
 
 def _reject_unported(cfg) -> None:
-    tcfg, dcfg = cfg.training, cfg.data
-    if dcfg.train.online or dcfg.val.online:
-        raise NotImplementedError(
-            "data.*.online (the online k-space pipeline) is not ported yet "
-            "(ROADMAP queue 1, item 13)")
+    tcfg = cfg.training
     if tcfg.data_axis_size not in (None, 1):
         raise NotImplementedError(
             "training.data_axis_size > 1 (data-parallel training) is not ported "
@@ -60,14 +62,17 @@ def _load_state(path: str, key: str) -> dict:
     return state.get("model", state)
 
 
-def _dataset(split, dcfg, mcfg):
+def _dataset(split, dcfg, mcfg, device: torch.device | None = None, online: bool = False,
+             remask: bool = False):
+    """The split's dataset: online (on ``device``) or from ``metadata.csv``."""
+    kw = dict(center_fraction=dcfg.center_fraction, acceleration=dcfg.acceleration,
+              mri_type=split.mri_type, max_slice_num=split.max_slice_num,
+              num_samples=split.num_samples, seed=split.seed,
+              outer_patch_size=mcfg.outer_patch_size, inner_patch_size=mcfg.inner_patch_size)
+    if online:
+        return OnlineKspaceDataset(split.dataset, remask_each_epoch=remask, device=device, **kw)
     cls = MRIDatasetLowMemory if dcfg.low_memory else MRIDataset
-    return cls(
-        split.dataset, center_fraction=dcfg.center_fraction,
-        acceleration=dcfg.acceleration, mri_type=split.mri_type,
-        max_slice_num=split.max_slice_num, num_samples=split.num_samples,
-        seed=split.seed, outer_patch_size=mcfg.outer_patch_size,
-        inner_patch_size=mcfg.inner_patch_size)
+    return cls(split.dataset, **kw)
 
 
 def build_model(cfg, device: torch.device, log=print):
@@ -93,6 +98,26 @@ def build_loss_fn(cfg, device: torch.device):
             raise ValueError("criterion=perceptual requires training.perceptual_encoder_path")
         state = _load_state(tcfg.perceptual_encoder_path, "training.perceptual_encoder_path")
     return losses.make_loss_fn(tcfg.criterion, state, cfg.model.siren_patch_size, device)
+
+
+def make_trainer(cfg, train_ds, val_ds, run_dir, device: torch.device, log=print) -> Trainer:
+    """The seeded model, optimizer state, criterion and :class:`Trainer` of
+    ``cfg`` over the two datasets."""
+    tcfg, mcfg = cfg.training, cfg.model
+    model = build_model(cfg, device, log)
+    state = create_train_state(model, tcfg.optimizer, tcfg.lr)
+    loss_fn = build_loss_fn(cfg, device)
+    use_pallas = tcfg.use_pallas if tcfg.use_pallas is not None else mcfg.use_pallas
+    if use_pallas and not mcfg.residual:
+        log("training with the fused forward and backward kernels "
+            f"({'CUDA' if device.type == 'cuda' else 'plain PyTorch versions on the CPU'})")
+    return Trainer(
+        model, state, loss_fn, train_ds, val_ds, run_dir,
+        batch_size=tcfg.batch_size, save_interval=tcfg.save_interval,
+        outer_patch_size=mcfg.outer_patch_size, siren_patch_size=mcfg.siren_patch_size,
+        base_seed=tcfg.seed + 1, tensorboard=tcfg.logging, use_pallas=use_pallas,
+        device_data=tcfg.device_data, sin5=tcfg.sin5, freeze_encoder=tcfg.freeze_encoder,
+        device=device, log=log)
 
 
 def main(argv: list[str] | None = None) -> Trainer:
@@ -132,29 +157,19 @@ def main(argv: list[str] | None = None) -> Trainer:
     print(f"run dir: {run_dir}")
 
     val_split = dcfg.val
+    # an online train split makes the val split online when it names no
+    # dataset of its own (the train split's is an .h5 directory); its masks
+    # stay fixed, so the validation curve compares across epochs
+    val_online = dcfg.val.online or (not val_split.dataset and dcfg.train.online)
     if not val_split.dataset:
         val_split = dataclasses.replace(val_split, dataset=dcfg.train.dataset)
-    train_ds = _dataset(dcfg.train, dcfg, mcfg)
-    val_ds = _dataset(val_split, dcfg, mcfg)
+    train_ds = _dataset(dcfg.train, dcfg, mcfg, device, online=dcfg.train.online,
+                        remask=dcfg.train.remask_each_epoch)
+    val_ds = _dataset(val_split, dcfg, mcfg, device, online=val_online)
     print(f"train patches: {len(train_ds)}, val patches: {len(val_ds)}")
     train_ds.write_manifest(run_dir / "processed_files.txt")
 
-    model = build_model(cfg, device)
-    state = create_train_state(model, tcfg.optimizer, tcfg.lr)
-    loss_fn = build_loss_fn(cfg, device)
-
-    use_pallas = tcfg.use_pallas if tcfg.use_pallas is not None else mcfg.use_pallas
-    if use_pallas and not mcfg.residual:
-        print("training with the fused forward and backward kernels "
-              f"({'CUDA' if device.type == 'cuda' else 'plain PyTorch versions on the CPU'})")
-
-    trainer = Trainer(
-        model, state, loss_fn, train_ds, val_ds, run_dir,
-        batch_size=tcfg.batch_size, save_interval=tcfg.save_interval,
-        outer_patch_size=mcfg.outer_patch_size, siren_patch_size=mcfg.siren_patch_size,
-        base_seed=tcfg.seed + 1, tensorboard=tcfg.logging, use_pallas=use_pallas,
-        device_data=tcfg.device_data, sin5=tcfg.sin5, freeze_encoder=tcfg.freeze_encoder,
-        device=device)
+    trainer = make_trainer(cfg, train_ds, val_ds, run_dir, device)
     initial_epoch = 0
     if resume:
         ckpt_lib.restore_state(resume[0], resume[1], trainer.state)

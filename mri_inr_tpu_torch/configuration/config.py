@@ -34,9 +34,11 @@ the port they mean:
 - ``model.encoder_path`` and ``training.perceptual_encoder_path``: files
   of ``python -m mri_inr_tpu_torch.cli.train_encoder`` (torch state dicts),
   not the JAX package's Orbax directories.
+- ``data.*.online`` and ``data.online``: directories of raw ``.h5``
+  k-space volumes, read by ``data/online.py``.
 - ``training.data_axis_size`` (the mesh), ``training.logging``
-  (TensorBoard), ``data.*.online``, ``data.online`` and ``data.halo_fold``
-  of the test config: not ported yet, the CLIs raise on them.
+  (TensorBoard) and ``data.halo_fold`` of the test config: not ported yet,
+  the CLIs raise on them.
 """
 
 from __future__ import annotations

@@ -232,8 +232,11 @@ def evaluate_files_device(reconstructor: SliceReconstructor, sampler,
     uploaded once, every slice is scored on the device, and each shape
     group's (3, K) metrics come back in one copy (the one synchronisation of
     the group); a group runs batched (:meth:`SliceReconstructor.metrics_stack`:
-    one forward per piece of :data:`PIECE_PATCHES` patches). The rows are
-    those of :func:`evaluate_files`, in the sampler's order.
+    one forward per piece of :data:`PIECE_PATCHES` patches). A sampler with
+    ``device_stacks`` (:class:`~mri_inr_tpu_torch.data.online.OnlineSampler`)
+    gives one group whose stacks are on the device already: no image data
+    crosses from the host. The rows are those of :func:`evaluate_files`, in
+    the sampler's order.
 
     Returns ``(results, timings)``: ``stage_seconds`` (load, stack, upload),
     ``dispatch_seconds`` (enqueueing every group's work) and
@@ -242,16 +245,21 @@ def evaluate_files_device(reconstructor: SliceReconstructor, sampler,
     device = reconstructor.device
 
     t0 = time.perf_counter()
-    pairs = [sampler.next_sample() for _ in range(total)]
-    by_shape: dict[tuple[int, int], list[int]] = {}
-    for i, p in enumerate(pairs):
-        by_shape.setdefault(p.fully_sampled.shape, []).append(i)
-    groups = [
-        (idxs,
-         torch.from_numpy(np.stack([pairs[i].fully_sampled for i in idxs])).to(device),
-         torch.from_numpy(np.stack([pairs[i].undersampled for i in idxs])).to(device))
-        for idxs in by_shape.values()
-    ]
+    if hasattr(sampler, "device_stacks"):
+        slice_ids, fully, under = sampler.device_stacks(total)
+        groups = [(list(range(total)), fully.to(device), under.to(device))]
+    else:
+        pairs = [sampler.next_sample() for _ in range(total)]
+        slice_ids = [p.slice_id for p in pairs]
+        by_shape: dict[tuple[int, int], list[int]] = {}
+        for i, p in enumerate(pairs):
+            by_shape.setdefault(p.fully_sampled.shape, []).append(i)
+        groups = [
+            (idxs,
+             torch.from_numpy(np.stack([pairs[i].fully_sampled for i in idxs])).to(device),
+             torch.from_numpy(np.stack([pairs[i].undersampled for i in idxs])).to(device))
+            for idxs in by_shape.values()
+        ]
     _sync(device)
     stage_secs = time.perf_counter() - t0
 
@@ -265,7 +273,7 @@ def evaluate_files_device(reconstructor: SliceReconstructor, sampler,
     for idxs, fut in futs:
         vals = fut.cpu().numpy()
         for j, i in enumerate(idxs):
-            rows[i] = SliceResult(pairs[i].slice_id, float(vals[0, j]), float(vals[1, j]),
+            rows[i] = SliceResult(slice_ids[i], float(vals[0, j]), float(vals[1, j]),
                                   float(vals[2, j]))
     results = [rows[i] for i in range(total)]
     fetch_secs = time.perf_counter() - t2

@@ -86,9 +86,11 @@ class SirenLayer(nn.Module):
         self.dropout = dropout
         self.compute_dtype = compute_dtype
         self.exact_sine = exact_sine
-        #: when set, train-mode dropout draws its mask from this generator
-        #: (on the layer's device) instead of the global stream
-        self.dropout_generator: torch.Generator | None = None
+        #: when set, train-mode dropout multiplies the output by
+        #: ``dropout_mask_fn(shape)`` (an f32 mask of {0, 1/keep}) instead of
+        #: drawing from the global stream; the trainer sets the fused path's
+        #: counter-hash masks here
+        self.dropout_mask_fn = None
         scale = (1.0 / dim_in) if is_first else math.sqrt(c / dim_in) / w0
         self.weight = nn.Parameter(
             siren_uniform_init(torch.empty(features, dim_in), scale, generator))
@@ -100,11 +102,8 @@ class SirenLayer(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         pre = linear(x, self, self.compute_dtype)
         out = apply_activation(pre, self.w0, self.activation, self.exact_sine)
-        if self.dropout > 0.0 and self.training and self.dropout_generator is not None:
-            keep = 1.0 - self.dropout
-            mask = torch.rand(out.shape, generator=self.dropout_generator,
-                              device=out.device) < keep
-            out = out * mask.to(out.dtype) / keep
+        if self.dropout > 0.0 and self.training and self.dropout_mask_fn is not None:
+            out = (out.float() * self.dropout_mask_fn(tuple(out.shape))).to(out.dtype)
         elif self.dropout > 0.0:
             out = F.dropout(out, self.dropout, training=self.training)
         return out

@@ -45,7 +45,6 @@ from mri_inr_tpu_torch.ops.siren_kernel import (KERNEL_WIDTHS, SirenKernelParams
 # multiplicative-hash constants; 32-bit wraparound is the point
 _HASH_M = 0x9E3779B1
 _LAYER_STRIDE = 1315423911
-_MASK32 = 0xFFFFFFFF
 
 
 def _keep_threshold(keep: float) -> int:
@@ -59,7 +58,7 @@ def _wrap_i32(v: int) -> int:
     return v - 2**32 if v >= 2**31 else v
 
 
-def _seed_tensor(seed, device) -> torch.Tensor:
+def seed_tensor(seed, device) -> torch.Tensor:
     """``seed`` (int or (1,) tensor) as the (1,) f32 tensor the op takes. An
     integer is written by a fill on the device, not copied from host memory:
     such a copy would make the host wait for the device's stream each step."""
@@ -73,20 +72,18 @@ def dropout_mask(seed: torch.Tensor, layer: int, keep: float,
     """(B, S, H) f32 mask of {0, 1/keep} for ``layer``: element ``idx =
     (b*S + s)*H + col`` is kept where ``(int32)h < round(keep*2^32 - 2^31)``,
     ``h = m ^ (m >>> 16)``, ``m = (idx + seed + layer*1315423911) *
-    0x9E3779B1`` in 32-bit wraparound. Done in int64 masked to 32 bits (the
-    multiply in two 16-bit halves), so nothing overflows."""
+    0x9E3779B1`` in 32-bit wraparound. Done in int32 tensors, whose add and
+    multiply wrap modulo 2^32 on the CPU and on the card (the hash's own
+    arithmetic; tests hold it to the JAX hash and to a written-out int64
+    version); ``>>`` on int32 is arithmetic, so ``m >>> 16`` is ``(m >> 16)
+    & 0xFFFF``."""
     batch, seq, hidden = shape
-    dev = seed.device
-    idx = torch.arange(batch * seq * hidden, dtype=torch.int64, device=dev)
-    off = seed.reshape(()).to(torch.int64) + _wrap_i32(layer * _LAYER_STRIDE)
-    v = (idx + off) & _MASK32
-    lo = (v & 0xFFFF) * _HASH_M
-    hi = (((v >> 16) * _HASH_M) & 0xFFFF) << 16
-    h = (lo + hi) & _MASK32
-    h = h ^ (h >> 16)
-    signed = torch.where(h >= 2**31, h - 2**32, h)
+    off = seed.reshape(()).to(torch.int32) + _wrap_i32(layer * _LAYER_STRIDE)
+    idx = torch.arange(batch * seq * hidden, dtype=torch.int32, device=seed.device)
+    m = (idx + off) * _wrap_i32(_HASH_M)
+    h = m ^ ((m >> 16) & 0xFFFF)
     inv_keep = float(np.float32(1.0 / keep))
-    mask = torch.where(signed < _keep_threshold(keep), inv_keep, 0.0)
+    mask = torch.where(h < _keep_threshold(keep), inv_keep, 0.0)
     return mask.to(torch.float32).reshape(batch, seq, hidden)
 
 
@@ -427,7 +424,7 @@ def siren_chain_train(
     knobs = (("num_layers", num_layers), ("w0", float(w0)), ("activation", activation),
              ("dropout_rate", float(dropout_rate)), ("sin5", bool(sin5)))
     return _SirenChainTrain.apply(mods, kp.base, kp.s_w, kp.s_b, kp.last_w, kp.last_b,
-                                  _seed_tensor(seed, mods.device), knobs)
+                                  seed_tensor(seed, mods.device), knobs)
 
 
 def fused_train_apply(

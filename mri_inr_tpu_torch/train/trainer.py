@@ -22,13 +22,16 @@ In PyTorch's idiom:
   bf16 inputs into f32 sums;
 - the per-step dropout seed is an integer in [0, 2^23) drawn by a numpy
   generator keyed on (base seed, step), so a resumed run continues the same
-  stream;
+  stream; both paths draw their masks from the counter hash of that seed
+  (``ops/siren_train_kernel.py:dropout_mask``), the module path through
+  ``SirenLayer.dropout_mask_fn``;
 - ``device_data`` keeps each dataset's tiles on the device and runs each
   epoch through :func:`make_scan_epoch`, the counterpart of the JAX
   package's one-dispatch ``lax.scan`` epoch: every batch is gathered on the
   device from the epoch's index matrix (:func:`make_epoch_perm`), and on the
-  card the fused path's epoch is one CUDA graph, captured once and replayed
-  once per epoch.
+  card the epoch is one CUDA graph, captured once and replayed once per
+  epoch. A dataset with ``materialize`` (the online k-space set) hands over
+  its device tiles each epoch; one with ``fully_tiles`` is uploaded once.
 
 Not ported: the device mesh and ``shard_map`` step, TensorBoard scalars
 (``tensorboard=True`` raises).
@@ -37,6 +40,7 @@ Not ported: the device mesh and ``shard_map`` step, TensorBoard scalars
 from __future__ import annotations
 
 import csv
+import functools
 import pathlib
 import signal
 import time
@@ -48,7 +52,6 @@ from torch import nn
 
 from mri_inr_tpu_torch.data.dataset import epoch_index_batches
 from mri_inr_tpu_torch.eval.evaluate import SliceReconstructor
-from mri_inr_tpu_torch.models.siren import SirenLayer
 from mri_inr_tpu_torch.ops import siren_kernel as sk
 from mri_inr_tpu_torch.ops import siren_train_kernel as stk
 from mri_inr_tpu_torch.ops import tiling
@@ -131,24 +134,26 @@ def _fused(model, use_pallas: bool) -> bool:
 def _make_step_body(model, loss_fn, outer: int, siren: int, *, fused: bool, sin5: bool,
                     freeze_encoder: bool):
     """``body(state, fully, under, seed) -> loss``: one optimizer step on
-    ``state`` with the dropout ``seed`` (an int; on the fused path also a
-    (1,) float32 tensor holding one), ``state.step`` left alone."""
-    dropout_layers = [m for m in model.modules() if isinstance(m, SirenLayer)]
+    ``state`` with the dropout ``seed`` (an int or a (1,) float32 tensor
+    holding one), ``state.step`` left alone."""
+    hidden_layers = [] if fused else list(model.net.layers)
 
     def forward(under: torch.Tensor, seed) -> torch.Tensor:
         if fused:
             return stk.fused_train_apply(model, under, seed, sin5=sin5)
-        # module path: F.dropout-style masks from an explicit generator
-        gen = torch.Generator(device=under.device).manual_seed(seed)
-        for layer in dropout_layers:
-            layer.dropout_generator = gen
+        # module path: hidden layer i drops with the fused path's hash masks
+        # of (seed, i), so no host RNG runs and the step can be captured
+        seed_t = stk.seed_tensor(seed, under.device)
+        for i, layer in enumerate(hidden_layers):
+            layer.dropout_mask_fn = functools.partial(stk.dropout_mask, seed_t, i,
+                                                      1.0 - layer.dropout)
         model.train()
         try:
             return model(under)
         finally:
             model.eval()
-            for layer in dropout_layers:
-                layer.dropout_generator = None
+            for layer in hidden_layers:
+                layer.dropout_mask_fn = None
 
     def body(state: TrainState, fully: torch.Tensor, under: torch.Tensor, seed) -> torch.Tensor:
         target = tiling.extract_center_batch(fully, outer, siren).float()
@@ -248,8 +253,10 @@ class ScanEpoch:
     ``state.step`` by ``num_batches``; step ``i`` of the epoch draws its
     dropout from ``seeds[i]`` of :func:`epoch_seeds`.
 
-    On the card the fused path's epoch is one CUDA graph per (tiles, shape,
-    train flag). The first epoch of each runs eagerly on a side stream: it
+    On the card the epoch is one CUDA graph per (tiles, shape, train flag),
+    on the fused path and on the module path (``use_pallas: false``, residual
+    models) alike: both draw their dropout from the epoch's device seed
+    buffer. The first epoch of each runs eagerly on a side stream: it
     is the warm-up torch's capture recipe asks for (Adam's state, the kernel
     libraries and their function attributes, cuBLAS), and a real epoch. The
     second is captured, which runs nothing, and then replayed, like every
@@ -266,16 +273,17 @@ class ScanEpoch:
     :class:`~mri_inr_tpu_torch.ops.siren_kernel.WeightPack` invalidates it
     after a train epoch (``Trainer.invalidate_packs``). A change of the
     optimizer's state tensors (``restore_state``'s ``load_state_dict``)
-    drops the graphs; the next epoch runs eagerly again.
+    drops the graphs; the next epoch runs eagerly again. The tiles are read
+    by address: a caller that hands over new tiles each epoch writes them
+    into the same tensors (``OnlineKspaceDataset.materialize``) on the
+    stream the replay runs on.
 
-    The module path and every epoch on the CPU run the same body as a plain
-    loop over the same buffers. The module path is not graphed: its dropout
-    draws from a ``torch.Generator`` seeded per step on the host."""
+    On the CPU every epoch runs the same body as a plain loop over the same
+    buffers."""
 
     def __init__(self, model, loss_fn, outer: int, siren: int, *, use_pallas: bool = False,
-                 sin5: bool = False, freeze_encoder: bool = False, log=print):
-        self.model, self.loss_fn, self.outer, self.siren, self.log = (
-            model, loss_fn, outer, siren, log)
+                 sin5: bool = False, freeze_encoder: bool = False):
+        self.model, self.loss_fn, self.outer, self.siren = model, loss_fn, outer, siren
         self.fused = _fused(model, use_pallas)
         self._train_body = _make_step_body(model, loss_fn, outer, siren, fused=self.fused,
                                            sin5=sin5, freeze_encoder=freeze_encoder)
@@ -284,7 +292,6 @@ class ScanEpoch:
         self._buffers: dict = {}
         self._graphs: dict = {}
         self._warm: set = set()
-        self._said_unfused = False
         self.captures = self.replays = 0
         self.launch_seconds = 0.0  # host time of the last epoch up to its replay's return
 
@@ -308,8 +315,7 @@ class ScanEpoch:
             bufs.copied.record()
         return bufs
 
-    def _run(self, state, fully_all, under_all, bufs: _Buffers, seeds: np.ndarray,
-             train: bool) -> torch.Tensor:
+    def _run(self, state, fully_all, under_all, bufs: _Buffers, train: bool) -> torch.Tensor:
         """The epoch's body: the loop a graph captures."""
         losses = []
         packed = None
@@ -320,8 +326,7 @@ class ScanEpoch:
             fully = fully_all.index_select(0, idx)
             under = under_all.index_select(0, idx)
             if train:
-                seed = bufs.seeds[i : i + 1] if self.fused else int(seeds[i])
-                losses.append(self._train_body(state, fully, under, seed))
+                losses.append(self._train_body(state, fully, under, bufs.seeds[i : i + 1]))
                 continue
             with torch.no_grad():
                 target = tiling.extract_center_batch(fully, self.outer, self.siren).float()
@@ -347,7 +352,7 @@ class ScanEpoch:
         if train:  # the graph's steps allocate their gradients from its pool
             state.optimizer.zero_grad(set_to_none=True)
         with torch.cuda.graph(graph):
-            loss = self._run(state, fully_all, under_all, bufs, None, train)
+            loss = self._run(state, fully_all, under_all, bufs, train)
         launches = tuple(k.launches - b for k, b in zip(counters, before))
         for k, n in zip(counters, launches):  # recorded, not run
             k.launches -= n
@@ -366,7 +371,7 @@ class ScanEpoch:
             side = torch.cuda.Stream(fully_all.device)
             side.wait_stream(torch.cuda.current_stream(fully_all.device))
             with torch.cuda.stream(side):
-                loss = self._run(state, fully_all, under_all, bufs, None, train)
+                loss = self._run(state, fully_all, under_all, bufs, train)
             torch.cuda.current_stream(fully_all.device).wait_stream(side)
             self._warm.add(key)
             return loss
@@ -388,14 +393,10 @@ class ScanEpoch:
         key = (fully_all.data_ptr(), under_all.data_ptr(), tuple(fully_all.shape),
                tuple(perm.shape), train)
         bufs = self._stage(key, device, perm, seeds)
-        if self.fused and device.type == "cuda":
+        if device.type == "cuda":
             loss = self._graphed(key, state, fully_all, under_all, bufs, train)
         else:
-            if device.type == "cuda" and not self._said_unfused:
-                self.log("device_data on the module path: epochs run step by step, not as "
-                         "a CUDA graph (its dropout draws from a generator seeded per step)")
-                self._said_unfused = True
-            loss = self._run(state, fully_all, under_all, bufs, seeds, train)
+            loss = self._run(state, fully_all, under_all, bufs, train)
         if train:
             state.step += nb
         self.launch_seconds = time.perf_counter() - t0
@@ -403,11 +404,11 @@ class ScanEpoch:
 
 
 def make_scan_epoch(model, loss_fn, outer: int, siren: int, *, use_pallas: bool = False,
-                    sin5: bool = False, freeze_encoder: bool = False, log=print) -> ScanEpoch:
+                    sin5: bool = False, freeze_encoder: bool = False) -> ScanEpoch:
     """The one-dispatch epoch over device-resident tiles (counterpart of the
     JAX package's ``make_scan_epoch``): see :class:`ScanEpoch`."""
     return ScanEpoch(model, loss_fn, outer, siren, use_pallas=use_pallas, sin5=sin5,
-                     freeze_encoder=freeze_encoder, log=log)
+                     freeze_encoder=freeze_encoder)
 
 
 class Trainer:
@@ -450,7 +451,7 @@ class Trainer:
             sin5=sin5, device=self.device)
         self.scan_epoch = make_scan_epoch(
             model, loss_fn, outer_patch_size, siren_patch_size, use_pallas=use_pallas,
-            sin5=sin5, freeze_encoder=freeze_encoder, log=log) if device_data else None
+            sin5=sin5, freeze_encoder=freeze_encoder) if device_data else None
         self._dev_tiles: dict = {}
         # snapshot rendering shares the fused eval path when training fused
         self.reconstructor = SliceReconstructor(
@@ -471,7 +472,8 @@ class Trainer:
         return self.eval_step(self.state, fully, under)
 
     def _epoch_loss(self, dataset, train: bool, epoch: int) -> float:
-        if self.device_data and hasattr(dataset, "fully_tiles"):
+        if self.device_data and (hasattr(dataset, "materialize")
+                                 or hasattr(dataset, "fully_tiles")):
             loss = self._scan_epoch_loss(dataset, train, epoch)
         else:
             if self.device_data and not self._said_per_step:
@@ -491,14 +493,22 @@ class Trainer:
 
     def _scan_epoch_loss(self, dataset, train: bool, epoch: int) -> float:
         """An epoch over device-resident tiles through :func:`make_scan_epoch`:
-        the tiles uploaded once per dataset, batches in the host loop's
+        a dataset with ``materialize`` gives this epoch's device tiles (the
+        same tensors every epoch, rewritten per mask epoch), one with
+        ``fully_tiles`` is uploaded once; batches in the host loop's
         composition (:func:`make_epoch_perm`), one host synchronisation."""
-        key = id(dataset)
-        if key not in self._dev_tiles:
-            self._dev_tiles[key] = (
-                torch.from_numpy(dataset.fully_tiles).to(self.device),
-                torch.from_numpy(dataset.under_tiles).to(self.device))
-        fully_all, under_all = self._dev_tiles[key]
+        if hasattr(dataset, "materialize"):
+            fully_all, under_all = dataset.materialize(epoch)
+            if fully_all.device != self.device:
+                raise ValueError(f"{type(dataset).__name__} lives on {fully_all.device}, "
+                                 f"the trainer on {self.device}")
+        else:
+            key = id(dataset)
+            if key not in self._dev_tiles:
+                self._dev_tiles[key] = (
+                    torch.from_numpy(dataset.fully_tiles).to(self.device),
+                    torch.from_numpy(dataset.under_tiles).to(self.device))
+            fully_all, under_all = self._dev_tiles[key]
         perm = make_epoch_perm(len(dataset), self.batch_size, epoch, shuffle=train)
         return float(self.scan_epoch(self.state, fully_all, under_all, perm, self.base_seed,
                                      train))

@@ -172,7 +172,7 @@ def grads(cli, te, config, tr, meta, val_meta, tmp, dev) -> int:
             # the kernels against their plain versions, on the card, at these inputs
             knobs = dict(num_layers=mcfg.num_layers, w0=float(m.w0), activation=m.activation,
                          dropout_rate=float(m.dropout), sin5=cfg.training.sin5)
-            st = stk._seed_tensor(seed, d)
+            st = stk.seed_tensor(seed, d)
             args_ = [x.detach().contiguous() for x in
                      (mods, kp.base, kp.s_w, kp.s_b, kp.last_w, kp.last_b)]
             yk = stk.siren_chain_train_fwd_cuda(st, *args_, **knobs)

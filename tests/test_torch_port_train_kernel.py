@@ -67,6 +67,32 @@ def test_dropout_mask_is_the_jax_mask(seed, layer, keep):
     assert abs(float((got > 0).float().mean()) - keep) < 0.05
 
 
+def dropout_mask_int64(seed: int, layer: int, keep: float, shape) -> torch.Tensor:
+    """The hash written out in int64 with every value masked to 32 bits and
+    the multiply in two 16-bit halves, so nothing overflows: the reference
+    for the port's int32 version, which relies on wraparound."""
+    mask32 = 0xFFFFFFFF
+    idx = torch.arange(int(np.prod(shape)), dtype=torch.int64)
+    v = (idx + seed + tstk._wrap_i32(layer * tstk._LAYER_STRIDE)) & mask32
+    lo = (v & 0xFFFF) * tstk._HASH_M
+    hi = (((v >> 16) * tstk._HASH_M) & 0xFFFF) << 16
+    h = (lo + hi) & mask32
+    h = h ^ (h >> 16)
+    signed = torch.where(h >= 2**31, h - 2**32, h)
+    kept = signed < tstk._keep_threshold(keep)
+    return torch.where(kept, float(np.float32(1.0 / keep)), 0.0).reshape(shape)
+
+
+@pytest.mark.parametrize("seed,layer,keep,shape", [
+    (0, 0, 0.9, (3, 20, 64)), (2**23 - 1, 2, 0.9, (400, 576, 8)),
+    (4242, 7, 0.5, (5, 577, 33)), (1, 11, 0.999, (2, 3, 1)), (2**22, 4, 0.3, (64, 576, 64)),
+])
+def test_dropout_mask_int32_equals_the_int64_hash(seed, layer, keep, shape):
+    got = tstk.dropout_mask(torch.tensor([float(seed)]), layer, keep, shape)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, dropout_mask_int64(seed, layer, keep, shape))
+
+
 def test_dropout_mask_keep_rate():
     m = tstk.dropout_mask(torch.tensor([999.0]), 2, 0.9, (16, 256, 256))
     assert abs(float((m > 0).float().mean()) - 0.9) < 2e-3

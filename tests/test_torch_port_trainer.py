@@ -40,6 +40,7 @@ from mri_inr_tpu_torch.interop import load_flax_params, params_from_flax
 from mri_inr_tpu_torch.models.modulated_siren import ModulatedSiren
 from mri_inr_tpu_torch.models.perceptual import PerceptualEncoderV2
 from mri_inr_tpu_torch.ops import siren_train_kernel as tstk
+from mri_inr_tpu_torch.ops import tiling as ttiling
 from mri_inr_tpu_torch.train import checkpoint as tckpt
 from mri_inr_tpu_torch.train import losses as tlosses
 from mri_inr_tpu_torch.train import trainer as ttrainer
@@ -170,8 +171,8 @@ def test_fused_train_step_reduces_loss_with_dropout(datasets):
 @pytest.mark.parametrize("kw", [dict(), dict(residual=True)], ids=["plain", "residual"])
 def test_module_path_step_draws_dropout_from_the_step_seed(datasets, kw):
     """``use_pallas=False`` (and every residual model): dropout masks come
-    from a generator seeded per step, so two runs repeat and the model is
-    left in eval mode."""
+    from the counter hash of the step's seed, so two runs repeat, the global
+    stream is untouched and the model is left in eval mode."""
     train, _ = datasets
     fully, under = (torch.from_numpy(a) for a in next(train.batches(32, seed=0)))
 
@@ -191,6 +192,38 @@ def test_module_path_step_draws_dropout_from_the_step_seed(datasets, kw):
     if kw:  # residual models are never fused, whatever use_pallas says
         l3, p3 = run(True)
         assert l3 == l1 and np.array_equal(p3, p1)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(residual=True)], ids=["plain", "residual"])
+def test_module_path_masks_are_the_fused_paths_hash(datasets, kw):
+    """The module path's hidden layer i drops with ``dropout_mask(seed, i,
+    keep, (B, S, H))``, the fused path's mask: its first step's loss equals
+    a forward with those masks multiplied in by hand."""
+    train, _ = datasets
+    fully, under = (torch.from_numpy(a) for a in next(train.batches(32, seed=0)))
+    model = _model(dropout=0.1, **kw)
+    seen = []
+    for i, layer in enumerate(model.net.layers):
+        layer.register_forward_hook(lambda m, args, out, i=i: seen.append((i, out.detach())))
+    ref = _model(dropout=0.0, **kw)
+    ref.load_state_dict(model.state_dict())
+    seed = ttrainer.step_seed(3, 0)
+    hand = {}
+    for i, layer in enumerate(ref.net.layers):
+        mask = tstk.dropout_mask(torch.tensor([float(seed)]), i, 0.9, (32, 576, 64))
+        hand[i] = mask
+        layer.register_forward_hook(lambda m, args, out, i=i: (out.float() * hand[i]).to(out.dtype))
+    step = ttrainer.make_train_step(model, tlosses.mse, 32, 24, use_pallas=False)
+    loss = float(step(ttrainer.create_train_state(model, "sgd", 1e-2), fully, under, 3))
+    with torch.no_grad():
+        want = float(tlosses.mse(ref(under).float(),
+                                 ttiling.extract_center_batch(fully, 32, 24).float()))
+    assert loss == want
+    assert [i for i, _ in seen] == list(range(len(model.net.layers)))
+    for i, out in seen:  # each layer's output holds zeros exactly where its mask does
+        assert torch.equal(out == 0, hand[i] == 0)
+        assert 0.05 < float((hand[i] == 0).float().mean()) < 0.15
+    assert all(layer.dropout_mask_fn is None for layer in model.net.layers)
 
 
 def test_freeze_encoder_keeps_the_conv_stack(datasets):
@@ -633,7 +666,6 @@ def test_train_cli_pinned_model_path_and_fresh_start(metadata, tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("data.train.online=true", "item 13"),
     ("training.logging=true", "item 17"),
     ("training.data_axis_size=4", "item 17"),
 ])
@@ -643,11 +675,14 @@ def test_train_cli_names_what_is_not_ported(metadata, tmp_path, override, match)
 
 
 @pytest.mark.parametrize("override", ["data.low_memory=true", "model.encoder_type=vgg",
-                                      "training.criterion=perceptual"])
+                                      "training.criterion=perceptual", "data.train.online=true"])
 def test_train_cli_runs_what_it_once_refused(metadata, tmp_path, override):
-    """The low-memory dataset, the vgg encoder and the perceptual loss (with
-    a perceptual encoder's state dict) train through the CLI."""
+    """The low-memory dataset, the vgg encoder, the perceptual loss (with
+    a perceptual encoder's state dict) and an online train split (the
+    ``.h5`` directory the metadata was made from) train through the CLI."""
     extra = [override]
+    if "online" in override:
+        extra.append(f"data.train.dataset={metadata.parent.parent}")
     if "perceptual" in override:
         path = tmp_path / "perceptual.pt"
         torch.save(PerceptualEncoderV2(generator=torch.Generator().manual_seed(0)).state_dict(),
@@ -662,6 +697,9 @@ def test_train_cli_runs_what_it_once_refused(metadata, tmp_path, override):
         assert type(t.model.encoder.encoder).__name__ == "VGGEncoder"
     if "low_memory" in override:
         assert type(t.train_dataset).__name__ == "MRIDatasetLowMemory"
+    if "online" in override:
+        assert type(t.train_dataset).__name__ == "OnlineKspaceDataset"
+        assert type(t.val_dataset).__name__ == "MRIDataset"  # it names its own dataset
 
 
 def test_train_cli_encoder_path(metadata, tmp_path):
