@@ -15,7 +15,10 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    inputs: the eval forward (bf16 and int8) at H=256, L=5, S=576, B=1024 (one
    320x320 slice's patch bucket), the train forward and backward at B=400
    (one train batch) with dropout 0.1 (the backward also called twice: all
-   six gradients must repeat bit for bit), the centred DFT (an FFT) at (16,
+   six gradients must repeat bit for bit), and at phase 13's shapes on each
+   rank (the train kernels at a local batch of 200 with each rank's
+   dropout seed, the eval forward at 200 and 3,200), each called twice, bit
+   for bit; the centred DFT (an FFT) at (16,
    640, 320), (16, 320, 320), (8, 320, 320), fastMRI's knee widths (2, 640, 368)
    and (2, 640, 372), and the odd and prime sizes (3, 63, 33) and (2, 37,
    41), also against ``torch.fft``;
@@ -87,6 +90,25 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    model over 940 slices of 60 stems (one ``dft2c`` per image stack, no image
    data to the host) against the offline device sweep of the same volumes
    and two slices on the CPU;
+13. data parallelism (``parallel/``): two ranks sharing the one card (gloo,
+   so every collective crosses the host), each a process of this script
+   (``--rank``) started through the ``MRI_INR_*`` route on cuda:0, running
+   the CLI's ``main`` as a user's rank does: the train CLI at
+   configs/train.yaml's width with ``data_axis_size=2``, dropout off and
+   ``training.logging``, for two epochs and a resumed third (one run
+   directory written by rank 0 alone, the checkpoint restored on both
+   ranks, each rank's train-kernel launches equal to its steps, the
+   TensorBoard losses against a one-process run on the ranks' two halves
+   of every batch (1e-5) and one on the whole batch (2e-3)); one
+   data-parallel step with dropout against Adam on the mean of the two
+   ranks' local steps emulated here; the test CLI with ``--devices 2``
+   against the one-process, ``--shard`` and ``--merge-shards`` files, and
+   with ``data.halo_fold=true`` against the one-process rows; the ranks'
+   steps/s, the gradient all-reduce's ms a step on the host's clock (the
+   wait for the peer rank apart from the reduction, and the reduction's
+   copies alone) and the halo exchange's ms a slice, labelled as two ranks
+   sharing one card (phase 3 holds the three kernels these ranks run
+   against their plain versions at the ranks' shapes);
 12. times with CUDA events (warm-up, then the median): every kernel and its
    plain version per call, for the DFT also the ``torch.fft`` route, for the
    backward also its chain and weight-gradient kernels apart (device time
@@ -107,8 +129,10 @@ import csv
 import importlib.util
 import json
 import math
+import os
 import pathlib
 import re
+import socket
 import statistics
 import subprocess
 import sys
@@ -666,6 +690,74 @@ def compare_train_kernels(sk, stk, ms, device) -> dict:
             check(all(same), "a gradient differs between two backward calls")
             first = {"fwd_err": mx, "bwd_err": worst}
     return {"inputs": inputs["sine"], **first}
+
+
+def compare_local_kernels(sk, stk, ms, trainer, cmp: dict, cmp_train: dict, device) -> dict:
+    """The three kernels phase 13 runs on every rank, at that phase's shapes,
+    against their plain versions with the bars above, and called twice, bit
+    for bit: the train forward and backward on each rank's LOCAL_BATCH rows
+    of the train batch with that rank's dropout seed (``step_seed`` with the
+    rank folded in, dropout 0.1), the eval forward at LOCAL_BATCH and at
+    BAND_PATCHES. Returns the largest errors."""
+    targs, cot = cmp_train["inputs"]
+    kw = dict(num_layers=5, dropout_rate=0.1, sin5=True)
+    out = {"fwd_err": 0.0, "bwd_err": 0.0}
+    for r in range(RANKS):
+        rows = slice(r * LOCAL_BATCH, (r + 1) * LOCAL_BATCH)
+        seed = trainer.step_seed(DP_SEED, 0, r)
+        args = (torch.tensor([float(seed)], device=device), targs[1][rows].contiguous(),
+                *targs[2:])
+        label = f"rank {r}'s rows, B={LOCAL_BATCH}, seed {seed}"
+        got, again = (stk.siren_chain_train_fwd_cuda(*args, **kw) for _ in range(2))
+        torch.cuda.synchronize()
+        want = stk.siren_chain_train_fwd_reference(*args, **kw)
+        check(got.shape == want.shape == (LOCAL_BATCH, 576), f"{label}: fwd shape")
+        err = (got - want).abs()
+        mx, mean = err.max().item(), err.mean().item()
+        print(f"train fwd kernel vs plain [{label}]: max |diff| {mx:.3e} (<= 1e-4), mean "
+              f"{mean:.3e} (<= 1e-6); two calls bit for bit: {torch.equal(got, again)}")
+        check(bool(torch.isfinite(got).all()) and mx <= 1e-4 and mean <= 1e-6,
+              f"{label}: train forward kernel disagrees")
+        check(torch.equal(got, again), f"{label}: train forward differs between two calls")
+        out["fwd_err"] = max(out["fwd_err"], mx)
+
+        rcot = cot[rows].contiguous()
+        got_b, again_b = (stk.siren_chain_train_bwd_cuda(*args, rcot, **kw) for _ in range(2))
+        torch.cuda.synchronize()
+        want_b = stk.siren_chain_train_bwd_reference(*args, rcot, **kw)
+        gaps = []
+        for name, a, b, c in zip(BWD_BARS, got_b, want_b, again_b):
+            check(a.shape == b.shape and bool(torch.isfinite(a).all()), f"{label}: {name}")
+            gap, top = (a - b).abs().max().item(), b.abs().max().item()
+            gaps.append(f"{name} {gap:.3e} (relative {gap / top:.2e})")
+            check(gap <= BWD_BARS[name] * max(top, 1.0) and gap <= BWD_REL_BAR * top,
+                  f"{label}: {name} disagrees")
+            check(torch.equal(a, c), f"{label}: {name} differs between two backward calls")
+            out["bwd_err"] = max(out["bwd_err"], gap)
+        print(f"train bwd kernel vs plain [{label}]: max |diff| " + ", ".join(gaps)
+              + " (bars as at B=400); two calls bit for bit: all six")
+
+    ekw = dict(num_layers=5, sin7=True, sin5=True)
+    mods, kp = cmp["inputs"]
+    band_mods, band_kp = kernel_inputs(sk, ms, "sine", device, batch=BAND_PATCHES)
+    for key, m, p in (("eval_local_err", mods[:LOCAL_BATCH].contiguous(), kp),
+                      ("eval_band_err", band_mods, band_kp)):
+        args = (m, p.base, p.s_w, p.s_b, p.last_b)
+        got, again = (sk.siren_forward_cuda(*args, **ekw) for _ in range(2))
+        torch.cuda.synchronize()
+        want = sk.siren_forward_reference(*args, **ekw)
+        check(got.shape == want.shape == (m.shape[0], 576), f"eval B={m.shape[0]}: shape")
+        err = (got - want).abs()
+        mx, mean = err.max().item(), err.mean().item()
+        print(f"kernel vs plain [eval default, B={m.shape[0]}]: max |diff| {mx:.3e} (<= "
+              f"1e-4), mean {mean:.3e} (<= 1e-6); two calls bit for bit: "
+              f"{torch.equal(got, again)}")
+        check(bool(torch.isfinite(got).all()) and mx <= 1e-4 and mean <= 1e-6,
+              f"eval B={m.shape[0]}: kernel disagrees")
+        check(torch.equal(got, again), f"eval B={m.shape[0]}: differs between two calls")
+        out[key] = mx
+    out["band_inputs"] = (band_mods, band_kp)
+    return out
 
 
 # ---------------------------------------------------------------- phase 5
@@ -1465,6 +1557,424 @@ def online_sweep(pkg, tmp: pathlib.Path, device, card: str, vols) -> dict:
             "worst": worst.tolist()}
 
 
+# --------------------------------------------------------------- phase 13
+RANKS = 2  # processes sharing the one card
+RANK_CARD = "cuda:0"
+# The shapes phase 13 gives the kernels on each rank: a local train (and
+# validation) batch of TRAIN_BATCH / RANKS, and one eval piece of 3,200
+# patches (the halo fold: 16 slices' bands of 10 x 20 patch rows; --devices
+# 2: 8 whole slices of 20 x 20).
+LOCAL_BATCH = TRAIN_BATCH // RANKS
+BAND_PATCHES = VOLUMES * SLICES_PER_VOLUME * (SLICE_SIZE // 16) ** 2 // RANKS
+RANK_TIMEOUT = 600  # seconds a launch of the ranks may take
+DP_SEED = 11  # the base seed of phase 13's data-parallel steps
+DP_STEP_BAR = 1e-6  # the 2-rank dropout step against its emulation
+# one 2-rank SGD step (lr 1e-2, dropout off) against the one-process step,
+# the JAX package's own bars (tests/test_sharding.py): loss relative, params
+DP_SGD_LOSS_BAR, DP_SGD_PARAM_BAR = 1e-4, 1e-5
+# three epochs of Adam through the CLI, per-epoch losses relative: against
+# one process stepping on the ranks' two halves of every batch (the ranks'
+# own arithmetic), and against one process on the whole batch, where the
+# batch's sum runs in another order and Adam carries the rounding on (6.2e-4
+# measured on an H100 in bf16 and in fp32)
+MULTIRANK_HALVES_BAR = 1e-5
+MULTIRANK_LOSS_BAR = 2e-3
+# the test CLI's rows against the one-process rows (PSNR dB, SSIM, NRMSE):
+# --devices 2 (libraries' kernels at another batch) and the halo fold
+DP_ROW_BAR = 1e-5
+HALO_ROW_BAR = 1e-6
+
+
+def launch_ranks(tmp: pathlib.Path, tag: str, job: str, argv: list[str],
+                 rank_args: dict | None = None) -> list[dict]:
+    """Start RANKS processes of ``python chip_smoke.py --rank JOB REPORT
+    ARGV``, joined through the ``MRI_INR_*`` route (rank 0 serving the
+    rendezvous on a free local port), each on cuda:0, and return their
+    reports (with their stdout). A rank that fails, or a launch that
+    outlives RANK_TIMEOUT, fails the phase with every rank's stderr; no rank
+    is left running."""
+    d = tmp / f"ranks_{tag}"
+    d.mkdir(parents=True)
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR", "MASTER_PORT")}
+    with socket.socket() as s:  # a free port, which rank 0 binds next
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env.update(MRI_INR_COORDINATOR=f"127.0.0.1:{port}",
+               MRI_INR_NUM_PROCESSES=str(RANKS), MRI_INR_DIST_TIMEOUT="300")
+    procs = []
+    for r in range(RANKS):
+        cmd = [sys.executable, str(REPO / "chip_smoke.py"), "--rank", job,
+               str(d / f"report{r}.json"), *argv, *(rank_args or {}).get(r, [])]
+        with open(d / f"rank{r}.out", "w") as out, open(d / f"rank{r}.err", "w") as err:
+            procs.append(subprocess.Popen(cmd, cwd=REPO, stdout=out, stderr=err,
+                                          env={**env, "MRI_INR_PROCESS_ID": str(r)}))
+    deadline, codes = time.monotonic() + RANK_TIMEOUT, []
+    try:
+        for p in procs:
+            codes.append(p.wait(timeout=max(1.0, deadline - time.monotonic())))
+    except subprocess.TimeoutExpired:
+        codes.append("timeout")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if codes != [0] * RANKS:
+        tails = "\n".join(f"--- rank {r}:\n" + (d / f"rank{r}.err").read_text()[-4000:]
+                          for r in range(RANKS))
+        raise RuntimeError(f"check failed: {tag}: rank exit codes {codes}\n{tails}")
+    reports = []
+    for r in range(RANKS):
+        rep = json.loads((d / f"report{r}.json").read_text())
+        rep["stdout"] = (d / f"rank{r}.out").read_text()
+        reports.append(rep)
+    return reports
+
+
+def dp_state(config, cli_train, trainer, device, dropout: str, optimizer: str, lr: str,
+             precision: str = "bf16"):
+    """configs/train.yaml's seeded model (with this dropout and precision)
+    and a train state with this optimizer and learning rate."""
+    cfg = config.load_train_configuration(REPO / "configs" / "train.yaml",
+                                          [f"model.dropout={dropout}",
+                                           f"training.precision={precision}"])
+    model = cli_train.build_model(cfg, device, log=lambda *_: None)
+    return cfg, trainer.create_train_state(model, optimizer, float(lr))
+
+
+def flat_params(model) -> np.ndarray:
+    return torch.cat([p.detach().reshape(-1) for p in model.parameters()]).cpu().numpy()
+
+
+def dp_batch(device) -> tuple:
+    """The global batch of phase 13's dropout step (seeded)."""
+    g = torch.Generator().manual_seed(DP_SEED)
+    return tuple(torch.rand((TRAIN_BATCH, 32, 32), generator=g).to(device) for _ in range(2))
+
+
+def rank_worker(args: list[str]) -> int:
+    """One rank of phase 13: ``--rank JOB REPORT [ARGS...]``. JOB ``train`` and
+    ``test`` call the CLI's ``main`` with ARGS (the entry point a user's
+    rank runs, here on cuda:0), ``step DROPOUT OPTIMIZER LR [PRECISION]`` one
+    data-parallel train step of configs/train.yaml's model with those
+    settings; every launch counter starts at 0. Times each
+    gradient all-reduce on the host's clock in two parts (the wait for the
+    peer, the reduction proper), the reduction's two copies alone at its
+    size, and each epoch with the trainer's own clock, and writes REPORT
+    (JSON; ``step`` also the parameters)."""
+    job, report, argv = args[0], pathlib.Path(args[1]), args[2:]
+    sys.path.insert(0, str(REPO))
+    import torch.distributed as dist
+
+    from mri_inr_tpu_torch.cli import test as cli_test
+    from mri_inr_tpu_torch.cli import train as cli_train
+    from mri_inr_tpu_torch.configuration import config
+    from mri_inr_tpu_torch.ops import siren_kernel as sk
+    from mri_inr_tpu_torch.ops import siren_train_kernel as stk
+    from mri_inr_tpu_torch.parallel import distributed, halo_fold
+    from mri_inr_tpu_torch.train import losses, trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    kernels = {"siren_train_fwd": stk.siren_chain_train_fwd_cuda,
+               "siren_train_bwd": stk.siren_chain_train_bwd_cuda,
+               "siren_forward": sk.siren_forward_cuda}
+    for k in kernels.values():
+        k.launches = 0
+    waits, reduces, sizes, epochs = [], [], [], []
+    reduce, post = distributed.all_reduce_mean_, trainer.Trainer._post_epoch
+
+    def timed_reduce(t, group):
+        if t.numel() == 1:  # a validation loss, not a step's gradients
+            return reduce(t, group)
+        # on the host's clock: the wait for the peer rank (its step's
+        # compute on the shared card, then a barrier), then the reduction
+        # proper once both have arrived (copy to the host, gloo's
+        # all-reduce, division, copy back)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dist.barrier(group=group)
+        t1 = time.perf_counter()
+        out = reduce(t, group)
+        torch.cuda.synchronize()
+        waits.append(1e3 * (t1 - t0))
+        reduces.append(1e3 * (time.perf_counter() - t1))
+        sizes.append(t.numel())
+        return out
+
+    def timed_epoch(self, epoch, train_loss, val_loss, secs):
+        epochs.append((epoch, secs, -(-len(self.train_dataset) // self.batch_size)))
+        return post(self, epoch, train_loss, val_loss, secs)
+
+    distributed.all_reduce_mean_, trainer.Trainer._post_epoch = timed_reduce, timed_epoch
+    out: dict = {}
+    try:
+        if job == "train":
+            t = cli_train.main(argv + ["--device", RANK_CARD])
+            out["steps"] = t.state.step
+        elif job == "test":
+            out["rows"] = len(cli_test.main(argv + ["--device", RANK_CARD]))
+        else:
+            device = distributed.initialize(RANK_CARD)
+            cfg, state = dp_state(config, cli_train, trainer, device, *argv)
+            step = trainer.make_train_step(state.model, losses.mse, 32, 24, use_pallas=True,
+                                           sin5=cfg.training.sin5,
+                                           group=distributed.collective_group())
+            out["loss"] = float(step(state, *dp_batch(device), DP_SEED))
+            np.save(report.with_suffix(".npy"), flat_params(state.model))
+        torch.cuda.synchronize()
+        out.update(rank=distributed.process_index(),
+                   launches={n: k.launches for n, k in kernels.items()}, epochs=epochs,
+                   wait_ms=waits, reduce_ms=reduces, exchange=dict(halo_fold.exchange_stats))
+        if sizes:  # the reduction's two copies alone, at its size, after the run
+            flat, copies = torch.zeros(sizes[0], device=RANK_CARD), []
+            for _ in range(20):
+                t0 = time.perf_counter()
+                flat.copy_(flat.cpu())
+                torch.cuda.synchronize()
+                copies.append(1e3 * (time.perf_counter() - t0))
+            out.update(copy_ms=statistics.median(copies), reduce_floats=sizes[0])
+    finally:
+        distributed.shutdown()
+    report.write_text(json.dumps(out))
+    return 0
+
+
+def halves_step_body(stk, tiling):
+    """A stand-in for the trainer's ``_make_step_body`` (fused path, one
+    process): every step computes the gradients of each rank's rows of the
+    batch apart, as the ranks do, and averages them in the collective's
+    order (the sum, then the division) before the same optimizer step. A
+    one-process run through it follows the ranks' arithmetic, where a
+    one-process run at the whole batch sums in another order."""
+
+    def make(model, loss_fn, outer, siren, *, fused, sin5, freeze_encoder, group=None):
+        check(fused and not freeze_encoder and group is None, "halves_step_body: fused only")
+
+        def body(state, fully, under, seed):
+            target = tiling.extract_center_batch(fully, outer, siren).float()
+            total = None
+            for r in range(RANKS):
+                rows = slice(r * len(under) // RANKS, (r + 1) * len(under) // RANKS)
+                state.optimizer.zero_grad(set_to_none=True)
+                pred = stk.fused_train_apply(model, under[rows], seed, sin5=sin5)
+                loss = loss_fn(pred.float(), target[rows])
+                loss.backward()
+                grads = [p.grad for p in model.parameters() if p.grad is not None]
+                flat = torch.cat([g.reshape(-1) for g in grads]
+                                 + [loss.detach().float().reshape(1)])
+                total = flat if total is None else total + flat
+            total = total / RANKS
+            offset = 0
+            for g in grads:
+                g.copy_(total[offset : offset + g.numel()].view_as(g))
+                offset += g.numel()
+            state.optimizer.step()
+            return total[-1]
+
+        return body
+
+    return make
+
+
+def multirank_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path,
+                   val_meta: pathlib.Path, card: str) -> dict:
+    """Phase 13: data parallelism over two ranks sharing the one card
+    (gloo; every collective crosses the host), each rank one process started
+    through the ``MRI_INR_*`` route: the train CLI (dropout off, TensorBoard
+    on) for two epochs and a resumed third against a one-process run; one
+    data-parallel step with dropout against its emulation here; the test
+    CLI with ``--devices 2`` against the one-process, ``--shard`` and
+    ``--merge-shards`` files; the test CLI's halo fold."""
+    cli_train, cli_test, ev, stk = pkg["cli_train"], pkg["cli_test"], pkg["ev"], pkg["stk"]
+    losses, trainer, tb = pkg["losses"], pkg["trainer"], pkg["tensorboard"]
+    label = f"two ranks sharing one card [{card}]"
+    train_argv = ["--config", str(REPO / "configs" / "train.yaml"),
+                  "--set", f"data.train.dataset={meta}", "--set", f"data.val.dataset={val_meta}",
+                  "--set", "training.save_interval=1000", "--set", "training.device_data=true",
+                  "--set", "model.dropout=0.0"]
+    out, elsewhere = tmp / "dp_train", tmp / "dp_rank1_never_writes"
+    dp = train_argv + ["--set", f"training.output_dir={out}",
+                       "--set", "training.data_axis_size=2", "--set", "training.logging=true"]
+    rank1 = {1: ["--set", f"training.output_dir={elsewhere}"]}
+    first = launch_ranks(tmp, "train", "train", dp + ["--set", "training.epochs=2"], rank1)
+    resumed = launch_ranks(tmp, "resume", "train", dp + ["--set", "training.epochs=3", "--set",
+                                                         "training.continue_training=true"],
+                           rank1)
+    runs = list(out.iterdir())
+    check(len(runs) == 1, f"the two ranks made {len(runs)} run directories")
+    run = runs[0]
+    check(not elsewhere.exists(), "rank 1 wrote artifacts")
+    check(sorted(p.name for p in (run / "checkpoints").iterdir())
+          == ["step_00000032", "step_00000048"], "2-rank checkpoints")
+    check(all("restored step 32; continuing at epoch 2" in r["stdout"] for r in resumed),
+          "the checkpoint was not restored on every rank")
+    check(all("data-parallel over 2 ranks" in r["stdout"] for r in first + resumed),
+          "the per-step epoch of a data-parallel run was not logged")
+    check([r["steps"] for r in first] == [32, 32] and [r["steps"] for r in resumed] == [48, 48],
+          "steps of the 2-rank runs")
+    launches = {}
+    for r in range(RANKS):
+        got = {k: first[r]["launches"][k] + resumed[r]["launches"][k]
+               for k in first[r]["launches"]}
+        print(f"2-rank train CLI, rank {r}: launches {got} (2 epochs + 1 resumed of 16 steps "
+              "of a local batch of 200)")
+        check(first[r]["launches"]["siren_train_fwd"] == 32
+              and first[r]["launches"]["siren_train_bwd"] == 32
+              and resumed[r]["launches"]["siren_train_fwd"] == 16
+              and resumed[r]["launches"]["siren_train_bwd"] == 16,
+              f"rank {r}: train kernel launches != its steps")
+        # validation at a local 200: the initial errors (16 + 4 batches) and
+        # 4 batches an epoch, in both runs
+        check(got["siren_forward"] == 2 * (16 + 4) + 3 * 4, f"rank {r}: eval forward launches")
+        launches[r] = got
+
+    single = cli_train.main(train_argv + ["--set", f"training.output_dir={tmp / 'dp_single'}",
+                                          "--set", "training.epochs=3"])
+    # the witness: one process again, every step's gradients computed on the
+    # ranks' two halves of the batch and averaged as the collective does
+    make_body = trainer._make_step_body
+    trainer._make_step_body = halves_step_body(stk, pkg["tiling"])
+    try:
+        halves = cli_train.main(train_argv + [
+            "--set", f"training.output_dir={tmp / 'dp_halves'}", "--set", "training.epochs=3"])
+    finally:
+        trainer._make_step_body = make_body
+    scalars = tb.read_scalars(run / "tensorboard")
+    check(sorted(scalars) == ["training_loss", "validation_loss"]
+          and [s for s, _ in scalars["training_loss"]] == [0, 1, 2]
+          and [s for s, _ in scalars["validation_loss"]] == [0, 1, 2],
+          f"TensorBoard scalars {scalars}")
+    rel = {"single": 0.0, "halves": 0.0}
+    for tag, key in (("training_loss", "train_loss"), ("validation_loss", "val_loss")):
+        for (step, value), one, two in zip(scalars[tag], single._progress, halves._progress):
+            for name, row in (("single", one), ("halves", two)):
+                rel[name] = max(rel[name], abs(value - row[key]) / abs(row[key]))
+            print(f"epoch {step} {key}: 2 ranks (TensorBoard, float32) {value:.7f}, one "
+                  f"process {one[key]:.7f}, one process on the two halves {two[key]:.7f}")
+    print(f"2-rank train CLI, dropout off, bf16, Adam, 3 epochs: max relative per-epoch loss "
+          f"difference from one process on the two halves of every batch {rel['halves']:.3e} "
+          f"(<= {MULTIRANK_HALVES_BAR:g}), from one process on the whole batch "
+          f"{rel['single']:.3e} (<= {MULTIRANK_LOSS_BAR:g}: the order of the batch's sum)")
+    check(rel["halves"] <= MULTIRANK_HALVES_BAR,
+          "2-rank losses disagree with one process on the two halves")
+    check(rel["single"] <= MULTIRANK_LOSS_BAR, "2-rank losses disagree with the one-process run")
+    for r, rep in enumerate(first + resumed):
+        if rep is resumed[0]:
+            print("  (resumed run)")
+        secs = [f"epoch {e}: {n / s:.2f} steps/s" for e, s, n in rep["epochs"]]
+        wait, red = statistics.median(rep["wait_ms"]), statistics.median(rep["reduce_ms"])
+        print(f"rank {rep['rank']}: {'; '.join(secs)}; a step's gradient all-reduce "
+              f"{wait + red:.4f} ms (medians of {len(rep['reduce_ms'])} steps, host clock): "
+              f"waiting for the peer rank {wait:.4f} ms, then the reduction "
+              f"{red:.4f} ms (of {rep['reduce_floats']} floats, through the host; its two "
+              f"copies alone {rep['copy_ms']:.4f} ms) [{label}]")
+
+    # one step with dropout: each rank its own stream; Adam on the mean of
+    # the two local gradients, emulated here with the rank seeds
+    step_reports = launch_ranks(tmp, "step", "step", ["0.1", "adam", "1e-4"])
+    got = [np.load(tmp / "ranks_step" / f"report{r}.npy") for r in range(RANKS)]
+    check(np.array_equal(got[0], got[1]), "the ranks' parameters differ after the step")
+    cfg, state = dp_state(pkg["config"], cli_train, trainer, device, "0.1", "adam", "1e-4")
+    start = flat_params(state.model)
+    fully, under = dp_batch(device)
+    grads = []
+    for r in range(RANKS):
+        state.model.zero_grad(set_to_none=True)
+        rows = [t[r * TRAIN_BATCH // RANKS : (r + 1) * TRAIN_BATCH // RANKS]
+                for t in (fully, under)]
+        pred = stk.fused_train_apply(state.model, rows[1], trainer.step_seed(DP_SEED, 0, r),
+                                     sin5=cfg.training.sin5)
+        losses.mse(pred.float(), pkg["tiling"].extract_center_batch(rows[0], 32, 24).float()
+                   ).backward()
+        grads.append([p.grad.clone() for p in state.model.parameters()])
+    for p, g0, g1 in zip(state.model.parameters(), *grads):
+        p.grad = (g0 + g1) / 2
+    state.optimizer.step()
+    want = flat_params(state.model)
+    err, moved = float(np.abs(got[0] - want).max()), float(np.abs(want - start).max())
+    print(f"2-rank train step, dropout 0.1, Adam: parameters against Adam on the mean of the "
+          f"two ranks' local steps emulated in one process: max |diff| {err:.3e} (<= "
+          f"{DP_STEP_BAR:g}); the step moved them by up to {moved:.3e}; launches "
+          f"{[r['launches'] for r in step_reports]}")
+    check(err <= DP_STEP_BAR and moved > 1e-5, "the 2-rank dropout step disagrees")
+
+    # one SGD step without dropout against the one-process step at B=400:
+    # the JAX package's test of its sharded step, at full width
+    sgd_reports = launch_ranks(tmp, "sgd", "step", ["0.0", "sgd", "1e-2"])
+    got = np.load(tmp / "ranks_sgd" / "report0.npy")
+    cfg, state = dp_state(pkg["config"], cli_train, trainer, device, "0.0", "sgd", "1e-2")
+    step = trainer.make_train_step(state.model, losses.mse, 32, 24, use_pallas=True,
+                                   sin5=cfg.training.sin5)
+    start = flat_params(state.model)
+    loss = float(step(state, *dp_batch(device), DP_SEED))
+    want = flat_params(state.model)
+    rel = abs(sgd_reports[0]["loss"] - loss) / loss
+    err, moved = float(np.abs(got - want).max()), float(np.abs(want - start).max())
+    print(f"2-rank SGD step (lr 1e-2, dropout off) against the one-process step at batch "
+          f"{TRAIN_BATCH}: loss {sgd_reports[0]['loss']:.7f} vs {loss:.7f} (relative "
+          f"{rel:.3e} <= {DP_SGD_LOSS_BAR:g}), parameters max |diff| {err:.3e} (<= "
+          f"{DP_SGD_PARAM_BAR:g}; the step moved them by up to {moved:.3e})")
+    check(rel <= DP_SGD_LOSS_BAR and err <= DP_SGD_PARAM_BAR and moved > 1e-4,
+          "the 2-rank step disagrees with the one-process step")
+    step_reports = [{"launches": {k: a["launches"][k] + b["launches"][k] for k in a["launches"]}}
+                    for a, b in zip(step_reports, sgd_reports)]
+
+    # the test CLI over the two ranks, its rows gathered; one process, and
+    # --shard / --merge-shards beside it
+    def test_argv(out_dir, *extra):
+        sets = [f"data.dataset={meta}", f"data.model_path={run}", f"data.output_dir={out_dir}",
+                "data.output_name=dp", "data.visual_samples=0", *extra]
+        return ["--config", str(REPO / "configs" / "test.yaml")] + [
+            x for item in sets for x in ("--set", item)]
+
+    rows_of = lambda d: ev.read_metrics_csv(d / "dp" / "metrics_error.csv")
+    sweep = launch_ranks(tmp, "test", "test", test_argv(tmp / "dp_eval") + ["--devices", "2"],
+                         {1: ["--set", f"data.output_dir={elsewhere}"]})
+    check(not elsewhere.exists(), "rank 1 of the test CLI wrote artifacts")
+    for i in range(RANKS):
+        cli_test.main(test_argv(tmp / "dp_shards") + ["--shard", f"{i}:{RANKS}"])
+    cli_test.main(test_argv(tmp / "dp_shards") + ["--merge-shards"])
+    cli_test.main(test_argv(tmp / "dp_one"))
+    ranked, merged, one = (rows_of(tmp / d) for d in ("dp_eval", "dp_shards", "dp_one"))
+    total = VOLUMES * SLICES_PER_VOLUME
+    by_id = {r.slice_id: r for r in one}
+    row_gap = lambda rows: max(max(abs(h.psnr - by_id[h.slice_id].psnr),
+                                   abs(h.ssim - by_id[h.slice_id].ssim),
+                                   abs(h.nrmse - by_id[h.slice_id].nrmse)) for h in rows)
+    gap = row_gap(ranked)
+    print(f"test CLI --devices 2: {len(ranked)} rows gathered on every rank "
+          f"({[r['rows'] for r in sweep]}); equal to the --shard + --merge-shards file "
+          f"row for row: {ranked == merged}; against the one-process rows max |diff| "
+          f"{gap:.3e} (<= {DP_ROW_BAR:g}: one piece of 16 slices there, of 8 a rank here, "
+          f"so cuDNN and cuBLAS run the encoder and modulator at another batch); launches "
+          f"{[r['launches'] for r in sweep]}")
+    check(len(ranked) == total and ranked == merged, "gathered rows != merged shard rows")
+    check(sorted(by_id) == sorted(r.slice_id for r in ranked) and gap <= DP_ROW_BAR,
+          "gathered rows disagree with the one-process rows")
+
+    # the halo fold: each rank reconstructs half the patch rows of every slice
+    halo = launch_ranks(tmp, "halo", "test",
+                        test_argv(tmp / "dp_halo", "data.halo_fold=true") + ["--devices", "2"])
+    hrows = rows_of(tmp / "dp_halo")
+    worst = row_gap(hrows)
+    ex = [r["exchange"] for r in halo]
+    print(f"test CLI halo fold over 2 ranks: {len(hrows)} rows, max |diff| against the "
+          f"one-process rows {worst:.3e} (<= {HALO_ROW_BAR:g}); halo exchanges "
+          f"{[e['calls'] for e in ex]}, "
+          + ", ".join(f"rank {r}: {1e3 * e['seconds'] / total:.4f} ms a slice "
+                      f"({1e3 * e['seconds'] / max(e['calls'], 1):.4f} ms an exchange)"
+                      for r, e in enumerate(ex))
+          + f"; launches {[r['launches'] for r in halo]} [{label}]")
+    check(len(hrows) == total and worst <= HALO_ROW_BAR, "halo-fold rows disagree")
+    for r in range(RANKS):
+        for rep in (step_reports[r], sweep[r], halo[r]):
+            for k, n in rep["launches"].items():
+                launches[r][k] += n
+    return {"launches": launches}
+
+
 def time_train_steps(pkg, device) -> dict:
     """One whole train step at the width and batch of configs/train.yaml:
     fused kernels, and the module path under autograd for comparison."""
@@ -1682,6 +2192,8 @@ def main() -> int:
         print(f"chip_smoke: the mri_inr_tpu_torch package is not beside {__file__}",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--rank"]:  # one rank of phase 13
+        return rank_worker(sys.argv[2:])
     sys.path.insert(0, str(REPO))
     from mri_inr_tpu_torch import native
     from mri_inr_tpu_torch.cli import preprocess as cli_preprocess
@@ -1696,8 +2208,9 @@ def main() -> int:
     from mri_inr_tpu_torch.ops import fft_kernel as fk
     from mri_inr_tpu_torch.ops import siren_kernel as sk
     from mri_inr_tpu_torch.ops import siren_train_kernel as stk
+    from mri_inr_tpu_torch.ops import tiling
     from mri_inr_tpu_torch.train import losses, trainer
-    from mri_inr_tpu_torch.utils import profiling, visualization
+    from mri_inr_tpu_torch.utils import profiling, tensorboard, visualization
 
     device = torch.device("cuda", torch.cuda.current_device())
     card = card_line()
@@ -1716,12 +2229,13 @@ def main() -> int:
     cmp = compare_kernel(sk, ms, device)
     cmp_int8 = compare_int8_kernel(sk, ms, device)
     cmp_train = compare_train_kernels(sk, stk, ms, device)
+    cmp_local = compare_local_kernels(sk, stk, ms, trainer, cmp, cmp_train, device)
     cmp_dft = compare_dft_kernel(fk, synthetic, kspace, device)
 
     pkg = dict(config=config, dataset=dataset, synthetic=synthetic, preprocessing=preprocessing,
                ev=ev, ms=ms, sk=sk, stk=stk, fk=fk, cli_train=cli_train, cli_test=cli_test,
                cli_preprocess=cli_preprocess, train_encoder=train_encoder, losses=losses,
-               trainer=trainer, online=online,
+               trainer=trainer, online=online, tiling=tiling, tensorboard=tensorboard,
                visualization=visualization, profiling=profiling)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
@@ -1737,10 +2251,13 @@ def main() -> int:
         qnt = quantized_path(pkg, tmp, device, pre["meta"], trn["run_dir"])
         ptr = pretraining_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card)
         onl = online_path(pkg, tmp, device, card)
+        mr = multirank_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card)
         time_preprocessing(pkg, tmp, device, card)
+    per_rank = lambda name: [mr["launches"][r][name] for r in range(RANKS)]
 
     # ---- eval forward kernel
     mods, kp = cmp["inputs"]
+    band_mods, band_kp = cmp_local.pop("band_inputs")
     args = (mods, kp.base, kp.s_w, kp.s_b, kp.last_b)
     # W^T as the main path hands it over (packed once by make_apply_fn)
     kw = dict(num_layers=5, sin7=True, sin5=True, s_wt=kp.s_w.transpose(1, 2).contiguous())
@@ -1755,7 +2272,14 @@ def main() -> int:
         nbytes_of(*args) + batch * seq * 4, card,
         f32_ops=siren_f32_ops(batch * seq, hidden, layers, "eval"),
         launches_train_path=trn["eval"], launches_pretraining_path=ptr["eval"],
-        launches_online_path=onl["eval"] + onl["sweep"]["eval"])]
+        launches_online_path=onl["eval"] + onl["sweep"]["eval"],
+        launches_multirank_path_per_rank=per_rank("siren_forward"),
+        ms_per_rank_at_local_batch=cuda_median_ms(lambda: sk.siren_forward_cuda(
+            mods[:LOCAL_BATCH].contiguous(), *args[1:], **kw)), local_batch=LOCAL_BATCH,
+        max_abs_err_at_local_batch=cmp_local["eval_local_err"],
+        ms_per_rank_at_band=cuda_median_ms(lambda: sk.siren_forward_cuda(
+            band_mods, band_kp.base, band_kp.s_w, band_kp.s_b, band_kp.last_b, **kw)),
+        band_patches=BAND_PATCHES, max_abs_err_at_band=cmp_local["eval_band_err"])]
     print(f"evaluate_files_device steady: bf16 chain {e2e['bf16_slices_per_sec']:.2f} "
           f"slices/s, int8 chain {e2e['int8_slices_per_sec']:.2f} slices/s "
           f"({VOLUMES * SLICES_PER_VOLUME} slices in {e2e['pieces']} batched piece(s), median "
@@ -1781,6 +2305,7 @@ def main() -> int:
     tkw = dict(num_layers=5, dropout_rate=0.1, sin5=True)
     # W^T as the train op hands it to the forward (made once a step)
     s_wt = targs[3].transpose(1, 2).contiguous()
+    local_targs = (targs[0], targs[1][:LOCAL_BATCH].contiguous(), *targs[2:])
     chain = TRAIN_BATCH * seq * hidden * hidden * (layers - 1)
     records.append(kernel_record(
         "siren_train_fwd", "mri_inr_tpu/ops/siren_train_kernel.py:140", trn["fwd"],
@@ -1790,7 +2315,11 @@ def main() -> int:
                        warmup=1),
         2 * chain, nbytes_of(*targs) + TRAIN_BATCH * seq * 4, card,
         f32_ops=siren_f32_ops(TRAIN_BATCH * seq, hidden, layers, "train_fwd"),
-        launches_pretraining_path=ptr["fwd"], launches_online_path=onl["fwd"]))
+        launches_pretraining_path=ptr["fwd"], launches_online_path=onl["fwd"],
+        launches_multirank_path_per_rank=per_rank("siren_train_fwd"),
+        ms_per_rank_at_local_batch=cuda_median_ms(lambda: stk.siren_chain_train_fwd_cuda(
+            *local_targs, **tkw, s_wt=s_wt)), local_batch=LOCAL_BATCH,
+        max_abs_err_at_local_batch=cmp_local["fwd_err"]))
     grads = stk.siren_chain_train_bwd_cuda(*targs, cot, **tkw)
     parts = bwd_parts_ms(lambda: stk.siren_chain_train_bwd_cuda(*targs, cot, **tkw), card)
     # the gradient needs the forward's product, dW and dx per hidden layer:
@@ -1805,7 +2334,11 @@ def main() -> int:
         6 * chain, nbytes_of(*targs, cot, *grads), card,
         executed_flops=2 * chain * (3 * layers - 4 + layers - 1) // (layers - 1),
         f32_ops=siren_f32_ops(TRAIN_BATCH * seq, hidden, layers, "train_bwd"),
-        launches_pretraining_path=ptr["bwd"], launches_online_path=onl["bwd"], **parts))
+        launches_pretraining_path=ptr["bwd"], launches_online_path=onl["bwd"],
+        launches_multirank_path_per_rank=per_rank("siren_train_bwd"),
+        ms_per_rank_at_local_batch=cuda_median_ms(lambda: stk.siren_chain_train_bwd_cuda(
+            *local_targs, cot[:LOCAL_BATCH].contiguous(), **tkw)), local_batch=LOCAL_BATCH,
+        max_abs_err_at_local_batch=cmp_local["bwd_err"], **parts))
 
     # ---- DFT kernel: the preprocessing call (inverse, magnitude) at one
     # fastMRI brain volume; the other shapes beside it
@@ -1835,6 +2368,17 @@ def main() -> int:
             launches_online_path=onl["dft"] + onl["sweep"]["dft"]))
         print(f"dft2c {shape}: the FFT kernel takes {t_kernel / t_lib:.2f}x the torch.fft "
               f"route's time [{card}]")
+    for rec in records:
+        if "ms_per_rank_at_local_batch" in rec:
+            band = ("" if "band_patches" not in rec else
+                    f"; at a piece of {rec['band_patches']} patches "
+                    f"{rec['ms_per_rank_at_band']:.4f} ms/call, max |diff| "
+                    f"{rec['max_abs_err_at_band']:.3e}")
+            print(f"{rec['name']} at a rank's local batch of {rec['local_batch']} (phase 13): "
+                  f"{rec['ms_per_rank_at_local_batch']:.4f} ms/call, timed alone, max |diff| "
+                  f"from the plain version {rec['max_abs_err_at_local_batch']:.3e}{band}; "
+                  f"launches per rank on the 2-rank path "
+                  f"{rec['launches_multirank_path_per_rank']} [{card}]")
     secs = trn["epoch_seconds"]
     med, n = statistics.median(secs), trn["steps_per_epoch"]
     print(f"steady graphed train epochs through the CLI (device_data, {n} steps of batch "

@@ -22,6 +22,14 @@ directory of raw ``.h5`` k-space volumes as ``data.dataset`` and scores the
 slices the ``OnlineKspaceDataset`` reconstructs on the device with the
 offline pipeline's fixed masks (no ``.npy`` files; ``data.test_files`` is
 refused); with ``data.device_sweep`` no image data crosses to the host.
+
+Over N ranks (``torchrun --nproc-per-node N -m mri_inr_tpu_torch.cli.test
+...`` or the ``MRI_INR_*`` triple, ``parallel/distributed.py``) rank ``i``
+scores the sampler's shard ``i:N`` and the rows are gathered, so the
+primary writes the artifacts a one-process run writes, visual samples
+included; ``--devices`` is the number of ranks the sweep spans (None: all
+started). With ``data.halo_fold=true`` the ranks split each slice's patch
+rows instead of the files (``SliceReconstructor(halo=True)``).
 """
 
 from __future__ import annotations
@@ -39,17 +47,22 @@ from mri_inr_tpu_torch.data.online import OnlineKspaceDataset, OnlineSampler
 from mri_inr_tpu_torch.eval import evaluate as ev
 from mri_inr_tpu_torch.models import modulated_siren as ms
 from mri_inr_tpu_torch.ops.siren_kernel import make_apply_fn
+from mri_inr_tpu_torch.parallel import distributed
 from mri_inr_tpu_torch.train import checkpoint as ckpt_lib
 from mri_inr_tpu_torch.utils import visualization
-from mri_inr_tpu_torch.utils.device import resolve_device
 
 
-def _reject_unported(cfg) -> None:
-    ecfg = cfg.data
-    if ecfg.halo_fold:
-        raise NotImplementedError(
-            "data.halo_fold (the distributed fold over a device mesh) is not ported "
-            "yet (ROADMAP queue 1, item 17)")
+def resolve_devices(devices: int | None) -> int:
+    """The ranks the sweep spans: ``--devices``, None for all ranks started;
+    another count than those ranks raises."""
+    world = distributed.process_count()
+    if devices not in (None, world):
+        raise ValueError(
+            f"--devices {devices} but {world} rank(s) were started: start {devices} "
+            f"(torchrun --nproc-per-node {devices} -m mri_inr_tpu_torch.cli.test ..., or "
+            f"MRI_INR_NUM_PROCESSES={devices} with MRI_INR_COORDINATOR and "
+            "MRI_INR_PROCESS_ID per rank)")
+    return world
 
 
 def _restore(model: torch.nn.Module, model_path: pathlib.Path) -> str:
@@ -66,8 +79,9 @@ def _restore(model: torch.nn.Module, model_path: pathlib.Path) -> str:
     else:
         raise NotImplementedError(
             f"data.model_path={str(model_path)!r} holds no {ckpt_lib.STATE_FILE}; if it is "
-            "an Orbax checkpoint of the JAX package, loading it needs the checkpoint "
-            "interop tool (ROADMAP queue 1, item 18)")
+            "a run directory of the JAX package (Orbax), convert it first: python "
+            f"scripts/torch_checkpoint_interop.py jax-to-torch run --run-dir {model_path} "
+            "--out <port run dir>")
     # weights_only: a checkpoint holds tensors and plain containers only
     payload = torch.load(model_path / ckpt_lib.STATE_FILE, map_location="cpu",
                          weights_only=True)
@@ -109,8 +123,10 @@ def _render_visual_sample(reconstructor, pair, output_dir: pathlib.Path) -> None
 
 def evaluate(cfg, device: torch.device, shard: str | None = None,
              ) -> tuple[list[ev.SliceResult], pathlib.Path]:
-    """Everything up to the metric rows: restore, visual pass, metric pass.
-    Returns (rows, output directory)."""
+    """Everything up to the metric rows: restore, visual pass (the primary
+    rank's), metric pass (every rank's shard, or with ``data.halo_fold``
+    every rank's rows of every slice), the rows gathered. Returns (rows,
+    output directory); every rank returns every row."""
     ecfg, mcfg = cfg.data, cfg.model
     model = ms.from_config(mcfg, generator=torch.Generator().manual_seed(0), device=device)
     t_restore = time.perf_counter()
@@ -118,7 +134,9 @@ def evaluate(cfg, device: torch.device, shard: str | None = None,
     print(f"restored {what} ({time.perf_counter() - t_restore:.1f}s)")
 
     output_dir = pathlib.Path(ecfg.output_dir) / ecfg.output_name
-    output_dir.mkdir(parents=True, exist_ok=True)
+    primary, world = distributed.is_primary(), distributed.process_count()
+    if primary:
+        output_dir.mkdir(parents=True, exist_ok=True)
 
     if ecfg.online:
         if ecfg.test_files:
@@ -143,10 +161,17 @@ def evaluate(cfg, device: torch.device, shard: str | None = None,
         if ecfg.test_files:
             visual_sampler = MRISampler(ecfg.dataset, test_files=list(ecfg.test_files),
                                         **sampler_kwargs)
+    if shard and world > 1:
+        raise ValueError("--shard I:N is one process's share; over ranks each rank takes "
+                         "its shard itself")
     if shard:
         i, n = (int(x) for x in shard.split(":"))
         sampler = sampler.shard(i, n)
         print(f"shard {i}/{n}: {len(sampler)} slices")
+    elif world > 1 and not ecfg.halo_fold:
+        i = distributed.process_index()
+        sampler = sampler.shard(i, world)
+        print(f"rank shard {i}/{world}: {len(sampler)} slices")
 
     reconstructor = ev.SliceReconstructor(
         make_apply_fn(model, use_pallas=mcfg.use_pallas, sin_bf16=ecfg.sin_bf16,
@@ -154,10 +179,18 @@ def evaluate(cfg, device: torch.device, shard: str | None = None,
                       device=device),
         outer_patch_size=mcfg.outer_patch_size, inner_patch_size=mcfg.inner_patch_size,
         siren_patch_size=mcfg.siren_patch_size, patch_bucket=ecfg.batch_patches,
-        device=device)
+        device=device, halo=ecfg.halo_fold,
+        group=distributed.collective_group() if world > 1 else None)
 
-    for _ in range(ecfg.visual_samples):
-        _render_visual_sample(reconstructor, visual_sampler.next_sample(), output_dir)
+    # in halo mode every rank takes part in each slice (and advances the
+    # sampler alike); the primary alone writes the visual artifacts
+    takes_part = primary or (ecfg.halo_fold and world > 1)
+    for _ in range(ecfg.visual_samples if takes_part else 0):
+        pair = visual_sampler.next_sample()
+        if primary:
+            _render_visual_sample(reconstructor, pair, output_dir)
+        else:
+            reconstructor(pair.fully_sampled, pair.undersampled)
 
     t_metric = time.perf_counter()
     if ecfg.device_sweep:
@@ -172,7 +205,9 @@ def evaluate(cfg, device: torch.device, shard: str | None = None,
     metric_secs = time.perf_counter() - t_metric
     print(f"metric pass: {len(results)} slices in {metric_secs:.1f}s "
           f"({len(results) / max(metric_secs, 1e-9):.1f} slices/s)")
-    return ev.gather_shard_results(results), output_dir
+    if not ecfg.halo_fold:  # in halo mode every rank scored every slice
+        results = ev.gather_shard_results(results)
+    return results, output_dir
 
 
 def main(argv: list[str] | None = None) -> list[ev.SliceResult]:
@@ -183,7 +218,7 @@ def main(argv: list[str] | None = None) -> list[ev.SliceResult]:
     parser.add_argument("--device", default=None,
                         help="cuda (default; raises without a card) or cpu")
     parser.add_argument("--devices", type=int, default=None,
-                        help="device count of the sweep's mesh; only 1 is ported")
+                        help="ranks the sweep spans (default: all ranks started)")
     parser.add_argument("--shard", default=None, metavar="I:N",
                         help="evaluate file shard I of N into metrics_shardI_N/")
     parser.add_argument("--merge-shards", action="store_true",
@@ -192,11 +227,6 @@ def main(argv: list[str] | None = None) -> list[ev.SliceResult]:
     args = parser.parse_args(argv)
 
     cfg = config_lib.load_test_configuration(args.config, args.overrides)
-    _reject_unported(cfg)
-    if args.devices not in (None, 1):
-        raise NotImplementedError(
-            "--devices > 1 (the sweep over a multi-device mesh) is not ported yet "
-            "(ROADMAP queue 1, item 17); run one --shard I:N per card and --merge-shards")
 
     if args.merge_shards:
         output_dir = pathlib.Path(cfg.data.output_dir) / cfg.data.output_name
@@ -205,8 +235,11 @@ def main(argv: list[str] | None = None) -> list[ev.SliceResult]:
         print(f"merged {len(results)} rows into {output_dir}")
         return results
 
-    device = resolve_device(args.device)
+    device = distributed.initialize(args.device)
+    resolve_devices(args.devices)
     results, output_dir = evaluate(cfg, device, args.shard)
+    if not distributed.is_primary():
+        return results
     suffix = f"_shard{args.shard.replace(':', '_')}" if args.shard else ""
     metrics_dir = output_dir / f"metrics{suffix}" if suffix else output_dir
     summary = _write_artifacts(results, metrics_dir)
@@ -217,4 +250,7 @@ def main(argv: list[str] | None = None) -> list[ev.SliceResult]:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.shutdown()

@@ -19,12 +19,26 @@ the ``OnlineKspaceDataset`` remasks each epoch on the device when
 ``remask_each_epoch``; the validation split is online too when asked, or
 when it names no dataset and the train split is online, always with its
 masks fixed.
+
+Data-parallel training: start N ranks, each running this same command,
+
+    torchrun --nproc-per-node N -m mri_inr_tpu_torch.cli.train --config ...
+
+or with ``MRI_INR_COORDINATOR=host:port MRI_INR_NUM_PROCESSES=N
+MRI_INR_PROCESS_ID=i`` set for rank ``i`` (``parallel/distributed.py``).
+``training.data_axis_size`` is the number of ranks the step spans (None:
+all of them; any other count than the ranks started raises), and
+``training.batch_size`` the global batch, which the ranks split evenly.
+The primary's clock names the one run directory; only the primary writes
+``config.yaml``, the manifest, checkpoints, snapshots, logs and
+TensorBoard scalars (``training.logging``).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import datetime
 import pathlib
 
 import torch
@@ -34,20 +48,29 @@ from mri_inr_tpu_torch.configuration import config as config_lib
 from mri_inr_tpu_torch.data.dataset import MRIDataset, MRIDatasetLowMemory
 from mri_inr_tpu_torch.data.online import OnlineKspaceDataset
 from mri_inr_tpu_torch.models import modulated_siren as ms
+from mri_inr_tpu_torch.parallel import distributed
 from mri_inr_tpu_torch.train import checkpoint as ckpt_lib
 from mri_inr_tpu_torch.train import losses
 from mri_inr_tpu_torch.train.trainer import (Trainer, create_train_state,
                                              splice_pretrained_encoder)
-from mri_inr_tpu_torch.utils.device import resolve_device
 from mri_inr_tpu_torch.utils.profiling import device_trace
 
 
-def _reject_unported(cfg) -> None:
-    tcfg = cfg.training
-    if tcfg.data_axis_size not in (None, 1):
-        raise NotImplementedError(
-            "training.data_axis_size > 1 (data-parallel training) is not ported "
-            "yet (ROADMAP queue 1, item 17)")
+def resolve_data_axis(data_axis_size: int | None, batch_size: int) -> int:
+    """The ranks a train step spans: ``training.data_axis_size``, None for
+    all ranks started; another count than those ranks, or a global batch
+    they cannot split evenly, raises."""
+    world = distributed.process_count()
+    if data_axis_size not in (None, world):
+        raise ValueError(
+            f"training.data_axis_size={data_axis_size} but {world} rank(s) were started: "
+            f"start {data_axis_size} (torchrun --nproc-per-node {data_axis_size} -m "
+            "mri_inr_tpu_torch.cli.train ..., or MRI_INR_NUM_PROCESSES="
+            f"{data_axis_size} with MRI_INR_COORDINATOR and MRI_INR_PROCESS_ID per rank)")
+    if batch_size % world:
+        raise ValueError(f"training.batch_size={batch_size} is not divisible by the {world} "
+                         "ranks")
+    return world
 
 
 def _load_state(path: str, key: str) -> dict:
@@ -56,7 +79,8 @@ def _load_state(path: str, key: str) -> dict:
     if p.is_dir():
         raise NotImplementedError(
             f"{key}={path!r} is a directory (an Orbax checkpoint of the JAX package); "
-            "loading it needs the checkpoint interop tool (ROADMAP queue 1, item 18)")
+            "convert it first: python scripts/torch_checkpoint_interop.py jax-to-torch "
+            f"encoder --path {path} --model conv|vgg|perceptual --out <file.pt>")
     # weights_only: an encoder checkpoint is a state dict of tensors
     state = torch.load(p, map_location="cpu", weights_only=True)
     return state.get("model", state)
@@ -100,9 +124,10 @@ def build_loss_fn(cfg, device: torch.device):
     return losses.make_loss_fn(tcfg.criterion, state, cfg.model.siren_patch_size, device)
 
 
-def make_trainer(cfg, train_ds, val_ds, run_dir, device: torch.device, log=print) -> Trainer:
+def make_trainer(cfg, train_ds, val_ds, run_dir, device: torch.device, log=print,
+                 group=None) -> Trainer:
     """The seeded model, optimizer state, criterion and :class:`Trainer` of
-    ``cfg`` over the two datasets."""
+    ``cfg`` over the two datasets (over the ranks of ``group``, if any)."""
     tcfg, mcfg = cfg.training, cfg.model
     model = build_model(cfg, device, log)
     state = create_train_state(model, tcfg.optimizer, tcfg.lr)
@@ -117,7 +142,7 @@ def make_trainer(cfg, train_ds, val_ds, run_dir, device: torch.device, log=print
         outer_patch_size=mcfg.outer_patch_size, siren_patch_size=mcfg.siren_patch_size,
         base_seed=tcfg.seed + 1, tensorboard=tcfg.logging, use_pallas=use_pallas,
         device_data=tcfg.device_data, sin5=tcfg.sin5, freeze_encoder=tcfg.freeze_encoder,
-        device=device, log=log)
+        device=device, log=log, group=group)
 
 
 def main(argv: list[str] | None = None) -> Trainer:
@@ -128,11 +153,12 @@ def main(argv: list[str] | None = None) -> Trainer:
     parser.add_argument("--device", default=None,
                         help="cuda (default; raises without a card) or cpu")
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    device = distributed.initialize(args.device)
+    primary = distributed.is_primary()
 
     cfg = config_lib.load_train_configuration(args.config, args.overrides)
     tcfg, mcfg, dcfg = cfg.training, cfg.model, cfg.data
-    _reject_unported(cfg)
+    world = resolve_data_axis(tcfg.data_axis_size, tcfg.batch_size)
     if tcfg.debug_nans and tcfg.device_data and device.type == "cuda":
         raise ValueError(
             "training.debug_nans (anomaly detection) cannot run inside the CUDA graph of a "
@@ -140,20 +166,27 @@ def main(argv: list[str] | None = None) -> Trainer:
 
     # resume-vs-fresh: an explicit training.model_path pins the run dir,
     # otherwise the newest {name}_{timestamp} dir with its highest step
+    # the primary decides, and its clock names a new run dir, for every rank
     resume = None
-    if tcfg.continue_training:
+    if tcfg.continue_training and primary:
         if tcfg.model_path:
             run = pathlib.Path(tcfg.model_path)
             step = ckpt_lib.find_latest_step(run)
             resume = (run, step) if step is not None else None
         else:
             resume = ckpt_lib.resolve_resume(tcfg.output_dir, tcfg.output_name)
-        if resume:
-            print(f"resuming from {resume[0]} at step {resume[1]}")
-    run_dir = resume[0] if resume else ckpt_lib.new_run_dir(tcfg.output_dir,
-                                                            tcfg.output_name)
-    with open(run_dir / "config.yaml", "w") as f:
-        yaml.safe_dump(config_lib.to_dict(cfg), f, sort_keys=False)
+    stamp = datetime.datetime.now().strftime("%Y-%m-%d_%H-%M-%S")
+    resume, stamp = distributed.broadcast_from_primary((resume, stamp))
+    if resume:
+        print(f"resuming from {resume[0]} at step {resume[1]}")
+        run_dir = resume[0]
+    elif primary:
+        run_dir = ckpt_lib.new_run_dir(tcfg.output_dir, tcfg.output_name, stamp)
+    else:
+        run_dir = pathlib.Path(tcfg.output_dir) / f"{tcfg.output_name}_{stamp}"
+    if primary:
+        with open(run_dir / "config.yaml", "w") as f:
+            yaml.safe_dump(config_lib.to_dict(cfg), f, sort_keys=False)
     print(f"run dir: {run_dir}")
 
     val_split = dcfg.val
@@ -167,11 +200,14 @@ def main(argv: list[str] | None = None) -> Trainer:
                         remask=dcfg.train.remask_each_epoch)
     val_ds = _dataset(val_split, dcfg, mcfg, device, online=val_online)
     print(f"train patches: {len(train_ds)}, val patches: {len(val_ds)}")
-    train_ds.write_manifest(run_dir / "processed_files.txt")
+    if primary:
+        train_ds.write_manifest(run_dir / "processed_files.txt")
 
-    trainer = make_trainer(cfg, train_ds, val_ds, run_dir, device)
+    trainer = make_trainer(cfg, train_ds, val_ds, run_dir, device,
+                           group=distributed.collective_group() if world > 1 else None)
     initial_epoch = 0
     if resume:
+        distributed.sync_hosts("resume")
         ckpt_lib.restore_state(resume[0], resume[1], trainer.state)
         # an epoch runs ceil(n / batch) steps (epoch_index_batches)
         steps_per_epoch = max(1, -(-len(train_ds) // tcfg.batch_size))
@@ -181,11 +217,17 @@ def main(argv: list[str] | None = None) -> Trainer:
     if tcfg.debug_nans:
         torch.autograd.set_detect_anomaly(True)
     trainer.initial_errors()
-    with device_trace(tcfg.profile_dir):
+    profile_dir = tcfg.profile_dir
+    if profile_dir and world > 1:  # a trace a rank
+        profile_dir = pathlib.Path(profile_dir) / f"rank{distributed.process_index()}"
+    with device_trace(profile_dir):
         trainer.train(tcfg.epochs, initial_epoch)
     print(f"done; final step {trainer.state.step}; artifacts in {run_dir}")
     return trainer
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        distributed.shutdown()

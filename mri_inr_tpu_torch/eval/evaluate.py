@@ -22,11 +22,19 @@ time, also returns the images), :func:`evaluate_files_chunked` (``chunk``
 slices a stack, one copy back per chunk) and :func:`evaluate_files_device`
 (every shape group uploaded once and scored as one stack). ``--shard I:N``
 runs write ``metrics_shard*/`` directories that :func:`merge_shard_csvs`
-combines.
+combines; ranks that each swept their shard combine their rows with
+:func:`gather_shard_results`.
 
-Not carried over: the TPU mesh and halo fold, and the device sweep's padding
-to a bucket of slices and its ``steady_probe``, which exist to reuse compiled
-TPU programs; PyTorch compiles nothing per shape.
+``SliceReconstructor(halo=True, group=...)`` is the large-field-of-view
+mode: the ranks split each slice's patch rows, not the files; each runs
+the forward on its band of rows and folds it with the halo exchange of
+``parallel/halo_fold.py``, and the bands are gathered on every rank for
+the metrics. A slice whose patch-row count the ranks do not divide is
+reconstructed whole on every rank, as the JAX package falls back.
+
+Not carried over: the device sweep's padding to a bucket of slices and its
+``steady_probe``, which exist to reuse compiled TPU programs; PyTorch
+compiles nothing per shape.
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import torch
 
 from mri_inr_tpu_torch.eval import metrics as metrics_mod
 from mri_inr_tpu_torch.ops import tiling
+from mri_inr_tpu_torch.parallel import distributed, halo_fold
 from mri_inr_tpu_torch.utils.device import resolve_device
 
 #: the most patches one forward of a metric sweep takes: a stack runs in
@@ -72,18 +81,53 @@ class SliceReconstructor:
 
     ``apply_fn``: (N, outer, outer) tiles -> (N, siren, siren), e.g. from
     :func:`~mri_inr_tpu_torch.ops.siren_kernel.make_apply_fn`. ``device``
-    (default ``cuda``) is where images are placed and the pipeline runs."""
+    (default ``cuda``) is where images are placed and the pipeline runs.
+    ``halo=True`` with a process ``group`` of N > 1 ranks: every rank is
+    given the same slices and reconstructs its ``nv / N`` patch rows of
+    each, through the halo fold (module docstring); every rank returns the
+    same images and metrics."""
 
     def __init__(self, apply_fn, outer_patch_size: int = 32,
                  inner_patch_size: int = 16, siren_patch_size: int = 24,
                  patch_bucket: int = 512,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, halo: bool = False,
+                 group=None):
         self.apply_fn = apply_fn
         self.outer = outer_patch_size
         self.inner = inner_patch_size
         self.siren = siren_patch_size
         self.patch_bucket = patch_bucket
         self.device = resolve_device(device)
+        self.halo, self.group = halo, group
+        self.rank, self.world = distributed.rank_world(group)
+
+    def _halo_split(self, grid: tuple[int, int]) -> bool:
+        return self.halo and self.world > 1 and grid[0] % self.world == 0
+
+    def _reconstruct(self, patches: torch.Tensor, valid: torch.Tensor,
+                     grid: tuple[int, int], bucket: int = 1) -> torch.Tensor:
+        """(K, n, outer, outer) tiles and their (K, n) mask -> the (K, H', W')
+        weighted folds of the masked forward, one forward over the patches
+        (padded with zero tiles to a multiple of ``bucket``); in halo mode
+        over this rank's patch rows, then the halo fold and the bands
+        gathered."""
+        outer, inner, siren = self.outer, self.inner, self.siren
+        k = patches.shape[0]
+        halo = self._halo_split(grid)
+        if halo:
+            patches = halo_fold.local_patch_rows(patches, grid, self.rank, self.world)
+            valid = halo_fold.local_patch_rows(valid, grid, self.rank, self.world, dim=-1)
+        flat = patches.reshape(-1, outer, outer)
+        rows = flat.shape[0]
+        if _bucket(rows, bucket) > rows:
+            flat = torch.cat([flat, flat.new_zeros((_bucket(rows, bucket) - rows, outer, outer))])
+        pred = self.apply_fn(flat)[:rows].float()
+        pred = tiling.mask_black_patches(pred.reshape(k, -1, siren, siren), valid)
+        if not halo:
+            return tiling.patches_to_image_weighted_average(pred, grid, siren, inner)
+        band = halo_fold.sharded_patches_to_image_weighted_average(pred, grid, siren, inner,
+                                                                   self.group)
+        return halo_fold.gather_bands(band, self.group)
 
     def _run(self, fully_img: torch.Tensor, under_img: torch.Tensor,
              metrics_only: bool):
@@ -91,16 +135,12 @@ class SliceReconstructor:
         fold of unfiltered patches reproduces the image (every overlapping
         copy holds the same value), so the sweep skips both reference
         folds."""
-        outer, inner, siren = self.outer, self.inner, self.siren
+        outer, inner = self.outer, self.inner
         grid = tiling.grid_shape(*under_img.shape, inner)
         under_patches = tiling.image_to_patches(under_img, outer, inner)
-        n = under_patches.shape[0]
         valid = tiling.classify_black_patches(under_patches)
-        padded = under_patches.new_zeros((_bucket(n, self.patch_bucket), outer, outer))
-        padded[:n] = under_patches
-        pred = self.apply_fn(padded)[:n].float()
-        pred = tiling.mask_black_patches(pred, valid)
-        recon = tiling.patches_to_image_weighted_average(pred, grid, siren, inner)
+        recon = self._reconstruct(under_patches[None], valid[None], grid,
+                                  self.patch_bucket)[0]
         if metrics_only:
             return metrics_mod.image_metrics(fully_img.float(), recon)
         fully = tiling.patches_to_image(
@@ -123,7 +163,7 @@ class SliceReconstructor:
         forward a piece over its patches, unpadded, then its masks, folds
         and metrics, as :meth:`_run` does for one slice with
         ``metrics_only``."""
-        outer, inner, siren = self.outer, self.inner, self.siren
+        outer, inner = self.outer, self.inner
         k, height, width = under_stack.shape
         grid = tiling.grid_shape(height, width, inner)
         n = grid[0] * grid[1]
@@ -132,10 +172,7 @@ class SliceReconstructor:
         for start in range(0, k, per):
             fully, under = fully_stack[start : start + per], under_stack[start : start + per]
             patches = tiling.image_to_patches(under, outer, inner)  # (k', n, outer, outer)
-            valid = tiling.classify_black_patches(patches)
-            pred = self.apply_fn(patches.reshape(-1, outer, outer)).float()
-            pred = tiling.mask_black_patches(pred.reshape(-1, n, siren, siren), valid)
-            recon = tiling.patches_to_image_weighted_average(pred, grid, siren, inner)
+            recon = self._reconstruct(patches, tiling.classify_black_patches(patches), grid)
             m = metrics_mod.image_metrics(fully.float(), recon)
             cols.append(torch.stack([m["psnr"], m["ssim"], m["nrmse"]]))
         return torch.cat(cols, dim=1)
@@ -296,16 +333,13 @@ def read_metrics_csv(path: str | pathlib.Path) -> list[SliceResult]:
 
 
 def gather_shard_results(results: list[SliceResult]) -> list[SliceResult]:
-    """Combine the per-process rows of a multi-process sweep. One process:
-    identity. The all-gather across ``torch.distributed`` processes is not
-    ported yet."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise NotImplementedError(
-            "gathering eval rows across processes is not ported yet (ROADMAP queue 1, "
-            "item 17); run each shard with --shard I:N and merge with --merge-shards")
-    return list(results)
+    """Every rank's rows of a sweep over the ranks (counterpart of the JAX
+    package's ``gather_shard_results``): counts may differ, every rank
+    returns the combined list, rank 0's rows first. Rank ``r`` of ``N``
+    scores the sampler's shard ``r:N``, so the list is the one
+    :func:`merge_shard_csvs` reads from ``--shard r:N`` runs (for N up to
+    10: it reads the directories in name order). One process: identity."""
+    return [r for rows in distributed.all_gather_host_values(list(results)) for r in rows]
 
 
 def merge_shard_csvs(output_dir: str | pathlib.Path) -> list[SliceResult]:

@@ -33,8 +33,18 @@ In PyTorch's idiom:
   epoch. A dataset with ``materialize`` (the online k-space set) hands over
   its device tiles each epoch; one with ``fully_tiles`` is uploaded once.
 
-Not ported: the device mesh and ``shard_map`` step, TensorBoard scalars
-(``tensorboard=True`` raises).
+Data parallelism (the counterpart of the JAX package's ``shard_map`` step
+over a ``data`` mesh): given a process group, every rank takes its
+contiguous ``B / N`` rows of each global batch (``parallel/mesh.py``), runs
+the same forward and backward on them with its own dropout stream
+(:func:`step_seed` with the rank folded in) and averages loss and
+gradients over the ranks in one all-reduce of one flat buffer a step
+(``lax.pmean``) before the same optimizer step on every rank; the module
+path takes the same recipe (the JAX package keeps GSPMD there). Only the
+primary rank writes checkpoints, snapshots, the progress log and the
+TensorBoard scalars (``tensorboard=True``: ``training_loss`` and
+``validation_loss`` per epoch under ``run_dir/tensorboard``); every rank
+passes a barrier after a checkpoint.
 """
 
 from __future__ import annotations
@@ -56,7 +66,9 @@ from mri_inr_tpu_torch.ops import siren_kernel as sk
 from mri_inr_tpu_torch.ops import siren_train_kernel as stk
 from mri_inr_tpu_torch.ops import tiling
 from mri_inr_tpu_torch.ops.siren_kernel import make_apply_fn
+from mri_inr_tpu_torch.parallel import distributed, mesh
 from mri_inr_tpu_torch.train import checkpoint as ckpt_lib
+from mri_inr_tpu_torch.utils import tensorboard as tb_lib
 from mri_inr_tpu_torch.utils import visualization
 from mri_inr_tpu_torch.utils.device import module_device, resolve_device
 
@@ -121,10 +133,29 @@ def _freeze_encoder_grads(model: nn.Module) -> None:
             p.grad.zero_()
 
 
-def step_seed(base_seed: int, step: int) -> int:
+def step_seed(base_seed: int, step: int, rank: int = 0) -> int:
     """The dropout seed of train step ``step``: an integer in [0, 2^23)
-    (exact in float32), a pure function of (base_seed, step)."""
-    return int(np.random.default_rng([int(base_seed), int(step)]).integers(0, 2**23))
+    (exact in float32), a pure function of (base_seed, step, rank). Rank
+    ``r > 0`` of a data-parallel step folds its index in (the counterpart
+    of ``fold_in(rng, axis_index("data"))``); rank 0 draws the
+    single-process stream, as numpy would anyway: ``default_rng([b, s, 0])``
+    equals ``default_rng([b, s])``."""
+    key = [int(base_seed), int(step)] + ([int(rank)] if rank else [])
+    return int(np.random.default_rng(key).integers(0, 2**23))
+
+
+def _mean_over_ranks(model, loss: torch.Tensor, group) -> torch.Tensor:
+    """The step's ``pmean``: the gradients and the loss, flattened into one
+    buffer, averaged over the ranks by one all-reduce and written back;
+    returns the mean loss."""
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().float().reshape(1)])
+    distributed.all_reduce_mean_(flat, group)
+    offset = 0
+    for g in grads:
+        g.copy_(flat[offset : offset + g.numel()].view_as(g))
+        offset += g.numel()
+    return flat[-1]
 
 
 def _fused(model, use_pallas: bool) -> bool:
@@ -132,10 +163,12 @@ def _fused(model, use_pallas: bool) -> bool:
 
 
 def _make_step_body(model, loss_fn, outer: int, siren: int, *, fused: bool, sin5: bool,
-                    freeze_encoder: bool):
+                    freeze_encoder: bool, group=None):
     """``body(state, fully, under, seed) -> loss``: one optimizer step on
     ``state`` with the dropout ``seed`` (an int or a (1,) float32 tensor
-    holding one), ``state.step`` left alone."""
+    holding one), ``state.step`` left alone. With a ``group`` of more than
+    one rank the batch is this rank's rows, and loss and gradients are
+    averaged over the ranks before the optimizer step."""
     hidden_layers = [] if fused else list(model.net.layers)
 
     def forward(under: torch.Tensor, seed) -> torch.Tensor:
@@ -163,6 +196,8 @@ def _make_step_body(model, loss_fn, outer: int, siren: int, *, fused: bool, sin5
         loss.backward()
         if freeze_encoder:
             _freeze_encoder_grads(model)
+        if group is not None:
+            loss = _mean_over_ranks(model, loss, group)
         state.optimizer.step()
         return loss.detach()
 
@@ -170,15 +205,23 @@ def _make_step_body(model, loss_fn, outer: int, siren: int, *, fused: bool, sin5
 
 
 def make_train_step(model, loss_fn, outer: int, siren: int, *, use_pallas: bool = False,
-                    sin5: bool = False, freeze_encoder: bool = False):
+                    sin5: bool = False, freeze_encoder: bool = False, group=None):
     """Build ``step(state, fully, under, base_seed) -> loss`` (a 0-d tensor
-    on the batch's device, detached). ``state`` is updated in place."""
+    on the batch's device, detached). ``state`` is updated in place. With a
+    process ``group`` of N > 1 ranks (the counterpart of the JAX package's
+    ``mesh=``) every rank passes the same global batch, steps on its
+    :func:`~mri_inr_tpu_torch.parallel.mesh.local_rows` with its rank's
+    dropout seed, and returns the loss averaged over the ranks."""
+    rank, world = distributed.rank_world(group)
     body = _make_step_body(model, loss_fn, outer, siren, fused=_fused(model, use_pallas),
-                           sin5=sin5, freeze_encoder=freeze_encoder)
+                           sin5=sin5, freeze_encoder=freeze_encoder,
+                           group=group if world > 1 else None)
 
     def step(state: TrainState, fully: torch.Tensor, under: torch.Tensor,
              base_seed: int) -> torch.Tensor:
-        loss = body(state, fully, under, step_seed(base_seed, state.step))
+        if world > 1:
+            fully, under = (mesh.local_rows(t, rank, world) for t in (fully, under))
+        loss = body(state, fully, under, step_seed(base_seed, state.step, rank))
         state.step += 1
         return loss
 
@@ -186,16 +229,25 @@ def make_train_step(model, loss_fn, outer: int, siren: int, *, use_pallas: bool 
 
 
 def make_eval_step(model, loss_fn, outer: int, siren: int, *, use_pallas: bool = False,
-                   sin5: bool = False, device: str | torch.device | None = None):
+                   sin5: bool = False, device: str | torch.device | None = None,
+                   group=None):
     """Build ``eval_step(state, fully, under) -> loss`` through
     :func:`make_apply_fn`: the fused eval forward when training runs fused,
-    with ``sin5`` following the trainer's choice. Dropout is off."""
+    with ``sin5`` following the trainer's choice. Dropout is off. With a
+    ``group`` of N > 1 ranks each rank scores its rows of the global batch
+    and the loss is the mean of the ranks' losses."""
     apply_fn = make_apply_fn(model, use_pallas=use_pallas, sin5=sin5, device=device)
+    rank, world = distributed.rank_world(group)
 
     @torch.no_grad()
     def eval_step(state: TrainState, fully: torch.Tensor, under: torch.Tensor):
+        if world > 1:
+            fully, under = (mesh.local_rows(t, rank, world) for t in (fully, under))
         target = tiling.extract_center_batch(fully, outer, siren).float()
-        return loss_fn(apply_fn(under).float(), target)
+        loss = loss_fn(apply_fn(under).float(), target)
+        if world > 1:
+            loss = distributed.all_reduce_mean_(loss.reshape(1), group)[0]
+        return loss
 
     eval_step.apply_fn = apply_fn
     return eval_step
@@ -209,11 +261,11 @@ def make_epoch_perm(n: int, batch_size: int, seed: int, shuffle: bool) -> np.nda
     return np.stack(epoch_index_batches(n, batch_size, seed, shuffle)).astype(np.int32)
 
 
-def epoch_seeds(base_seed: int, step0: int, num_batches: int) -> np.ndarray:
+def epoch_seeds(base_seed: int, step0: int, num_batches: int, rank: int = 0) -> np.ndarray:
     """The dropout seeds of train steps ``step0 .. step0 + num_batches - 1``
-    (:func:`step_seed`) as the (num_batches,) float32 array an epoch's seed
-    buffer holds (every seed is below 2^23, so exact)."""
-    return np.array([step_seed(base_seed, s) for s in range(step0, step0 + num_batches)],
+    (:func:`step_seed`, of ``rank``) as the (num_batches,) float32 array an
+    epoch's seed buffer holds (every seed is below 2^23, so exact)."""
+    return np.array([step_seed(base_seed, s, rank) for s in range(step0, step0 + num_batches)],
                     np.float32)
 
 
@@ -279,14 +331,21 @@ class ScanEpoch:
     stream the replay runs on.
 
     On the CPU every epoch runs the same body as a plain loop over the same
-    buffers."""
+    buffers. So does every epoch of a data-parallel run (a ``group`` of N >
+    1 ranks), on the card too, since a collective under gloo cannot be
+    captured into a CUDA graph: each rank steps on its columns of ``perm``
+    with its rank's seeds, averages loss and gradients between steps, and
+    an eval epoch's loss is averaged over the ranks at its end."""
 
     def __init__(self, model, loss_fn, outer: int, siren: int, *, use_pallas: bool = False,
-                 sin5: bool = False, freeze_encoder: bool = False):
+                 sin5: bool = False, freeze_encoder: bool = False, group=None):
         self.model, self.loss_fn, self.outer, self.siren = model, loss_fn, outer, siren
         self.fused = _fused(model, use_pallas)
+        self.group = group
+        self.rank, self.world = distributed.rank_world(group)
         self._train_body = _make_step_body(model, loss_fn, outer, siren, fused=self.fused,
-                                           sin5=sin5, freeze_encoder=freeze_encoder)
+                                           sin5=sin5, freeze_encoder=freeze_encoder,
+                                           group=group if self.world > 1 else None)
         self._eval_apply = make_apply_fn(model, use_pallas=use_pallas, sin5=sin5,
                                          device=module_device(model))
         self._buffers: dict = {}
@@ -388,15 +447,19 @@ class ScanEpoch:
         t0 = time.perf_counter()
         device = fully_all.device
         nb = perm.shape[0]
-        seeds = (epoch_seeds(base_seed, state.step, nb) if train
+        seeds = (epoch_seeds(base_seed, state.step, nb, self.rank) if train
                  else np.zeros(nb, np.float32))
+        if self.world > 1:  # this rank's rows of every global batch
+            perm = np.ascontiguousarray(mesh.local_rows(perm.T, self.rank, self.world).T)
         key = (fully_all.data_ptr(), under_all.data_ptr(), tuple(fully_all.shape),
                tuple(perm.shape), train)
         bufs = self._stage(key, device, perm, seeds)
-        if device.type == "cuda":
+        if device.type == "cuda" and self.world == 1:
             loss = self._graphed(key, state, fully_all, under_all, bufs, train)
         else:
             loss = self._run(state, fully_all, under_all, bufs, train)
+            if self.world > 1 and not train:
+                loss = distributed.all_reduce_mean_(loss.reshape(1), self.group)[0]
         if train:
             state.step += nb
         self.launch_seconds = time.perf_counter() - t0
@@ -404,15 +467,20 @@ class ScanEpoch:
 
 
 def make_scan_epoch(model, loss_fn, outer: int, siren: int, *, use_pallas: bool = False,
-                    sin5: bool = False, freeze_encoder: bool = False) -> ScanEpoch:
+                    sin5: bool = False, freeze_encoder: bool = False,
+                    group=None) -> ScanEpoch:
     """The one-dispatch epoch over device-resident tiles (counterpart of the
     JAX package's ``make_scan_epoch``): see :class:`ScanEpoch`."""
     return ScanEpoch(model, loss_fn, outer, siren, use_pallas=use_pallas, sin5=sin5,
-                     freeze_encoder=freeze_encoder)
+                     freeze_encoder=freeze_encoder, group=group)
 
 
 class Trainer:
-    """Epoch loop + artifacts (checkpoints, snapshots, progress log)."""
+    """Epoch loop + artifacts (checkpoints, snapshots, progress log, and with
+    ``tensorboard`` the scalars ``training_loss`` and ``validation_loss``
+    per epoch in ``run_dir/tensorboard``). With a process ``group`` of N > 1
+    ranks every rank trains on its rows of each global batch and only the
+    primary writes artifacts."""
 
     def __init__(self, model, state: TrainState, loss_fn, train_dataset, val_dataset,
                  run_dir: str | pathlib.Path, batch_size: int = 400,
@@ -421,11 +489,7 @@ class Trainer:
                  base_seed: int = 0, log=print, tensorboard: bool = False,
                  use_pallas: bool = False, device_data: bool = False, sin5: bool = False,
                  freeze_encoder: bool = False,
-                 device: str | torch.device | None = None):
-        if tensorboard:
-            raise NotImplementedError(
-                "training.logging (TensorBoard scalars) is not ported yet "
-                "(ROADMAP queue 1, item 17)")
+                 device: str | torch.device | None = None, group=None):
         self.device = resolve_device(device)
         if module_device(model) != self.device:
             raise ValueError(f"model is on {module_device(model)}, not on {self.device}")
@@ -442,16 +506,23 @@ class Trainer:
         self.outer = outer_patch_size
         self.siren = siren_patch_size
         self.device_data = device_data
+        rank, world = distributed.rank_world(group)
+        mesh.check_divisible(batch_size, world)
+        self.primary = rank == 0
+        if world > 1:
+            log(f"data-parallel over {world} ranks: every epoch runs step by step, the "
+                "gradient all-reduce between the steps (a gloo collective cannot be "
+                "captured into a CUDA graph)")
 
         self.train_step = make_train_step(
             model, loss_fn, outer_patch_size, siren_patch_size, use_pallas=use_pallas,
-            sin5=sin5, freeze_encoder=freeze_encoder)
+            sin5=sin5, freeze_encoder=freeze_encoder, group=group)
         self.eval_step = make_eval_step(
             model, loss_fn, outer_patch_size, siren_patch_size, use_pallas=use_pallas,
-            sin5=sin5, device=self.device)
+            sin5=sin5, device=self.device, group=group)
         self.scan_epoch = make_scan_epoch(
             model, loss_fn, outer_patch_size, siren_patch_size, use_pallas=use_pallas,
-            sin5=sin5, freeze_encoder=freeze_encoder) if device_data else None
+            sin5=sin5, freeze_encoder=freeze_encoder, group=group) if device_data else None
         self._dev_tiles: dict = {}
         # snapshot rendering shares the fused eval path when training fused
         self.reconstructor = SliceReconstructor(
@@ -463,7 +534,11 @@ class Trainer:
         self._progress: list[dict] = []
         self._start_time = time.time()
         self._said_per_step = self._said_no_plots = False
-        (self.run_dir / "snapshots").mkdir(parents=True, exist_ok=True)
+        self._tb = None
+        if self.primary:
+            (self.run_dir / "snapshots").mkdir(parents=True, exist_ok=True)
+            if tensorboard:
+                self._tb = tb_lib.summary_writer(self.run_dir / "tensorboard")
 
     # ------------------------------------------------------------------
     def _run_batch(self, fully: torch.Tensor, under: torch.Tensor, train: bool):
@@ -545,15 +620,25 @@ class Trainer:
                 train_loss = self._epoch_loss(self.train_dataset, train=True, epoch=epoch)
                 val_loss = self._epoch_loss(self.val_dataset, train=False, epoch=epoch)
                 self._post_epoch(epoch, train_loss, val_loss, time.time() - t0)
-                if preempted:
+                # a SIGTERM that reached any rank stops every rank here
+                if distributed.any_rank(bool(preempted)):
                     self.log(f"SIGTERM: stopping after epoch {epoch}")
                     break
         finally:
             if prev is not None:
                 signal.signal(signal.SIGTERM, prev)
-        ckpt_lib.save_state(self.run_dir, self.state.step, self.state)
-        self._write_progress_log()
+        self._save()
+        if self.primary:
+            self._write_progress_log()
+        if self._tb is not None:
+            self._tb.close()
         return self.state
+
+    def _save(self) -> None:
+        """The primary writes the checkpoint; every rank waits for it."""
+        if self.primary:
+            ckpt_lib.save_state(self.run_dir, self.state.step, self.state)
+        distributed.sync_hosts("checkpoint")
 
     # ------------------------------------------------------------------
     def _post_epoch(self, epoch: int, train_loss: float, val_loss: float, secs: float):
@@ -565,10 +650,15 @@ class Trainer:
             "time_since_start": time.time() - self._start_time,
         })
         self.log(f"epoch {epoch}: train={train_loss:.6f} val={val_loss:.6f} ({secs:.2f}s)")
+        if self._tb is not None:
+            self._tb.add_scalar("training_loss", train_loss, epoch)
+            self._tb.add_scalar("validation_loss", val_loss, epoch)
+            self._tb.flush()
         if (epoch + 1) % self.save_interval == 0:
-            ckpt_lib.save_state(self.run_dir, self.state.step, self.state)
-            self._render_snapshots(epoch)
-        if (epoch + 1) % 100 == 0:
+            self._save()
+            if self.primary:
+                self._render_snapshots(epoch)
+        if (epoch + 1) % 100 == 0 and self.primary:
             self._write_progress_log()
 
     def _render_snapshots(self, epoch: int):

@@ -244,12 +244,17 @@ def test_cli_matches_jax_on_transplanted_weights(corpus, tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(corpus, run_dir, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 17"):
-        cli_test.main(_argv(corpus, run_dir, tmp_path, "no", "data.halo_fold=true"))
-    with pytest.raises(NotImplementedError, match="item 17"):
+    """Item 17's options, once refused, run: ``data.halo_fold`` in one
+    process folds whole slices (the rows equal the plain run's), and
+    ``--devices`` other than the ranks started raises, naming the launch
+    command. An Orbax directory (item 18) raises, naming the interop tool."""
+    plain = cli_test.main(_argv(corpus, run_dir, tmp_path, "plain"))
+    halo = cli_test.main(_argv(corpus, run_dir, tmp_path, "halo", "data.halo_fold=true"))
+    assert halo == plain and len(plain) == 9
+    with pytest.raises(ValueError, match="torchrun --nproc-per-node 4"):
         cli_test.main(_argv(corpus, run_dir, tmp_path, "no") + ["--devices", "4"])
     (tmp_path / "orbax_like").mkdir()
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(NotImplementedError, match="torch_checkpoint_interop.py jax-to-torch"):
         cli_test.main(_argv(corpus, tmp_path / "orbax_like", tmp_path, "no"))
 
 

@@ -107,6 +107,34 @@ def test_source_imports_no_jax(path):
     assert not bad, f"{path}: {bad}"
 
 
+def test_the_source_checks_cover_the_parallel_modules():
+    """``parallel/*.py`` and ``utils/tensorboard.py`` are among the files
+    the two import checks above walk (``PACKAGE.rglob``, ``walk_packages``)."""
+    import pkgutil
+
+    import mri_inr_tpu_torch as pkg
+
+    walked = {m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")}
+    for name in ("parallel", "parallel.distributed", "parallel.mesh", "parallel.halo_fold",
+                 "utils.tensorboard"):
+        assert f"mri_inr_tpu_torch.{name}" in walked, name
+        assert PACKAGE / (name.replace(".", "/") + ".py") in set(PACKAGE.rglob("*.py")) or \
+            PACKAGE / name / "__init__.py" in set(PACKAGE.rglob("*.py")), name
+
+
+def test_only_the_interop_tool_imports_jax_and_it_is_outside_the_package():
+    """Of the files the port added (the package, ``chip_smoke.py``, the
+    ``scripts/torch_*.py`` tools and the tests' rank helper), the
+    checkpoint interop tool alone imports JAX, and it lives in ``scripts/``;
+    the rank helper, which the card's machine runs, imports none."""
+    added = (sorted(PACKAGE.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+             + sorted((ROOT / "scripts").glob("torch_*.py")) + [ROOT / "tests" / "torch_port_ranks.py"])
+    importing = [p.relative_to(ROOT).as_posix() for p in added
+                 if any(m.split(".")[0] in FORBIDDEN for m in _imports(p))]
+    assert importing == ["scripts/torch_checkpoint_interop.py"]
+    assert not (ROOT / "scripts" / "torch_checkpoint_interop.py").is_relative_to(PACKAGE)
+
+
 @pytest.fixture
 def no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)

@@ -44,6 +44,7 @@ from mri_inr_tpu_torch.ops import tiling as ttiling
 from mri_inr_tpu_torch.train import checkpoint as tckpt
 from mri_inr_tpu_torch.train import losses as tlosses
 from mri_inr_tpu_torch.train import trainer as ttrainer
+from mri_inr_tpu_torch.utils import tensorboard
 
 # the test workers share the cores: one torch thread each, so no idle
 # OpenMP pool spins against the other workers
@@ -526,8 +527,13 @@ def test_sigterm_finishes_the_epoch_and_saves(datasets, tmp_path):
 
 
 def test_tensorboard_and_wrong_device_raise(datasets, tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _trainer(datasets, tmp_path / "run", tensorboard=True)
+    """TensorBoard, once refused, opens its event file in the run directory
+    (``tests/test_torch_port_tensorboard.py`` reads the scalars back); a
+    trainer without a device raises where there is no card."""
+    t = _trainer(datasets, tmp_path / "run", tensorboard=True)
+    t._tb.flush()
+    (events,) = (tmp_path / "run" / "tensorboard").glob("events.out.tfevents.*")
+    assert events.is_file()
     with pytest.raises(RuntimeError):
         _trainer(datasets, tmp_path / "run", device=None)  # cuda by default: no card here
 
@@ -666,12 +672,24 @@ def test_train_cli_pinned_model_path_and_fresh_start(metadata, tmp_path):
 
 
 @pytest.mark.parametrize("override,match", [
-    ("training.logging=true", "item 17"),
-    ("training.data_axis_size=4", "item 17"),
+    pytest.param("training.logging=true", None, id="training.logging=true-item 17"),
+    pytest.param("training.data_axis_size=4", "torchrun --nproc-per-node 4",
+                 id="training.data_axis_size=4-item 17"),
 ])
 def test_train_cli_names_what_is_not_ported(metadata, tmp_path, override, match):
-    with pytest.raises(NotImplementedError, match=match):
-        cli_train.main(_cli_args(metadata, tmp_path / "out", "training.epochs=1", override))
+    """Item 17's keys, once refused: ``training.logging`` writes the two
+    scalars of every epoch; a ``data_axis_size`` other than the ranks
+    started (one here) raises, naming the launch command."""
+    argv = _cli_args(metadata, tmp_path / "out", "training.epochs=1", override)
+    if match:
+        with pytest.raises(ValueError, match=match):
+            cli_train.main(argv)
+        return
+    t = cli_train.main(argv)
+    row = t._progress[0]
+    assert tensorboard.read_scalars(t.run_dir / "tensorboard") == {
+        "training_loss": [(0, float(np.float32(row["train_loss"])))],
+        "validation_loss": [(0, float(np.float32(row["val_loss"])))]}
 
 
 @pytest.mark.parametrize("override", ["data.low_memory=true", "model.encoder_type=vgg",
@@ -712,7 +730,7 @@ def test_train_cli_encoder_path(metadata, tmp_path):
     for a, b in zip(donor.encoder.encoder.parameters(), t.model.encoder.encoder.parameters()):
         assert torch.equal(a, b)
     (tmp_path / "orbax_dir").mkdir()
-    with pytest.raises(NotImplementedError, match="item 18"):
+    with pytest.raises(NotImplementedError, match="torch_checkpoint_interop.py jax-to-torch"):
         cli_train.main(_cli_args(metadata, tmp_path / "out", "training.epochs=0",
                                  f"model.encoder_path={tmp_path / 'orbax_dir'}"))
 
