@@ -109,6 +109,14 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    copies alone) and the halo exchange's ms a slice, labelled as two ranks
    sharing one card (phase 3 holds the three kernels these ranks run
    against their plain versions at the ranks' shapes);
+14. the quality protocol's runner (``cli/results_run``) at configs/train.yaml's
+   width on 2 / 1 / 1 phantom volumes x 4 slices of 256x256, two epochs a
+   row and one autoencoder epoch, for the rows no other phase drives (online
+   remask, VGG, perceptual, acc 4 / 0.2, edge, the frozen corpus-pretrained
+   VGG trunk): each row's train and eval kernel launches, the DFT kernel's
+   for the splits and each remask epoch, ``rows.json`` (finite means, this
+   card), a second call that skips every row, and one volume's (0.2, 4) acc
+   slices against the ``torch.fft`` route on the CPU;
 12. times with CUDA events (warm-up, then the median): every kernel and its
    plain version per call, for the DFT also the ``torch.fft`` route, for the
    backward also its chain and weight-gradient kernels apart (device time
@@ -124,6 +132,7 @@ without the package beside this file, it exits 1 before doing anything.
 
 from __future__ import annotations
 
+import argparse
 import copy
 import csv
 import importlib.util
@@ -1975,6 +1984,91 @@ def multirank_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path,
     return {"launches": launches}
 
 
+# --------------------------------------------------------------- phase 14
+# cli/results_run's rows that no other phase drives, at configs/train.yaml's
+# width; the protocol's depth cut to 2 / 1 / 1 volumes x 4 slices of 256 x
+# 256, RESULTS_EPOCHS a row, one autoencoder epoch. The residual and Morlet
+# routes are phases 7 and 3's.
+RESULTS_ROWS = ("online_remask", "vgg", "perceptual", "acc_02_4", "edge", "vgg_frozen_corpus")
+RESULTS_EPOCHS = 2
+RESULTS_SLICES, RESULTS_SIZE = 4, 256  # the protocol's
+RESULTS_ARGV = ["--epochs", str(RESULTS_EPOCHS), "--ae-epochs", "1", "--train-files", "2",
+                "--val-files", "1", "--eval-files", "1", "--slices", str(RESULTS_SLICES),
+                "--size", str(RESULTS_SIZE), "--rows", ",".join(RESULTS_ROWS)]
+
+
+def results_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
+    """Phase 14: the quality protocol's runner on the card. Every row trains
+    through the fused kernels and lands in rows.json with finite means and
+    this card's name; the splits and the online row's remask epochs go
+    through the DFT kernel; a second call skips every row; the acc split's
+    (0.2, 4) slices of one volume equal the torch.fft route's on the CPU."""
+    rr, qr = pkg["results_run"], pkg["quality_run"]
+    t_phase = time.perf_counter()
+    root = tmp / "results"
+    counters = rr.COUNTERS  # the four kernels' wrappers, by kernel name
+    for k in counters.values():
+        k.launches = 0
+    done = rr.main(["--root", str(root), *RESULTS_ARGV])
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in counters.items()}
+    wall = time.perf_counter() - t_phase
+    volumes, eval_slices = 2 + 1 + 1, 1 * RESULTS_SLICES
+    for name in RESULTS_ROWS:
+        r = done[name]
+        means = [r[m]["mean"] for m in ("PSNR", "SSIM", "NRMSE")]
+        print(f"results row {name}: PSNR / SSIM / NRMSE {means[0]:.4f} / {means[1]:.4f} / "
+              f"{means[2]:.4f} over {r['slices']} slices; stages "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in r["stage_seconds"].items())
+              + f"; launches {r['launches']}"
+              + (f"; VGG trunk feature mean {r['trunk_features']['mean']:.4g}"
+                 if "trunk_features" in r else ""))
+        check(all(np.isfinite(means)) and r["slices"] == eval_slices and r["device"] == card,
+              f"results row {name}: {means}, {r['slices']} slices on {r['device']}")
+        for k in ("siren_train_fwd", "siren_train_bwd", "siren_forward"):
+            check(r["launches"][k] > 0, f"results row {name} launched no {k}")
+    # the default splits (built for the first row), 1 fully sampled + 2 masks a
+    # volume; the online set's fully sampled tiles once and one mask epoch
+    # each epoch; the acc splits, 1 + 4 masks a volume
+    want_dft = {"online_remask": volumes * 3 + 1 + RESULTS_EPOCHS, "acc_02_4": volumes * 5}
+    for name, n in want_dft.items():
+        check(done[name]["launches"]["dft2c"] == n,
+              f"results row {name}: {done[name]['launches']['dft2c']} dft2c launches, not {n}")
+    check(sum(r["launches"]["siren_train_fwd"] for r in done.values())
+          == launches["siren_train_fwd"], "per-row train launches do not add up")
+    written = json.loads((root / "rows.json").read_text())
+    check([r["row"] for r in written] == list(RESULTS_ROWS), "rows.json rows")
+
+    before = (root / "rows.json").read_bytes()
+    for k in counters.values():
+        k.launches = 0
+    again = rr.main(["--root", str(root), *RESULTS_ARGV])
+    check(again == done and (root / "rows.json").read_bytes() == before
+          and not any(k.launches for k in counters.values()),
+          "a second call of the runner did not skip every row")
+
+    # one volume's (0.2, 4) acc slices against the torch.fft route on the CPU
+    args = argparse.Namespace(slices=RESULTS_SLICES, size=RESULTS_SIZE, phase=False, snr_db=None,
+                              texture=0.0)
+    stem = pkg["synthetic"].synthetic_stem(0)
+    cpu_rows = pkg["preprocessing"].process_kspace_volume(
+        qr.phantom_kspace(0, args), stem, tmp / "acc_cpu", undersample_params=((0.2, 4),),
+        device="cpu")
+    col = pkg["dataset"].undersample_column(0.2, 4)
+    card_rows = [r for r in pkg["dataset"].read_metadata(
+        root / "data" / "train" / "processed_acc" / "metadata.csv") if r["stem"] == stem]
+    check(len(card_rows) == len(cpu_rows) == RESULTS_SLICES, "acc split rows of one volume")
+    gap = max(float(np.abs(np.load(a[col]) - np.load(b[col])).max())
+              for a, b in zip(card_rows, cpu_rows))
+    print(f"acc split (0.2, 4) of {stem}, card (DFT kernel) vs cpu (torch.fft): max |diff| "
+          f"{gap:.3e} (<= {PREPROCESS_BAR:g})")
+    check(gap <= PREPROCESS_BAR, "the acc split disagrees with the CPU route")
+    print(f"results phase: {len(RESULTS_ROWS)} rows at configs/train.yaml's width, "
+          f"{RESULTS_EPOCHS} epochs each, launches {launches}; {wall:.1f} s for the rows, "
+          f"{time.perf_counter() - t_phase:.1f} s wall with the checks [{card}]")
+    return {"launches": launches, "rows": done}
+
+
 def time_train_steps(pkg, device) -> dict:
     """One whole train step at the width and batch of configs/train.yaml:
     fused kernels, and the module path under autograd for comparison."""
@@ -2197,6 +2291,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from mri_inr_tpu_torch import native
     from mri_inr_tpu_torch.cli import preprocess as cli_preprocess
+    from mri_inr_tpu_torch.cli import quality_run, results_run
     from mri_inr_tpu_torch.cli import test as cli_test
     from mri_inr_tpu_torch.cli import train as cli_train
     from mri_inr_tpu_torch.cli import train_encoder
@@ -2236,7 +2331,8 @@ def main() -> int:
                ev=ev, ms=ms, sk=sk, stk=stk, fk=fk, cli_train=cli_train, cli_test=cli_test,
                cli_preprocess=cli_preprocess, train_encoder=train_encoder, losses=losses,
                trainer=trainer, online=online, tiling=tiling, tensorboard=tensorboard,
-               visualization=visualization, profiling=profiling)
+               visualization=visualization, profiling=profiling, quality_run=quality_run,
+               results_run=results_run)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         pre = preprocess_path(pkg, tmp, device)
@@ -2252,6 +2348,7 @@ def main() -> int:
         ptr = pretraining_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card)
         onl = online_path(pkg, tmp, device, card)
         mr = multirank_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card)
+        res = results_path(pkg, tmp, device, card)
         time_preprocessing(pkg, tmp, device, card)
     per_rank = lambda name: [mr["launches"][r][name] for r in range(RANKS)]
 
@@ -2274,6 +2371,7 @@ def main() -> int:
         launches_train_path=trn["eval"], launches_pretraining_path=ptr["eval"],
         launches_online_path=onl["eval"] + onl["sweep"]["eval"],
         launches_multirank_path_per_rank=per_rank("siren_forward"),
+        launches_results_path=res["launches"]["siren_forward"],
         ms_per_rank_at_local_batch=cuda_median_ms(lambda: sk.siren_forward_cuda(
             mods[:LOCAL_BATCH].contiguous(), *args[1:], **kw)), local_batch=LOCAL_BATCH,
         max_abs_err_at_local_batch=cmp_local["eval_local_err"],
@@ -2317,6 +2415,7 @@ def main() -> int:
         f32_ops=siren_f32_ops(TRAIN_BATCH * seq, hidden, layers, "train_fwd"),
         launches_pretraining_path=ptr["fwd"], launches_online_path=onl["fwd"],
         launches_multirank_path_per_rank=per_rank("siren_train_fwd"),
+        launches_results_path=res["launches"]["siren_train_fwd"],
         ms_per_rank_at_local_batch=cuda_median_ms(lambda: stk.siren_chain_train_fwd_cuda(
             *local_targs, **tkw, s_wt=s_wt)), local_batch=LOCAL_BATCH,
         max_abs_err_at_local_batch=cmp_local["fwd_err"]))
@@ -2336,6 +2435,7 @@ def main() -> int:
         f32_ops=siren_f32_ops(TRAIN_BATCH * seq, hidden, layers, "train_bwd"),
         launches_pretraining_path=ptr["bwd"], launches_online_path=onl["bwd"],
         launches_multirank_path_per_rank=per_rank("siren_train_bwd"),
+        launches_results_path=res["launches"]["siren_train_bwd"],
         ms_per_rank_at_local_batch=cuda_median_ms(lambda: stk.siren_chain_train_bwd_cuda(
             *local_targs, cot[:LOCAL_BATCH].contiguous(), **tkw)), local_batch=LOCAL_BATCH,
         max_abs_err_at_local_batch=cmp_local["bwd_err"], **parts))
@@ -2365,7 +2465,8 @@ def main() -> int:
             "dft2c", "mri_inr_tpu/ops/fft_kernel.py:50", pre["launches"],
             cmp_dft["max_abs_err"], t_kernel, t_plain, fft_ops, nbytes, card,
             peak=PEAK_F32_FLOPS, unit="f32 FLOP", library_ms=t_lib,
-            launches_online_path=onl["dft"] + onl["sweep"]["dft"]))
+            launches_online_path=onl["dft"] + onl["sweep"]["dft"],
+            launches_results_path=res["launches"]["dft2c"]))
         print(f"dft2c {shape}: the FFT kernel takes {t_kernel / t_lib:.2f}x the torch.fft "
               f"route's time [{card}]")
     for rec in records:

@@ -15,14 +15,15 @@ then the test CLI over the eval split with ``batch_patches=512``.
 
 The splits are built without ``h5py``: ``synthetic.synthetic_kspace`` ->
 ``preprocessing.process_kspace_volume`` -> ``write_metadata`` (the k-space
-``write_synthetic_h5`` would store). A split whose ``metadata.csv`` exists
-and an autoencoder file that exists are reused. Visual samples are left out
+``write_synthetic_h5`` would store). A split whose ``metadata.csv`` and
+slices exist and an autoencoder file that exists are reused. Visual samples are left out
 where ``matplotlib`` is not installed. ``run_info.json`` under ``--root``
 records the protocol, each stage's wall seconds, the card and the metrics.
 The autoencoder's own reconstruction of three eval slices goes to
 ``encoder/ae_metrics.csv``. Keep ``run_info.json``, the progress logs and the
 metric files; the
-checkpoints and slices stay out of git (``.gitignore``).
+checkpoints and slices stay out of git (``.gitignore``). The stage functions
+(splits, autoencoder, train, eval, summary) also serve ``cli/results_run``.
 """
 
 from __future__ import annotations
@@ -42,6 +43,7 @@ from mri_inr_tpu_torch.cli import train as cli_train
 from mri_inr_tpu_torch.cli import train_encoder
 from mri_inr_tpu_torch.configuration import config as config_lib
 from mri_inr_tpu_torch.data import preprocessing, synthetic
+from mri_inr_tpu_torch.data.dataset import read_metadata
 from mri_inr_tpu_torch.utils import visualization
 from mri_inr_tpu_torch.utils.device import resolve_device
 
@@ -66,41 +68,13 @@ def build_kernels() -> None:
         list(pool.map(_build.build, KERNELS))
 
 
-def make_split(directory: pathlib.Path, num: int, seed: int, args,
-               device: torch.device) -> pathlib.Path:
-    """Phantom volumes ``seed .. seed + num - 1`` preprocessed into
-    ``directory/processed``; returns its ``metadata.csv``."""
-    out = directory / "processed"
-    meta = out / "metadata.csv"
-    if meta.exists():
-        return meta
-    rows = []
-    for i in range(num):
-        k = synthetic.synthetic_kspace(seed + i, args.slices, args.size, args.size,
-                                       phase=args.phase, snr_db=args.snr_db,
-                                       texture=args.texture)
-        rows += preprocessing.process_kspace_volume(k, synthetic.synthetic_stem(seed + i), out,
-                                                    device=device)
-    return preprocessing.write_metadata(rows, out)
+#: phantom seeds of the train / validation / eval splits (``RESULTS.md:16-21``)
+SPLIT_SEEDS = {"train": 0, "val": 1000, "eval": 2000}
 
 
-def _sets(*items: str) -> list[str]:
-    return [x for item in items for x in ("--set", item)]
-
-
-def _summary(rows) -> dict:
-    out = {}
-    for key in ("psnr", "ssim", "nrmse"):
-        v = np.array([getattr(r, key) for r in rows], np.float64)
-        out[key.upper()] = {"mean": float(v.mean()), "std": float(v.std()),
-                            "min": float(v.min()), "max": float(v.max())}
-    return out
-
-
-def main(argv: list[str] | None = None) -> dict:
-    ap = argparse.ArgumentParser(description=__doc__,
-                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("--root", default="runs/quality_torch")
+def add_protocol_args(ap: argparse.ArgumentParser, root: str) -> None:
+    """The protocol's options, shared with ``cli/results_run``."""
+    ap.add_argument("--root", default=root)
     ap.add_argument("--epochs", type=int, default=600)
     ap.add_argument("--ae-epochs", type=int, default=30)
     ap.add_argument("--train-files", type=int, default=24)
@@ -116,6 +90,116 @@ def main(argv: list[str] | None = None) -> dict:
     ap.add_argument("--set", dest="overrides", action="append", default=[],
                     help="extra train CLI override (repeatable); model.* ones also go to "
                          "the test CLI and model.latent_dim to the autoencoder")
+
+
+def phantom_kspace(seed: int, args) -> np.ndarray:
+    """The complex (slices, size, size) k-space of phantom volume ``seed``."""
+    return synthetic.synthetic_kspace(seed, args.slices, args.size, args.size,
+                                      phase=args.phase, snr_db=args.snr_db,
+                                      texture=args.texture)
+
+
+def make_split(directory: pathlib.Path, num: int, seed: int, args, device: torch.device,
+               processed: str = "processed",
+               masks=preprocessing.DEFAULT_MASKS) -> pathlib.Path:
+    """Phantom volumes ``seed .. seed + num - 1`` preprocessed with the
+    ``(cf, acc)`` pairs ``masks`` into ``directory / processed``; returns its
+    ``metadata.csv``. A split whose ``metadata.csv`` and every slice it lists
+    exist is reused."""
+    out = directory / processed
+    meta = out / "metadata.csv"
+    if meta.exists() and all(pathlib.Path(row[col]).is_file() for row in read_metadata(meta)
+                             for col in row if col.startswith("path_")):
+        return meta
+    rows = []
+    for i in range(num):
+        rows += preprocessing.process_kspace_volume(
+            phantom_kspace(seed + i, args), synthetic.synthetic_stem(seed + i), out,
+            undersample_params=masks, device=device)
+    return preprocessing.write_metadata(rows, out)
+
+
+def make_splits(root: pathlib.Path, args, device: torch.device, processed: str = "processed",
+                masks=preprocessing.DEFAULT_MASKS) -> dict[str, pathlib.Path]:
+    """The train / validation / eval splits' ``metadata.csv`` under
+    ``root/data``."""
+    nums = {"train": args.train_files, "val": args.val_files, "eval": args.eval_files}
+    return {name: make_split(root / "data" / name, nums[name], seed, args, device, processed,
+                             masks)
+            for name, seed in SPLIT_SEEDS.items()}
+
+
+def pretrain(ae_dir: pathlib.Path, model: str, meta: dict, epochs: int, batch: int,
+             latent: int, dev: list[str]) -> tuple[pathlib.Path, pathlib.Path]:
+    """The ``model`` autoencoder's files under ``ae_dir`` (trained on the
+    train split unless they exist, then scored on three eval slices into
+    ``ae_metrics.csv``)."""
+    ae_file, ae_full = train_encoder.checkpoint_paths(ae_dir, model, epochs - 1)
+    if ae_file.exists():
+        return ae_file, ae_full
+    common = ["--output", str(ae_dir), "--model", model, "--latent-dim", str(latent), *dev]
+    train_encoder.main(["--dataset", str(meta["train"]), "--epochs", str(epochs),
+                        "--batch-size", str(batch), *common])
+    train_encoder.main(["--dataset", str(meta["eval"]), "--evaluate", str(ae_full), *common])
+    return ae_file, ae_full
+
+
+def train_sets(meta: dict, out_dir: pathlib.Path, name: str, epochs: int,
+               *overrides: str) -> list[str]:
+    """The train CLI's overrides at the protocol's budget (batch 400,
+    ``max_slice_num`` 100, ``device_data``), ``overrides`` last."""
+    return [f"data.train.dataset={meta['train']}", f"data.val.dataset={meta['val']}",
+            "data.train.max_slice_num=100", "data.val.max_slice_num=100",
+            f"training.epochs={epochs}", "training.batch_size=400",
+            "training.save_interval=100", "training.device_data=true",
+            f"training.output_dir={out_dir}", f"training.output_name={name}", *overrides]
+
+
+def train_stage(meta: dict, out_dir: pathlib.Path, name: str, epochs: int, dev: list[str],
+                *overrides: str, datasets=None):
+    """The train CLI on :func:`train_sets`; ``datasets`` replaces the CLI's
+    own (train, validation) pair."""
+    return cli_train.main(dev + _sets(*train_sets(meta, out_dir, name, epochs, *overrides)),
+                          datasets=datasets)
+
+
+def eval_stage(meta: dict, run_dir: pathlib.Path, out_dir: pathlib.Path, name: str,
+               dev: list[str], *overrides: str) -> list:
+    """The test CLI's sweep over the eval split at ``batch_patches=512``
+    (three visual samples where ``matplotlib`` is installed)."""
+    visual = 3 if visualization.have_matplotlib() else 0
+    if not visual:
+        print("matplotlib is not installed: no visual samples")
+    return cli_test.main(dev + _sets(
+        f"data.dataset={meta['eval']}", f"data.model_path={run_dir}",
+        f"data.visual_samples={visual}", "data.batch_patches=512",
+        f"data.output_dir={out_dir}", f"data.output_name={name}", *overrides))
+
+
+def _sets(*items: str) -> list[str]:
+    return [x for item in items for x in ("--set", item)]
+
+
+def summary(rows) -> dict:
+    """Mean, std, min and max of PSNR / SSIM / NRMSE over the rows."""
+    out = {}
+    for key in ("psnr", "ssim", "nrmse"):
+        v = np.array([getattr(r, key) for r in rows], np.float64)
+        out[key.upper()] = {"mean": float(v.mean()), "std": float(v.std()),
+                            "min": float(v.min()), "max": float(v.max())}
+    return out
+
+
+def cwd_relative(path: pathlib.Path) -> str:
+    """``path`` relative to the working directory where it lies below it."""
+    cwd = pathlib.Path.cwd()
+    return str(path.relative_to(cwd) if path.is_relative_to(cwd) else path)
+
+
+def main(argv: list[str] | None = None) -> dict:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    add_protocol_args(ap, "runs/quality_torch")
     args = ap.parse_args(argv)
     latent = config_lib.load_train_configuration(None, args.overrides).model.latent_dim
     model_sets = [o for o in args.overrides if o.startswith("model.")]
@@ -133,49 +217,24 @@ def main(argv: list[str] | None = None) -> dict:
         build_kernels()
         stages["kernel_build"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-    splits = {"train": (args.train_files, 0), "val": (args.val_files, 1000),
-              "eval": (args.eval_files, 2000)}
-    meta = {name: make_split(root / "data" / name, num, seed, args, device)
-            for name, (num, seed) in splits.items()}
+    meta = make_splits(root, args, device)
     stages["data"] = time.perf_counter() - t0
     print(f"data ready ({stages['data']:.1f}s)", flush=True)
 
     t0 = time.perf_counter()
-    ae_dir = root / "encoder"
-    ae_file, ae_full = train_encoder.checkpoint_paths(ae_dir, "conv", args.ae_epochs - 1)
-    if not ae_file.exists():
-        train_encoder.main(["--dataset", str(meta["train"]), "--output", str(ae_dir),
-                            "--model", "conv", "--epochs", str(args.ae_epochs),
-                            "--batch-size", "1024",
-                            "--latent-dim", str(latent), *dev])
-        # the autoencoder's own reconstruction of three eval slices (ae_metrics.csv)
-        train_encoder.main(["--dataset", str(meta["eval"]), "--output", str(ae_dir),
-                            "--model", "conv", "--latent-dim", str(latent),
-                            "--evaluate", str(ae_full), *dev])
+    ae_file, _ = pretrain(root / "encoder", "conv", meta, args.ae_epochs, 1024, latent, dev)
     stages["autoencoder"] = time.perf_counter() - t0
     print(f"autoencoder ready ({stages['autoencoder']:.1f}s)", flush=True)
 
     t0 = time.perf_counter()
-    trainer = cli_train.main(dev + _sets(
-        f"data.train.dataset={meta['train']}", f"data.val.dataset={meta['val']}",
-        "data.train.max_slice_num=100", "data.val.max_slice_num=100",
-        f"model.encoder_path={ae_file}", f"training.epochs={args.epochs}",
-        "training.batch_size=400", "training.save_interval=100", "training.device_data=true",
-        f"training.output_dir={root / 'train'}", "training.output_name=quality",
-        *args.overrides))
+    trainer = train_stage(meta, root / "train", "quality", args.epochs, dev,
+                          f"model.encoder_path={ae_file}", *args.overrides)
     run_dir = trainer.run_dir
     stages["train"] = time.perf_counter() - t0
     print(f"train done: {run_dir} ({stages['train']:.1f}s)", flush=True)
 
     t0 = time.perf_counter()
-    visual = 3 if visualization.have_matplotlib() else 0
-    if not visual:
-        print("matplotlib is not installed: no visual samples")
-    rows = cli_test.main(dev + _sets(
-        f"data.dataset={meta['eval']}", f"data.model_path={run_dir}",
-        f"data.visual_samples={visual}", "data.batch_patches=512",
-        f"data.output_dir={root / 'eval'}", "data.output_name=quality",
-        *model_sets))
+    rows = eval_stage(meta, run_dir, root / "eval", "quality", dev, *model_sets)
     stages["eval"] = time.perf_counter() - t0
     print((root / "eval" / "quality" / "metrics_summary.txt").read_text(), flush=True)
 
@@ -187,14 +246,13 @@ def main(argv: list[str] | None = None) -> dict:
         "eval_files": args.eval_files,
         "slices_per_file": args.slices,
         "image_size": args.size,
-        "run_dir": str(run_dir.relative_to(pathlib.Path.cwd())
-                       if run_dir.is_relative_to(pathlib.Path.cwd()) else run_dir),
+        "run_dir": cwd_relative(run_dir),
         "device": card,
         "torch": torch.__version__,
         "stage_seconds": stages,
         "wall_seconds": time.perf_counter() - t_start,
         "slices": len(rows),
-        "metrics": _summary(rows),
+        "metrics": summary(rows),
     }
     (root / "run_info.json").write_text(json.dumps(info, indent=2) + "\n")
     print(f"total {info['wall_seconds']:.1f}s", flush=True)

@@ -145,7 +145,10 @@ def make_trainer(cfg, train_ds, val_ds, run_dir, device: torch.device, log=print
         device=device, log=log, group=group)
 
 
-def main(argv: list[str] | None = None) -> Trainer:
+def main(argv: list[str] | None = None, datasets=None) -> Trainer:
+    """Run the CLI on ``argv``; ``datasets``, a (train, validation) pair of
+    datasets built by the caller (``cli/results_run``'s online row: k-space
+    volumes made in memory), replaces the ones the config names."""
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--config", "-c", default=None)
@@ -196,9 +199,12 @@ def main(argv: list[str] | None = None) -> Trainer:
     val_online = dcfg.val.online or (not val_split.dataset and dcfg.train.online)
     if not val_split.dataset:
         val_split = dataclasses.replace(val_split, dataset=dcfg.train.dataset)
-    train_ds = _dataset(dcfg.train, dcfg, mcfg, device, online=dcfg.train.online,
-                        remask=dcfg.train.remask_each_epoch)
-    val_ds = _dataset(val_split, dcfg, mcfg, device, online=val_online)
+    if datasets is not None:
+        train_ds, val_ds = datasets
+    else:
+        train_ds = _dataset(dcfg.train, dcfg, mcfg, device, online=dcfg.train.online,
+                            remask=dcfg.train.remask_each_epoch)
+        val_ds = _dataset(val_split, dcfg, mcfg, device, online=val_online)
     print(f"train patches: {len(train_ds)}, val patches: {len(val_ds)}")
     if primary:
         train_ds.write_manifest(run_dir / "processed_files.txt")

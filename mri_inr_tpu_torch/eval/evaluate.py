@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import csv
 import pathlib
+import re
 import time
 from dataclasses import dataclass
 
@@ -337,21 +338,38 @@ def gather_shard_results(results: list[SliceResult]) -> list[SliceResult]:
     package's ``gather_shard_results``): counts may differ, every rank
     returns the combined list, rank 0's rows first. Rank ``r`` of ``N``
     scores the sampler's shard ``r:N``, so the list is the one
-    :func:`merge_shard_csvs` reads from ``--shard r:N`` runs (for N up to
-    10: it reads the directories in name order). One process: identity."""
+    :func:`merge_shard_csvs` reads from ``--shard r:N`` runs (it reads the
+    directories in shard order). One process: identity."""
     return [r for rows in distributed.all_gather_host_values(list(results)) for r in rows]
 
 
 def merge_shard_csvs(output_dir: str | pathlib.Path) -> list[SliceResult]:
-    """Merge the ``metrics_shard*/metrics_error.csv`` files written by
-    separate ``--shard I:N`` runs into one result list."""
+    """Merge the ``metrics_shardI_N/metrics_error.csv`` files written by
+    separate ``--shard I:N`` runs into one result list, in shard order I =
+    0 .. N-1. Directories of more than one N, or a missing I, raise."""
     output_dir = pathlib.Path(output_dir)
-    shard_csvs = sorted(output_dir.glob("metrics_shard*/metrics_error.csv"))
+    shard_csvs = list(output_dir.glob("metrics_shard*/metrics_error.csv"))
     if not shard_csvs:
         raise FileNotFoundError(f"no metrics_shard*/metrics_error.csv under {output_dir}")
-    results: list[SliceResult] = []
+    shards = {}
     for p in shard_csvs:
-        results.extend(read_metrics_csv(p))
+        m = re.fullmatch(r"metrics_shard(\d+)_(\d+)", p.parent.name)
+        if m is None:
+            raise ValueError(f"{p.parent} is not named metrics_shardI_N (--shard I:N)")
+        shards[int(m[1]), int(m[2])] = p
+    counts = sorted({n for _, n in shards})
+    if len(counts) > 1:
+        raise ValueError(f"shard directories of {counts} shards under {output_dir}: "
+                         f"{sorted(p.parent.name for p in shard_csvs)}; remove the stale ones")
+    n = counts[0]
+    missing = [i for i in range(n) if (i, n) not in shards]
+    beyond = sorted(i for i, _ in shards if i >= n)
+    if missing or beyond:
+        raise ValueError(f"shards of {n}: missing {missing}, out of range {beyond}, under "
+                         f"{output_dir}: {sorted(p.parent.name for p in shard_csvs)}")
+    results: list[SliceResult] = []
+    for i in range(n):
+        results.extend(read_metrics_csv(shards[i, n]))
     return results
 
 

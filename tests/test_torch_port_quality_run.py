@@ -2,9 +2,11 @@
 at a tiny size on the CPU: phantom splits built without ``h5py``, a conv
 autoencoder for 2 epochs, its encoder spliced into a SIREN trained for 2
 epochs, the sweep over the eval split; ``run_info.json`` and the metric
-summary written."""
+summary written; a split reused only while every slice it lists exists."""
 
+import argparse
 import json
+import pathlib
 
 import numpy as np
 import torch
@@ -46,3 +48,19 @@ def test_quality_run_at_a_tiny_size(tmp_path, capsys):
         "--set", "model.num_layers=2", "--set", "training.batch_size=32"])
     assert "dataset:" not in capsys.readouterr().out  # no autoencoder training this time
     assert again["slices"] == 2
+
+
+def test_a_split_is_reused_only_with_every_slice_it_lists(tmp_path):
+    """A ``metadata.csv`` copied without its slices (a results directory
+    brought back from another machine) makes the split be built again."""
+    args = argparse.Namespace(slices=2, size=64, phase=False, snr_db=None, texture=0.0)
+    meta = quality_run.make_split(tmp_path, 1, 0, args, torch.device("cpu"))
+    stamp = meta.stat().st_mtime_ns
+    assert quality_run.make_split(tmp_path, 1, 0, args, torch.device("cpu")) == meta
+    assert meta.stat().st_mtime_ns == stamp
+    rows = tds.read_metadata(meta)
+    pathlib.Path(rows[1]["path_undersampled_0.1_6"]).unlink()
+    quality_run.make_split(tmp_path, 1, 0, args, torch.device("cpu"))
+    assert meta.stat().st_mtime_ns != stamp
+    assert all(pathlib.Path(r[c]).is_file() for r in tds.read_metadata(meta)
+               for c in r if c.startswith("path_"))
