@@ -117,6 +117,14 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    for the splits and each remask epoch, ``rows.json`` (finite means, this
    card), a second call that skips every row, and one volume's (0.2, 4) acc
    slices against the ``torch.fft`` route on the CPU;
+15. the 940-file sweep's runner (``cli/sweep940``) at configs/test.yaml's
+   width and 320x320, its depth cut to 24 evaluation volumes x 4 slices and
+   a headline model of 4 volumes trained one epoch and resumed to a second
+   on the quality protocol's conv autoencoder (one epoch): its three legs
+   (offline, online through the test CLI's sampler seam, two shards merged)
+   and their checks, each stage's kernel launches; then ``cli/results_run
+   --seed 1`` for phase 14's edge row, named ``edge@seed1``, whose losses
+   differ from seed 0's;
 12. times with CUDA events (warm-up, then the median): every kernel and its
    plain version per call, for the DFT also the ``torch.fft`` route, for the
    backward also its chain and weight-gradient kernels apart (device time
@@ -2069,6 +2077,90 @@ def results_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
     return {"launches": launches, "rows": done}
 
 
+# --------------------------------------------------------------- phase 15
+# cli/sweep940 at full width and 320x320, the depth cut: the evaluation set
+# to 24 volumes x 4 slices, the headline model to 4 volumes, one epoch and a
+# resumed second, the protocol's autoencoder to one epoch.
+SWEEP_VOLUMES, SWEEP_SLICES_940, SWEEP_SIZE = 24, 4, 320
+SWEEP_TRAIN_VOLUMES = 4
+SWEEP940_ARGV = ["--files", str(SWEEP_VOLUMES), "--slices", str(SWEEP_SLICES_940), "--size",
+                 str(SWEEP_SIZE), "--train-files", str(SWEEP_TRAIN_VOLUMES), "--val-files", "1",
+                 "--epochs", "1", "--resume-epochs", "2", "--ae-epochs", "1"]
+SEED_ROW = "edge"
+
+
+def sweep940_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
+    """Phase 15: the 940-file sweep's runner at a cut depth (its own checks
+    raise), every on-path kernel launched in the stage that runs it; then a
+    seeded row of the quality protocol's runner beside phase 14's."""
+    sw, rr = pkg["sweep940"], pkg["results_run"]
+    t_phase = time.perf_counter()
+    counters = rr.COUNTERS
+    for k in counters.values():
+        k.launches = 0
+    out = sw.main(["--root", str(tmp / "sweep940"), "--protocol-root",
+                   str(tmp / "sweep940_protocol"), *SWEEP940_ARGV])
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in counters.items()}
+    wall = time.perf_counter() - t_phase
+    slices = SWEEP_VOLUMES * SWEEP_SLICES_940
+    check(out["slices"] == slices and out["device"] == card, "sweep940 record")
+    for name in ("summary", "online_summary", "sharded_summary"):
+        means = [out[name][m]["mean"] for m in ("PSNR", "SSIM", "NRMSE")]
+        check(all(np.isfinite(means)), f"sweep940 {name}: {means}")
+    checks = out["checks"]
+    check(checks["shards"]["held"] and checks["online"]["held"], f"sweep940 checks {checks}")
+    by_stage = out["launches"]
+    wanted = {"data": ["dft2c"], "train_to_1": ["dft2c", "siren_train_fwd", "siren_train_bwd",
+                                                "siren_forward"],
+              "train_to_2": ["dft2c", "siren_train_fwd", "siren_train_bwd", "siren_forward"],
+              "offline": ["siren_forward"], "online": ["dft2c", "siren_forward"],
+              "shard0": ["siren_forward"], "shard1": ["siren_forward"]}
+    for stage, kernels in wanted.items():
+        for k in kernels:
+            check(by_stage[stage][k] > 0, f"sweep940 stage {stage} launched no {k}")
+    # 1 fully sampled + 2 masks a volume
+    check(by_stage["data"]["dft2c"] == 3 * SWEEP_VOLUMES,
+          f"sweep940 data: {by_stage['data']['dft2c']} dft2c launches")
+    runs = out["headline"]["runs"]
+    check([r["epochs"] for r in runs] == [[0, 1], [1, 2]], f"sweep940 runs {runs}")
+    for name, leg in out["legs"].items():
+        if name != "merge":
+            print(f"sweep940 leg {name}: {leg['slices']} slices, wall {leg['wall_seconds']:.3f} "
+                  f"s, metric pass {leg['metric_pass_seconds']:.3f} s (stage "
+                  f"{leg['stage_seconds']:.3f}, dispatch {leg['dispatch_seconds']:.3f}, "
+                  f"execute+fetch {leg['execute_fetch_seconds']:.3f}), "
+                  f"{leg['steady_slices_per_sec']:.1f} slices/s past staging, peak "
+                  f"{leg['peak_device_mib'] or 0:.1f} MiB [{card}]")
+    print(f"sweep940 checks: shards exact {checks['shards']['exact']} (max row gap "
+          f"{checks['shards']['max_row_gap']:.3e}, piece invariance "
+          f"{checks['shards']['piece_invariance']}), online max stat gap "
+          f"{checks['online']['max_stat_gap']:.3e}; headline runs "
+          + "; ".join(f"epochs {r['epochs']} {r['seconds']:.1f} s, losses "
+                      f"{r['train_loss']:.5f} / {r['val_loss']:.5f}" for r in runs))
+
+    # a seeded row beside phase 14's: its own name, the seed in its run
+    t0 = time.perf_counter()
+    root = tmp / "results"
+    rows_argv = RESULTS_ARGV[:RESULTS_ARGV.index("--rows")]
+    done = rr.main(["--root", str(root), *rows_argv, "--rows", SEED_ROW, "--seed", "1"])
+    torch.cuda.synchronize()
+    seeded, base = done[f"{SEED_ROW}@seed1"], done[SEED_ROW]
+    losses = lambda r: (pathlib.Path(r["run_dir"]) / "progress_log.csv").read_text()
+    check(seeded["row"] == f"{SEED_ROW}@seed1" and seeded["seed"] == 1
+          and "training.seed=1" in seeded["train_overrides"], f"seeded row {seeded['row']}")
+    check(losses(seeded) != losses(base), "the seed-1 row's losses equal seed 0's")
+    for k in ("siren_train_fwd", "siren_train_bwd", "siren_forward"):
+        check(seeded["launches"][k] > 0, f"seeded row launched no {k}")
+    print(f"results row {seeded['row']}: PSNR {seeded['PSNR']['mean']:.4f} against seed 0's "
+          f"{base['PSNR']['mean']:.4f}, launches {seeded['launches']} "
+          f"({time.perf_counter() - t0:.1f} s)")
+    print(f"sweep940 phase: {slices} slices at {SWEEP_SIZE}x{SWEEP_SIZE}, launches "
+          f"{launches}; {wall:.1f} s for the runner, {time.perf_counter() - t_phase:.1f} s "
+          f"wall with the seeded row [{card}]")
+    return {"launches": launches, "out": out}
+
+
 def time_train_steps(pkg, device) -> dict:
     """One whole train step at the width and batch of configs/train.yaml:
     fused kernels, and the module path under autograd for comparison."""
@@ -2291,7 +2383,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from mri_inr_tpu_torch import native
     from mri_inr_tpu_torch.cli import preprocess as cli_preprocess
-    from mri_inr_tpu_torch.cli import quality_run, results_run
+    from mri_inr_tpu_torch.cli import quality_run, results_run, sweep940
     from mri_inr_tpu_torch.cli import test as cli_test
     from mri_inr_tpu_torch.cli import train as cli_train
     from mri_inr_tpu_torch.cli import train_encoder
@@ -2332,7 +2424,7 @@ def main() -> int:
                cli_preprocess=cli_preprocess, train_encoder=train_encoder, losses=losses,
                trainer=trainer, online=online, tiling=tiling, tensorboard=tensorboard,
                visualization=visualization, profiling=profiling, quality_run=quality_run,
-               results_run=results_run)
+               results_run=results_run, sweep940=sweep940)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         pre = preprocess_path(pkg, tmp, device)
@@ -2349,6 +2441,7 @@ def main() -> int:
         onl = online_path(pkg, tmp, device, card)
         mr = multirank_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card)
         res = results_path(pkg, tmp, device, card)
+        swp = sweep940_path(pkg, tmp, device, card)
         time_preprocessing(pkg, tmp, device, card)
     per_rank = lambda name: [mr["launches"][r][name] for r in range(RANKS)]
 
@@ -2372,6 +2465,7 @@ def main() -> int:
         launches_online_path=onl["eval"] + onl["sweep"]["eval"],
         launches_multirank_path_per_rank=per_rank("siren_forward"),
         launches_results_path=res["launches"]["siren_forward"],
+        launches_sweep940_path=swp["launches"]["siren_forward"],
         ms_per_rank_at_local_batch=cuda_median_ms(lambda: sk.siren_forward_cuda(
             mods[:LOCAL_BATCH].contiguous(), *args[1:], **kw)), local_batch=LOCAL_BATCH,
         max_abs_err_at_local_batch=cmp_local["eval_local_err"],
@@ -2416,6 +2510,7 @@ def main() -> int:
         launches_pretraining_path=ptr["fwd"], launches_online_path=onl["fwd"],
         launches_multirank_path_per_rank=per_rank("siren_train_fwd"),
         launches_results_path=res["launches"]["siren_train_fwd"],
+        launches_sweep940_path=swp["launches"]["siren_train_fwd"],
         ms_per_rank_at_local_batch=cuda_median_ms(lambda: stk.siren_chain_train_fwd_cuda(
             *local_targs, **tkw, s_wt=s_wt)), local_batch=LOCAL_BATCH,
         max_abs_err_at_local_batch=cmp_local["fwd_err"]))
@@ -2436,6 +2531,7 @@ def main() -> int:
         launches_pretraining_path=ptr["bwd"], launches_online_path=onl["bwd"],
         launches_multirank_path_per_rank=per_rank("siren_train_bwd"),
         launches_results_path=res["launches"]["siren_train_bwd"],
+        launches_sweep940_path=swp["launches"]["siren_train_bwd"],
         ms_per_rank_at_local_batch=cuda_median_ms(lambda: stk.siren_chain_train_bwd_cuda(
             *local_targs, cot[:LOCAL_BATCH].contiguous(), **tkw)), local_batch=LOCAL_BATCH,
         max_abs_err_at_local_batch=cmp_local["bwd_err"], **parts))
@@ -2466,7 +2562,8 @@ def main() -> int:
             cmp_dft["max_abs_err"], t_kernel, t_plain, fft_ops, nbytes, card,
             peak=PEAK_F32_FLOPS, unit="f32 FLOP", library_ms=t_lib,
             launches_online_path=onl["dft"] + onl["sweep"]["dft"],
-            launches_results_path=res["launches"]["dft2c"]))
+            launches_results_path=res["launches"]["dft2c"],
+            launches_sweep940_path=swp["launches"]["dft2c"]))
         print(f"dft2c {shape}: the FFT kernel takes {t_kernel / t_lib:.2f}x the torch.fft "
               f"route's time [{card}]")
     for rec in records:

@@ -130,14 +130,15 @@ def make_splits(root: pathlib.Path, args, device: torch.device, processed: str =
 
 
 def pretrain(ae_dir: pathlib.Path, model: str, meta: dict, epochs: int, batch: int,
-             latent: int, dev: list[str]) -> tuple[pathlib.Path, pathlib.Path]:
-    """The ``model`` autoencoder's files under ``ae_dir`` (trained on the
-    train split unless they exist, then scored on three eval slices into
-    ``ae_metrics.csv``)."""
+             latent: int, dev: list[str], seed: int = 0) -> tuple[pathlib.Path, pathlib.Path]:
+    """The ``model`` autoencoder's files under ``ae_dir`` (trained from
+    ``train_encoder --seed seed`` on the train split unless they exist, then
+    scored on three eval slices into ``ae_metrics.csv``)."""
     ae_file, ae_full = train_encoder.checkpoint_paths(ae_dir, model, epochs - 1)
     if ae_file.exists():
         return ae_file, ae_full
-    common = ["--output", str(ae_dir), "--model", model, "--latent-dim", str(latent), *dev]
+    common = ["--output", str(ae_dir), "--model", model, "--latent-dim", str(latent),
+              "--seed", str(seed), *dev]
     train_encoder.main(["--dataset", str(meta["train"]), "--epochs", str(epochs),
                         "--batch-size", str(batch), *common])
     train_encoder.main(["--dataset", str(meta["eval"]), "--evaluate", str(ae_full), *common])

@@ -4,8 +4,8 @@ trains the modulated SIREN under one changed setting and scores it with the
 metric sweep, through the port's own entry points, in this process.
 
     python -m mri_inr_tpu_torch.cli.results_run [--root runs/results_torch] \\
-        [--rows a,b,...] [--epochs 600] [--ae-epochs 30] [--device cpu|cuda] \\
-        [--render]
+        [--rows a,b,...] [--seed K] [--epochs 600] [--ae-epochs 30] \\
+        [--device cpu|cuda] [--render]
 
 The protocol is ``cli/quality_run``'s (``RESULTS.md:16-21``): phantom seeds
 0 / 1000 / 2000, 24 / 4 / 12 volumes x 4 slices at 256x256; a conv
@@ -24,10 +24,21 @@ masks each epoch on the device; validation and eval offline),
 ``train_sin5`` (``training.sin5=false``: the port trains with degree-5 sines
 by default, so this row pairs with the JAX baseline and the port's
 ``baseline`` with the JAX ``train_sin5``), ``vgg_frozen_rand`` and
-``vgg_frozen_corpus`` (a frozen VGG trunk, random or the VGG autoencoder's).
-The VGG rows record the trunk's feature mean over the train split's
-undersampled tiles (a mean above about 1 leaves the spliced SIREN
-ill-posed).
+``vgg_frozen_corpus`` (a frozen VGG trunk, random or the VGG autoencoder's),
+``vgg_frozen_rand_sin9`` (the random control with ``training.sin5=false``,
+as the JAX row trained its sines). The VGG rows record the trunk's feature
+mean over the train split's undersampled tiles (a mean above about 1 leaves
+the spliced SIREN ill-posed).
+
+``--seed K`` (K > 0) repeats the rows at another seed: ``training.seed=K``
+(the model's init, a random VGG trunk's too, and the dropout stream), and a
+row's own VGG or perceptual autoencoder pretrained by ``train_encoder --seed
+K`` under ``encoder_vgg_seedK/`` (the conv autoencoder stays shared, as in
+the JAX package's seed runs). Such a row is ``<row>@seed<K>`` in
+``rows.json`` and under ``--root``; ``baseline@seed1`` and
+``online_remask@seed1`` are held against the JAX ``seed1_offline`` and
+``seed1_online`` runs (``runs/results/seed1_*``), every other against its
+seed-0 JAX row. ``--seed 0`` (the default) is the rows as they were.
 
 ``rows.json`` under ``--root`` is rewritten after every row; each row holds
 its overrides, its autoencoder files, the mean / std / min / max of PSNR,
@@ -38,7 +49,9 @@ stopped. A row that fails is reported with its traceback and the later rows
 run; the process then exits nonzero naming the failed rows. ``--render``
 writes ``TABLE.md``: each row against its JAX row (read from the committed
 ``runs/results/rows.json`` and ``runs/quality``) with the bar of 0.3 dB /
-0.01 / 0.01, and the orderings ``RESULTS.md:41-48`` reads.
+0.01 / 0.01, the orderings ``RESULTS.md:41-48`` reads, and for each row
+run at more than one seed its value at each seed, their mean and range
+beside the JAX readings.
 """
 
 from __future__ import annotations
@@ -68,6 +81,9 @@ REPO = pathlib.Path(__file__).resolve().parents[2]
 #: summary (``scripts/quality_run.py``), committed data files
 JAX_ROWS = REPO / "runs" / "results" / "rows.json"
 JAX_BASELINE = REPO / "runs" / "quality" / "eval" / "quality" / "metrics_summary.txt"
+#: the JAX package's seed repeats (``RESULTS.md:53-54``): (port row, seed) ->
+#: the JAX run, whose ``eval/metrics_summary.txt`` lies under ``runs/results``
+JAX_SEED_RUNS = {("baseline", 1): "seed1_offline", ("online_remask", 1): "seed1_online"}
 #: the mask pairs of the acceleration rows' splits (``scripts/results_run.py:48-70``)
 ACC_MASKS = ((0.05, 6), (0.05, 8), (0.1, 6), (0.2, 4))
 #: bars of a row's means against its JAX row (the baseline row's own bar)
@@ -120,7 +136,21 @@ ROWS = {
     "baseline": Row("train_sin5", note="degree-5 train sines on (the port's default), as the "
                     "JAX train_sin5 row"),
     "residual": Row("residual", ("model.residual=true",), ("model.residual=true",)),
+    "vgg_frozen_rand_sin9": Row("vgg_frozen_rand", (*_FROZEN, "training.sin5=false"), _VGG,
+                                encoder=None, note="degree-5 train sines off, as the JAX "
+                                "row trained through the Flax path"),
 }
+
+
+def row_key(name: str, seed: int) -> str:
+    """The name of row ``name`` at ``seed`` in ``rows.json`` and under
+    ``--root``: the row's own at seed 0, ``<row>@seed<K>`` else."""
+    return name if seed == 0 else f"{name}@seed{seed}"
+
+
+def jax_pair(name: str, seed: int) -> str:
+    """The JAX run row ``name`` at ``seed`` is held against."""
+    return JAX_SEED_RUNS.get((name, seed), ROWS[name].jax)
 
 
 class Protocol:
@@ -141,13 +171,18 @@ class Protocol:
                                                      processed, masks)
         return self._splits[processed]
 
-    def autoencoder(self, kind: str) -> tuple[pathlib.Path, pathlib.Path]:
-        if kind not in self._autoencoders:
+    def autoencoder(self, kind: str, seed: int = 0) -> tuple[pathlib.Path, pathlib.Path]:
+        """The ``kind`` autoencoder's files; at ``seed`` > 0 a VGG or
+        perceptual one is pretrained from that seed into its own directory,
+        the conv one stays the shared seed-0 file."""
+        seed = 0 if kind == "conv" else seed
+        if (kind, seed) not in self._autoencoders:
             directory, model, batch = AUTOENCODERS[kind]
-            self._autoencoders[kind] = qr.pretrain(
-                self.root / directory, model, self.splits("processed"), self.args.ae_epochs,
-                batch, self.latent, self.dev)
-        return self._autoencoders[kind]
+            self._autoencoders[kind, seed] = qr.pretrain(
+                self.root / (directory + (f"_seed{seed}" if seed else "")), model,
+                self.splits("processed"), self.args.ae_epochs, batch, self.latent, self.dev,
+                seed)
+        return self._autoencoders[kind, seed]
 
     def online_train_set(self, cfg, remask: bool = True) -> OnlineKspaceDataset:
         """The train split as the online route sees it: the phantom k-space
@@ -186,9 +221,10 @@ def trunk_features(cfg, meta: pathlib.Path, device: torch.device, chunk: int = 4
     return {"tiles": len(tiles), "mean": total / count, "max": top, "zero_share": zeros / count}
 
 
-def run_row(name: str, proto: Protocol, card: str) -> dict:
+def run_row(name: str, proto: Protocol, card: str, seed: int = 0) -> dict:
     spec, args, dev = ROWS[name], proto.args, proto.dev
-    row_dir = proto.root / name
+    key = row_key(name, seed)
+    row_dir = proto.root / key
     stages, info = {}, {}
     before = {k: f.launches for k, f in COUNTERS.items()}
 
@@ -197,13 +233,13 @@ def run_row(name: str, proto: Protocol, card: str) -> dict:
     stages["data"] = time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    sets = list(spec.train)
+    sets = list(spec.train) + ([f"training.seed={seed}"] if seed else [])
     if spec.encoder:
-        enc_file, _ = proto.autoencoder(spec.encoder)
+        enc_file, _ = proto.autoencoder(spec.encoder, seed)
         sets.append(f"model.encoder_path={enc_file}")
         info["autoencoder"] = qr.cwd_relative(enc_file)
     if spec.perceptual:
-        perc_file, _ = proto.autoencoder("perceptual")
+        perc_file, _ = proto.autoencoder("perceptual", seed)
         sets.append(f"training.perceptual_encoder_path={perc_file}")
         info["perceptual_autoencoder"] = qr.cwd_relative(perc_file)
     sets += args.overrides
@@ -213,7 +249,7 @@ def run_row(name: str, proto: Protocol, card: str) -> dict:
         None, qr.train_sets(meta, row_dir, name, args.epochs, *sets))
     if cfg.model.encoder_type == "vgg":
         info["trunk_features"] = trunk_features(cfg, meta["train"], proto.device)
-        print(f"row {name}: VGG trunk features over the train split: {info['trunk_features']}",
+        print(f"row {key}: VGG trunk features over the train split: {info['trunk_features']}",
               flush=True)
     datasets = None
     if spec.online:
@@ -223,7 +259,7 @@ def run_row(name: str, proto: Protocol, card: str) -> dict:
         stages["data"] += time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    trainer = qr.train_stage(meta, row_dir, name, args.epochs, dev, *sets, datasets=datasets)
+    trainer = qr.train_stage(meta, row_dir, key, args.epochs, dev, *sets, datasets=datasets)
     run_dir = trainer.run_dir
     del trainer, datasets
     stages["train"] = time.perf_counter() - t0
@@ -238,8 +274,9 @@ def run_row(name: str, proto: Protocol, card: str) -> dict:
         torch.cuda.empty_cache()
 
     out = {
-        "row": name,
-        "jax_row": spec.jax,
+        "row": key,
+        **({"base_row": name, "seed": seed} if seed else {}),
+        "jax_row": jax_pair(name, seed),
         **({"note": spec.note} if spec.note else {}),
         "epochs": args.epochs,
         "ae_epochs": args.ae_epochs,
@@ -263,15 +300,25 @@ def run_row(name: str, proto: Protocol, card: str) -> dict:
 
 
 # ------------------------------------------------------------------ the table
+def read_summary(path: pathlib.Path) -> dict[str, dict]:
+    """``metrics_summary.txt`` as ``{"PSNR": {"mean": ..., "std": ...}, ...}``."""
+    out = {}
+    for line in path.read_text().splitlines():
+        metric, rest = line.split(":", 1)
+        out[metric.strip()] = {kv.split("=")[0]: float(kv.split("=")[1]) for kv in rest.split()}
+    return out
+
+
 def jax_rows(rows_json: pathlib.Path, baseline_summary: pathlib.Path) -> dict[str, dict]:
     """The JAX package's rows by name: ``rows_json`` (``scripts/results_run.py``'s
-    file) and the baseline row from its ``metrics_summary.txt``."""
+    file), the baseline row from its ``metrics_summary.txt``, and the seed
+    repeats of :data:`JAX_SEED_RUNS` from theirs beside ``rows_json``."""
     rows = {r["row"]: r for r in json.loads(rows_json.read_text())}
-    base = {}
-    for line in baseline_summary.read_text().splitlines():
-        metric, rest = line.split(":", 1)
-        base[metric.strip()] = {kv.split("=")[0]: float(kv.split("=")[1]) for kv in rest.split()}
-    rows["baseline"] = {"row": "baseline", **base}
+    rows["baseline"] = {"row": "baseline", **read_summary(baseline_summary)}
+    for run in JAX_SEED_RUNS.values():
+        summary = rows_json.parent / run / "eval" / "metrics_summary.txt"
+        if summary.is_file():
+            rows[run] = {"row": run, **read_summary(summary)}
     return rows
 
 
@@ -352,6 +399,7 @@ def render(port_rows: list[dict], jax: dict[str, dict]) -> str:
         lines.append(f"| {what} | {p[0] if p else 'rows missing'} | "
                      f"{('yes' if p[1] else 'no') if p else 'n/a'} | {want[what][0]} | "
                      f"{'yes' if want[what][1] else 'no'} |")
+    lines += seed_section(port_rows, jax)
     notes = [r for r in port_rows if r.get("note") or "trunk_features" in r]
     if notes:
         lines += ["", "## Notes", ""]
@@ -364,12 +412,58 @@ def render(port_rows: list[dict], jax: dict[str, dict]) -> str:
     return "\n".join(lines) + "\n"
 
 
+def seed_section(port_rows: list[dict], jax: dict[str, dict]) -> list[str]:
+    """``TABLE.md``'s seed section: each row run at more than one seed, its
+    value per seed, mean and range beside the JAX readings of every run it
+    is paired with (the range over the finite values, a diverged run's NaN
+    counted apart); then whether the seed-0 JAX row's PSNR lies inside the
+    port's range and which seeds lie inside the bar on all three means."""
+    groups: dict[str, dict[int, dict]] = {}
+    for r in port_rows:
+        groups.setdefault(r.get("base_row", r["row"]), {})[r.get("seed", 0)] = r
+    groups = {k: v for k, v in groups.items() if len(v) > 1}
+    if not groups:
+        return []
+    lines = ["", "## Seeds", "",
+             "| Row | Metric | Port by seed | Mean | Min - max | JAX readings |",
+             "|---|---|---|---|---|---|"]
+    verdicts = []
+    for base, by_seed in groups.items():
+        seeds = sorted(by_seed)
+        pairs = list(dict.fromkeys(by_seed[k]["jax_row"] for k in seeds))
+        for m in BARS:
+            vals = [_mean(by_seed[k], m) for k in seeds]
+            finite = [v for v in vals if np.isfinite(v)]
+            span = f"{min(finite):.4f} - {max(finite):.4f}" if finite else "n/a"
+            if len(finite) < len(vals):
+                span += f" ({len(vals) - len(finite)} not finite)"
+            readings = "; ".join(f"{j} {_mean(jax[j], m):.4f}" for j in pairs if j in jax)
+            lines.append(f"| {base} | {m} | " + ", ".join(
+                f"{k}: {v:.4f}" for k, v in zip(seeds, vals))
+                + f" | {np.mean(vals):.4f} | {span} | {readings or 'n/a'} |")
+        ref = jax.get(by_seed[seeds[0]]["jax_row"])
+        if ref is None:
+            continue
+        psnr = [v for v in (_mean(by_seed[k], "PSNR") for k in seeds) if np.isfinite(v)]
+        inside = bool(psnr) and min(psnr) <= _mean(ref, "PSNR") <= max(psnr)
+        in_bar = [k for k in seeds if all(abs(_mean(by_seed[k], m) - _mean(ref, m)) <= b
+                                         for m, b in BARS.items())]
+        verdicts.append(
+            f"- `{base}` against `{by_seed[seeds[0]]['jax_row']}`: its PSNR "
+            f"{_mean(ref, 'PSNR'):.4f} {'lies' if inside else 'does not lie'} inside the "
+            f"port's range; seeds inside the bar on all three means: "
+            f"{', '.join(map(str, in_bar)) or 'none'}")
+    return lines + [""] + verdicts
+
+
 def main(argv: list[str] | None = None) -> dict[str, dict]:
     ap = argparse.ArgumentParser(description=__doc__,
                                  formatter_class=argparse.RawDescriptionHelpFormatter)
     qr.add_protocol_args(ap, "runs/results_torch")
     ap.add_argument("--rows", default=",".join(ROWS),
                     help=f"comma-separated rows, run in this order (known: {', '.join(ROWS)})")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="run the rows at this seed (> 0: rows <row>@seed<K>)")
     ap.add_argument("--render", action="store_true", help="write TABLE.md under --root")
     args = ap.parse_args(argv)
     root = pathlib.Path(args.root).resolve()
@@ -378,7 +472,7 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
     done = ({r["row"]: r for r in json.loads(rows_path.read_text())}
             if rows_path.exists() else {})
     wanted = [r for r in args.rows.split(",") if r]
-    todo = [r for r in wanted if r not in done]
+    todo = [r for r in wanted if row_key(r, args.seed) not in done]
     failed = []
     if todo:
         device = resolve_device(args.device)
@@ -390,8 +484,9 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
             qr.build_kernels()
             print(f"kernels built ({time.perf_counter() - t0:.1f}s)", flush=True)
     for name in wanted:
-        if name in done:
-            print(f"row {name}: already in {rows_path}, skipped", flush=True)
+        key = row_key(name, args.seed)
+        if key in done:
+            print(f"row {key}: already in {rows_path}, skipped", flush=True)
             continue
         if name not in ROWS:
             print(f"row {name}: unknown (known: {', '.join(ROWS)})", flush=True)
@@ -399,15 +494,15 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
             continue
         t0 = time.perf_counter()
         try:
-            done[name] = run_row(name, proto, card)
+            done[key] = run_row(name, proto, card, args.seed)
         except Exception:
             traceback.print_exc()
-            print(f"row {name} FAILED after {time.perf_counter() - t0:.1f}s", flush=True)
-            failed.append(name)
+            print(f"row {key} FAILED after {time.perf_counter() - t0:.1f}s", flush=True)
+            failed.append(key)
             continue
         rows_path.write_text(json.dumps(list(done.values()), indent=2) + "\n")
-        r = done[name]
-        print(f"row {name} done in {time.perf_counter() - t0:.1f}s: PSNR "
+        r = done[key]
+        print(f"row {key} done in {time.perf_counter() - t0:.1f}s: PSNR "
               f"{r['PSNR']['mean']:.4f} SSIM {r['SSIM']['mean']:.4f} NRMSE "
               f"{r['NRMSE']['mean']:.4f}", flush=True)
     if args.render:

@@ -22,6 +22,10 @@ directory of raw ``.h5`` k-space volumes as ``data.dataset`` and scores the
 slices the ``OnlineKspaceDataset`` reconstructs on the device with the
 offline pipeline's fixed masks (no ``.npy`` files; ``data.test_files`` is
 refused); with ``data.device_sweep`` no image data crosses to the host.
+A caller may pass its own ``sampler`` to :func:`main` (an
+:class:`OnlineSampler` over k-space made in memory, where no ``.h5`` file
+can be read): it replaces the one ``data.*`` would build, for the visual
+and the metric pass, and ``--shard`` takes its ``shard(i, n)``.
 
 Over N ranks (``torchrun --nproc-per-node N -m mri_inr_tpu_torch.cli.test
 ...`` or the ``MRI_INR_*`` triple, ``parallel/distributed.py``) rank ``i``
@@ -121,12 +125,15 @@ def _render_visual_sample(reconstructor, pair, output_dir: pathlib.Path) -> None
     print(f"visual sample {sid}: " + " ".join(f"{k}={float(v):.4f}" for k, v in m.items()))
 
 
-def evaluate(cfg, device: torch.device, shard: str | None = None,
-             ) -> tuple[list[ev.SliceResult], pathlib.Path]:
+def evaluate(cfg, device: torch.device, shard: str | None = None, sampler=None,
+             timings: dict | None = None) -> tuple[list[ev.SliceResult], pathlib.Path]:
     """Everything up to the metric rows: restore, visual pass (the primary
     rank's), metric pass (every rank's shard, or with ``data.halo_fold``
-    every rank's rows of every slice), the rows gathered. Returns (rows,
-    output directory); every rank returns every row."""
+    every rank's rows of every slice), the rows gathered. ``sampler``
+    replaces the one ``cfg.data`` names; ``timings``, a dict, receives the
+    metric pass's seconds and slices, and the device sweep's stage /
+    dispatch / execute seconds. Returns (rows, output directory); every
+    rank returns every row."""
     ecfg, mcfg = cfg.data, cfg.model
     model = ms.from_config(mcfg, generator=torch.Generator().manual_seed(0), device=device)
     t_restore = time.perf_counter()
@@ -138,7 +145,9 @@ def evaluate(cfg, device: torch.device, shard: str | None = None,
     if primary:
         output_dir.mkdir(parents=True, exist_ok=True)
 
-    if ecfg.online:
+    if sampler is not None:
+        visual_sampler = sampler
+    elif ecfg.online:
         if ecfg.test_files:
             raise ValueError("data.test_files needs the offline sampler (data.online=false)")
         online_ds = OnlineKspaceDataset(
@@ -193,9 +202,10 @@ def evaluate(cfg, device: torch.device, shard: str | None = None,
             reconstructor(pair.fully_sampled, pair.undersampled)
 
     t_metric = time.perf_counter()
+    sweep_timings = {}
     if ecfg.device_sweep:
-        results, _ = ev.evaluate_files_device(reconstructor, sampler,
-                                              num_samples=ecfg.metric_samples)
+        results, sweep_timings = ev.evaluate_files_device(reconstructor, sampler,
+                                                          num_samples=ecfg.metric_samples)
     elif ecfg.eval_chunk > 1:
         results = ev.evaluate_files_chunked(reconstructor, sampler,
                                             num_samples=ecfg.metric_samples,
@@ -205,12 +215,17 @@ def evaluate(cfg, device: torch.device, shard: str | None = None,
     metric_secs = time.perf_counter() - t_metric
     print(f"metric pass: {len(results)} slices in {metric_secs:.1f}s "
           f"({len(results) / max(metric_secs, 1e-9):.1f} slices/s)")
+    if timings is not None:
+        timings.update(sweep_timings, metric_seconds=metric_secs, slices=len(results))
     if not ecfg.halo_fold:  # in halo mode every rank scored every slice
         results = ev.gather_shard_results(results)
     return results, output_dir
 
 
-def main(argv: list[str] | None = None) -> list[ev.SliceResult]:
+def main(argv: list[str] | None = None, sampler=None,
+         timings: dict | None = None) -> list[ev.SliceResult]:
+    """Run the CLI on ``argv``; ``sampler`` and ``timings`` go to
+    :func:`evaluate`."""
     parser = argparse.ArgumentParser(description=__doc__,
                                      formatter_class=argparse.RawDescriptionHelpFormatter)
     parser.add_argument("--config", "-c", default=None)
@@ -237,7 +252,7 @@ def main(argv: list[str] | None = None) -> list[ev.SliceResult]:
 
     device = distributed.initialize(args.device)
     resolve_devices(args.devices)
-    results, output_dir = evaluate(cfg, device, args.shard)
+    results, output_dir = evaluate(cfg, device, args.shard, sampler, timings)
     if not distributed.is_primary():
         return results
     suffix = f"_shard{args.shard.replace(':', '_')}" if args.shard else ""

@@ -140,6 +140,9 @@ class OnlineKspaceDataset:
         self._fully = self._fully_imgs = None  # mask-independent, made once
         self._under = None  # the persistent buffer of the undersampled tiles
         self._under_epoch: int | None = None
+        #: the mask epochs materialised, in order (a resumed run's continue
+        #: from its first epoch)
+        self.mask_epochs: list[int] = []
         self._fully_imgs0 = self._under_imgs0 = None  # the epoch-0 stash for eval
         self._imgs_np = None
         self._slice_cache: dict = {}
@@ -227,6 +230,7 @@ class OnlineKspaceDataset:
             else:
                 self._under.copy_(tiles)
             self._under_epoch = e
+            self.mask_epochs.append(e)
         return self._fully, self._under
 
     def batches(self, batch_size: int, seed: int, shuffle: bool = True, prefetch: int = 0):

@@ -222,3 +222,87 @@ def test_online_route_without_remask_matches_the_offline_split(tmp_path):
     assert on.initial_losses[0] == pytest.approx(off.initial_losses[0], abs=1e-6)
     assert on._progress[0]["train_loss"] == pytest.approx(off._progress[0]["train_loss"],
                                                           abs=1e-6)
+
+
+# ------------------------------------------------------------------ seeds
+def test_seed_zero_leaves_row_names_and_overrides(root):
+    """``--seed 0``, the default, is the rows as they were: each keeps its
+    name, its JAX row and its overrides, with no seed of its own."""
+    for name, r in _rows(root).items():
+        assert rr.row_key(name, 0) == name and rr.jax_pair(name, 0) == rr.ROWS[name].jax
+        assert "seed" not in r and "base_row" not in r, name
+        assert not any(o.startswith("training.seed") for o in r["train_overrides"]), name
+
+
+def test_seed_rows_are_named_paired_and_seeded(root):
+    """``--seed 1``: rows ``<row>@seed1`` beside the seed-0 rows, which stay
+    as they were; ``training.seed=1`` reaches the run, the VGG autoencoder is
+    pretrained from seed 1 into its own directory, the conv one is shared;
+    the baseline and online rows pair with the JAX seed-1 runs."""
+    before = _rows(root)
+    rr.main(["--root", str(root), "--seed", "1", "--rows",
+             "baseline,online_remask,vgg_frozen_corpus", *TINY])
+    rows = _rows(root)
+    assert {k: rows[k] for k in before} == before
+    assert set(rows) - set(before) == {"baseline@seed1", "online_remask@seed1",
+                                       "vgg_frozen_corpus@seed1"}
+    pairs = {"baseline": "seed1_offline", "online_remask": "seed1_online",
+             "vgg_frozen_corpus": "vgg_frozen_corpus"}
+    for name, jax_row in pairs.items():
+        r = rows[f"{name}@seed1"]
+        assert (r["base_row"], r["seed"], r["jax_row"]) == (name, 1, jax_row)
+        assert "training.seed=1" in r["train_overrides"]
+        run_dir = pathlib.Path(r["run_dir"])
+        assert run_dir.parent == root / f"{name}@seed1"
+        assert yaml.safe_load((run_dir / "config.yaml").read_text())["training"]["seed"] == 1
+        assert json.loads((root / f"{name}@seed1" / "run_info.json").read_text()) == r
+    assert rows["baseline@seed1"]["autoencoder"] == before["baseline"]["autoencoder"]
+    seeded = rows["vgg_frozen_corpus@seed1"]["autoencoder"]
+    assert seeded.endswith("encoder_vgg_seed1/vgg_autoencoder_epoch_00000.pt")
+    trunk = lambda p: _trunk(torch.load(p, weights_only=True), "trunk.")
+    a, b = trunk(seeded), trunk(before["vgg_frozen_corpus"]["autoencoder"])
+    assert a.keys() == b.keys() and not all(torch.equal(a[k], b[k]) for k in a)
+    # the seed reached the init: the first losses differ from seed 0's
+    first = lambda r: (pathlib.Path(r["run_dir"]) / "progress_log.csv").read_text()
+    assert first(rows["baseline@seed1"]) != first(before["baseline"])
+
+
+def test_jax_rows_hold_the_seed_repeats():
+    jax = rr.jax_rows(rr.JAX_ROWS, rr.JAX_BASELINE)
+    assert jax["seed1_offline"]["PSNR"]["mean"] == 28.3921
+    assert jax["seed1_online"]["SSIM"]["mean"] == 0.8766
+    assert set(rr.JAX_SEED_RUNS.values()) <= set(jax)
+
+
+def test_render_reads_the_seed_section(tmp_path):
+    """The seed section: each row's value per seed, mean and range beside
+    every JAX run it pairs with, and the reading of ROADMAP's rule (the JAX
+    PSNR inside the port's range; seeds inside the bar on all three)."""
+    rows = [_fixture_row("residual", "residual", 23.78, 0.28, 0.25),
+            _fixture_row("residual@seed1", "residual", 28.40, 0.869, 0.124),
+            _fixture_row("residual@seed2", "residual", 27.00, 0.80, 0.15),
+            _fixture_row("residual@seed3", "residual", float("nan"), float("nan"),
+                         float("nan")),
+            _fixture_row("baseline", "train_sin5", 28.32, 0.8686, 0.1252),
+            _fixture_row("baseline@seed1", "seed1_offline", 28.50, 0.8700, 0.1230),
+            _fixture_row("edge", "edge", 28.44, 0.868, 0.1232)]
+    for r, (base, seed) in zip(rows, [("residual", 0), ("residual", 1), ("residual", 2),
+                                      ("residual", 3), ("baseline", 0), ("baseline", 1),
+                                      ("edge", 0)]):
+        if seed:
+            r.update(base_row=base, seed=seed)
+    (tmp_path / "rows.json").write_text(json.dumps(rows))
+    rr.main(["--root", str(tmp_path), "--rows", "residual,baseline,edge", "--render"])
+    table = (tmp_path / "TABLE.md").read_text()
+    section = table[table.index("## Seeds"):table.index("## Notes") if "## Notes" in table
+                    else None]
+    # a diverged seed (NaN) stays in the row, apart from the range
+    assert ("| residual | PSNR | 0: 23.7800, 1: 28.4000, 2: 27.0000, 3: nan | nan | "
+            "23.7800 - 28.4000 (1 not finite) | residual 28.5242 |") in section
+    assert "| baseline | PSNR | 0: 28.3200, 1: 28.5000 | 28.4100 | 28.3200 - 28.5000 | " \
+           "train_sin5 28.4040; seed1_offline 28.3921 |" in section
+    assert "| edge |" not in section  # one seed: no seed line
+    assert ("- `residual` against `residual`: its PSNR 28.5242 does not lie inside the "
+            "port's range; seeds inside the bar on all three means: 1") in section
+    assert ("- `baseline` against `train_sin5`: its PSNR 28.4040 lies inside the port's "
+            "range; seeds inside the bar on all three means: 0, 1") in section
