@@ -116,7 +116,9 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    VGG trunk): each row's train and eval kernel launches, the DFT kernel's
    for the splits and each remask epoch, ``rows.json`` (finite means, this
    card), a second call that skips every row, and one volume's (0.2, 4) acc
-   slices against the ``torch.fft`` route on the CPU;
+   slices against the ``torch.fft`` route on the CPU; also the frozen random
+   VGG trunk on the module path (``vgg_frozen_rand_module``), which
+   launches no train kernel;
 15. the 940-file sweep's runner (``cli/sweep940``) at configs/test.yaml's
    width and 320x320, its depth cut to 24 evaluation volumes x 4 slices and
    a headline model of 4 volumes trained one epoch and resumed to a second
@@ -125,6 +127,17 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    and their checks, each stage's kernel launches; then ``cli/results_run
    --seed 1`` for phase 14's edge row, named ``edge@seed1``, whose losses
    differ from seed 0's;
+16. the hard-corpus table's runner (``cli/hard_table``) at configs/train.yaml's
+   width on phase 14's depth with the hard corpus (complex phase maps,
+   k-space noise at SNR 32 dB, texture 0.18), two epochs a row: the
+   baseline, the online remask (``dft2c`` on complex, noisy k-space each
+   epoch), the residual row on the module path and ``residual_1200``
+   resumed from its run directory to a third epoch; each row's launches,
+   ``dft2c`` counted as in phase 14, finite means and this card in
+   ``rows.json``, one hard volume's slices against the ``torch.fft`` route
+   on the CPU, a hard call into phase 14's smooth root refused by the
+   protocol guard before any file changes, and a second call that skips
+   every row; the phase's wall time;
 12. times with CUDA events (warm-up, then the median): every kernel and its
    plain version per call, for the DFT also the ``torch.fft`` route, for the
    backward also its chain and weight-gradient kernels apart (device time
@@ -1996,8 +2009,10 @@ def multirank_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path,
 # cli/results_run's rows that no other phase drives, at configs/train.yaml's
 # width; the protocol's depth cut to 2 / 1 / 1 volumes x 4 slices of 256 x
 # 256, RESULTS_EPOCHS a row, one autoencoder epoch. The residual and Morlet
-# routes are phases 7 and 3's.
-RESULTS_ROWS = ("online_remask", "vgg", "perceptual", "acc_02_4", "edge", "vgg_frozen_corpus")
+# routes are phases 7 and 3's; vgg_frozen_rand_module trains a VGG trunk on
+# the module path (no train kernel; the sweep's forward is the kernel).
+RESULTS_ROWS = ("online_remask", "vgg", "perceptual", "acc_02_4", "edge", "vgg_frozen_corpus",
+                "vgg_frozen_rand_module")
 RESULTS_EPOCHS = 2
 RESULTS_SLICES, RESULTS_SIZE = 4, 256  # the protocol's
 RESULTS_ARGV = ["--epochs", str(RESULTS_EPOCHS), "--ae-epochs", "1", "--train-files", "2",
@@ -2005,9 +2020,24 @@ RESULTS_ARGV = ["--epochs", str(RESULTS_EPOCHS), "--ae-epochs", "1", "--train-fi
                 "--size", str(RESULTS_SIZE), "--rows", ",".join(RESULTS_ROWS)]
 
 
+def check_row_route(rr, r: dict) -> None:
+    """A row trained on its route: the fused rows launch both train kernels,
+    the module rows neither; the sweep's eval forward is the kernel but for
+    the residual model, which has none."""
+    train = [r["launches"][k] for k in ("siren_train_fwd", "siren_train_bwd")]
+    if rr.route(r["train_overrides"]) == "fused":
+        check(all(train), f"results row {r['row']} (fused) launches {r['launches']}")
+    else:
+        check(not any(train), f"results row {r['row']} (module path) launches {r['launches']}")
+    residual = "model.residual=true" in r["train_overrides"]
+    check((r["launches"]["siren_forward"] > 0) != residual,
+          f"results row {r['row']}: siren_forward launches {r['launches']['siren_forward']}")
+
+
 def results_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
     """Phase 14: the quality protocol's runner on the card. Every row trains
-    through the fused kernels and lands in rows.json with finite means and
+    on its route (the fused kernels, or the module path for
+    vgg_frozen_rand_module) and lands in rows.json with finite means and
     this card's name; the splits and the online row's remask epochs go
     through the DFT kernel; a second call skips every row; the acc split's
     (0.2, 4) slices of one volume equal the torch.fft route's on the CPU."""
@@ -2033,8 +2063,7 @@ def results_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
                  if "trunk_features" in r else ""))
         check(all(np.isfinite(means)) and r["slices"] == eval_slices and r["device"] == card,
               f"results row {name}: {means}, {r['slices']} slices on {r['device']}")
-        for k in ("siren_train_fwd", "siren_train_bwd", "siren_forward"):
-            check(r["launches"][k] > 0, f"results row {name} launched no {k}")
+        check_row_route(rr, r)
     # the default splits (built for the first row), 1 fully sampled + 2 masks a
     # volume; the online set's fully sampled tiles once and one mask epoch
     # each epoch; the acc splits, 1 + 4 masks a volume
@@ -2159,6 +2188,108 @@ def sweep940_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
           f"{launches}; {wall:.1f} s for the runner, {time.perf_counter() - t_phase:.1f} s "
           f"wall with the seeded row [{card}]")
     return {"launches": launches, "out": out}
+
+
+# --------------------------------------------------------------- phase 16
+# cli/hard_table at configs/train.yaml's width on the hard corpus (complex
+# phase, SNR 32 dB noise, texture 0.18), the depth cut as phase 14's; the
+# resumed residual row cut to a third epoch.
+HARD_ROWS = ("baseline", "online_remask", "residual", "residual_1200")
+HARD_ARGV = [*RESULTS_ARGV[:RESULTS_ARGV.index("--rows")], "--resume-epochs",
+             str(RESULTS_EPOCHS + 1), "--rows", ",".join(HARD_ROWS)]
+
+
+def hard_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
+    """Phase 16: the hard-corpus runner on the card. The fused rows launch
+    the train kernels, the residual rows run the module path (the resumed
+    one from the residual row's run directory); the hard splits and the
+    online row's remask epochs go through the DFT kernel on complex, noisy
+    k-space and one volume's slices equal the torch.fft route's on the CPU;
+    a call into phase 14's smooth root raises the protocol error before any
+    file changes; a second call skips every row."""
+    ht, qr = pkg["hard_table"], pkg["quality_run"]
+    t_phase = time.perf_counter()
+    root = tmp / "results_hard"
+    counters = pkg["results_run"].COUNTERS
+    for k in counters.values():
+        k.launches = 0
+    done = ht.main(["--root", str(root), *HARD_ARGV])
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in counters.items()}
+    wall = time.perf_counter() - t_phase
+    volumes, eval_slices = 2 + 1 + 1, 1 * RESULTS_SLICES
+    for name in HARD_ROWS:
+        r = done[name]
+        means = [r[m]["mean"] for m in ("PSNR", "SSIM", "NRMSE")]
+        print(f"hard row {name}: PSNR / SSIM / NRMSE {means[0]:.4f} / {means[1]:.4f} / "
+              f"{means[2]:.4f} over {r['slices']} slices; stages "
+              + ", ".join(f"{k} {v:.1f} s" for k, v in r["stage_seconds"].items())
+              + f"; launches {r['launches']}")
+        check(all(np.isfinite(means)) and r["slices"] == eval_slices and r["device"] == card
+              and r["corpus"]["phase"] and r["corpus"]["snr_db"] == ht.HARD["snr_db"],
+              f"hard row {name}: {means}, {r['slices']} slices on {r['device']}, "
+              f"{r.get('corpus')}")
+        check_row_route(pkg["results_run"], r)
+    # the default splits (built for the first row), 1 fully sampled + 2 masks a
+    # volume; the online set's fully sampled tiles once and one mask epoch
+    # each epoch; the module rows none
+    want_dft = {"baseline": volumes * 3, "online_remask": 1 + RESULTS_EPOCHS, "residual": 0,
+                "residual_1200": 0}
+    for name, n in want_dft.items():
+        check(done[name]["launches"]["dft2c"] == n,
+              f"hard row {name}: {done[name]['launches']['dft2c']} dft2c launches, not {n}")
+    resumed, parent = done["residual_1200"], done["residual"]
+    run_dir = pathlib.Path(resumed["run_dir"])
+    logs = [len((run_dir / f).read_text().splitlines())
+            for f in ("progress_log.csv", f"progress_log_to{RESULTS_EPOCHS}.csv")]
+    check(resumed["run_dir"] == parent["run_dir"] and resumed["epochs"] == RESULTS_EPOCHS + 1
+          and logs == [1 + 1, 1 + RESULTS_EPOCHS]
+          and (root / "residual" / "eval1200" / "metrics_summary.txt").is_file(),
+          f"residual_1200: {resumed['run_dir']} against {parent['run_dir']}, log lines {logs}")
+    written = json.loads((root / "rows.json").read_text())
+    check([r["row"] for r in written] == list(HARD_ROWS)
+          and all(r["device"] == card for r in written), "hard rows.json rows and card")
+
+    # a hard call into phase 14's smooth root raises before touching it
+    smooth = tmp / "results"
+    files = {p: p.stat().st_mtime_ns for p in smooth.rglob("*") if p.is_file()}
+    try:
+        ht.main(["--root", str(smooth), *HARD_ARGV])
+        raised = ""
+    except ValueError as exc:
+        raised = str(exc)
+    check("this call asks for" in raised
+          and files == {p: p.stat().st_mtime_ns for p in smooth.rglob("*") if p.is_file()},
+          f"a hard call into the smooth root: {raised or 'no error'}")
+    print(f"hard call into the smooth root refused: {raised[:160]}...")
+
+    before = (root / "rows.json").read_bytes()
+    for k in counters.values():
+        k.launches = 0
+    again = ht.main(["--root", str(root), *HARD_ARGV])
+    check(again == done and (root / "rows.json").read_bytes() == before
+          and not any(k.launches for k in counters.values()),
+          "a second call of the hard runner did not skip every row")
+
+    # one hard volume's slices against the torch.fft route on the CPU
+    args = argparse.Namespace(slices=RESULTS_SLICES, size=RESULTS_SIZE, **ht.HARD)
+    stem = pkg["synthetic"].synthetic_stem(0)
+    cpu_rows = pkg["preprocessing"].process_kspace_volume(
+        qr.phantom_kspace(0, args), stem, tmp / "hard_cpu", device="cpu")
+    card_rows = [r for r in pkg["dataset"].read_metadata(
+        root / "data" / "train" / "processed" / "metadata.csv") if r["stem"] == stem]
+    check(len(card_rows) == len(cpu_rows) == RESULTS_SLICES, "hard split rows of one volume")
+    cols = [c for c in cpu_rows[0] if c.startswith("path_")]
+    gap = max(float(np.abs(np.load(a[c]) - np.load(b[c])).max())
+              for a, b in zip(card_rows, cpu_rows) for c in cols)
+    print(f"hard split of {stem} ({', '.join(cols)}), card (DFT kernel) vs cpu (torch.fft): "
+          f"max |diff| {gap:.3e} (<= {PREPROCESS_BAR:g})")
+    check(gap <= PREPROCESS_BAR, "the hard split disagrees with the CPU route")
+    print(f"hard phase: {len(HARD_ROWS)} rows at configs/train.yaml's width, "
+          f"{RESULTS_EPOCHS} epochs each (residual_1200 resumed to {RESULTS_EPOCHS + 1}), "
+          f"launches {launches}; {wall:.1f} s for the rows, "
+          f"{time.perf_counter() - t_phase:.1f} s wall with the checks [{card}]")
+    return {"launches": launches, "rows": done}
 
 
 def time_train_steps(pkg, device) -> dict:
@@ -2383,7 +2514,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from mri_inr_tpu_torch import native
     from mri_inr_tpu_torch.cli import preprocess as cli_preprocess
-    from mri_inr_tpu_torch.cli import quality_run, results_run, sweep940
+    from mri_inr_tpu_torch.cli import hard_table, quality_run, results_run, sweep940
     from mri_inr_tpu_torch.cli import test as cli_test
     from mri_inr_tpu_torch.cli import train as cli_train
     from mri_inr_tpu_torch.cli import train_encoder
@@ -2424,7 +2555,7 @@ def main() -> int:
                cli_preprocess=cli_preprocess, train_encoder=train_encoder, losses=losses,
                trainer=trainer, online=online, tiling=tiling, tensorboard=tensorboard,
                visualization=visualization, profiling=profiling, quality_run=quality_run,
-               results_run=results_run, sweep940=sweep940)
+               results_run=results_run, sweep940=sweep940, hard_table=hard_table)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         pre = preprocess_path(pkg, tmp, device)
@@ -2442,6 +2573,7 @@ def main() -> int:
         mr = multirank_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card)
         res = results_path(pkg, tmp, device, card)
         swp = sweep940_path(pkg, tmp, device, card)
+        hrd = hard_path(pkg, tmp, device, card)
         time_preprocessing(pkg, tmp, device, card)
     per_rank = lambda name: [mr["launches"][r][name] for r in range(RANKS)]
 
@@ -2466,6 +2598,7 @@ def main() -> int:
         launches_multirank_path_per_rank=per_rank("siren_forward"),
         launches_results_path=res["launches"]["siren_forward"],
         launches_sweep940_path=swp["launches"]["siren_forward"],
+        launches_hard_path=hrd["launches"]["siren_forward"],
         ms_per_rank_at_local_batch=cuda_median_ms(lambda: sk.siren_forward_cuda(
             mods[:LOCAL_BATCH].contiguous(), *args[1:], **kw)), local_batch=LOCAL_BATCH,
         max_abs_err_at_local_batch=cmp_local["eval_local_err"],
@@ -2511,6 +2644,7 @@ def main() -> int:
         launches_multirank_path_per_rank=per_rank("siren_train_fwd"),
         launches_results_path=res["launches"]["siren_train_fwd"],
         launches_sweep940_path=swp["launches"]["siren_train_fwd"],
+        launches_hard_path=hrd["launches"]["siren_train_fwd"],
         ms_per_rank_at_local_batch=cuda_median_ms(lambda: stk.siren_chain_train_fwd_cuda(
             *local_targs, **tkw, s_wt=s_wt)), local_batch=LOCAL_BATCH,
         max_abs_err_at_local_batch=cmp_local["fwd_err"]))
@@ -2532,6 +2666,7 @@ def main() -> int:
         launches_multirank_path_per_rank=per_rank("siren_train_bwd"),
         launches_results_path=res["launches"]["siren_train_bwd"],
         launches_sweep940_path=swp["launches"]["siren_train_bwd"],
+        launches_hard_path=hrd["launches"]["siren_train_bwd"],
         ms_per_rank_at_local_batch=cuda_median_ms(lambda: stk.siren_chain_train_bwd_cuda(
             *local_targs, cot[:LOCAL_BATCH].contiguous(), **tkw)), local_batch=LOCAL_BATCH,
         max_abs_err_at_local_batch=cmp_local["bwd_err"], **parts))
@@ -2563,7 +2698,8 @@ def main() -> int:
             peak=PEAK_F32_FLOPS, unit="f32 FLOP", library_ms=t_lib,
             launches_online_path=onl["dft"] + onl["sweep"]["dft"],
             launches_results_path=res["launches"]["dft2c"],
-            launches_sweep940_path=swp["launches"]["dft2c"]))
+            launches_sweep940_path=swp["launches"]["dft2c"],
+        launches_hard_path=hrd["launches"]["dft2c"]))
         print(f"dft2c {shape}: the FFT kernel takes {t_kernel / t_lib:.2f}x the torch.fft "
               f"route's time [{card}]")
     for rec in records:

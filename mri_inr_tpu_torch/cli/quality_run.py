@@ -16,9 +16,13 @@ then the test CLI over the eval split with ``batch_patches=512``.
 The splits are built without ``h5py``: ``synthetic.synthetic_kspace`` ->
 ``preprocessing.process_kspace_volume`` -> ``write_metadata`` (the k-space
 ``write_synthetic_h5`` would store). A split whose ``metadata.csv`` and
-slices exist and an autoencoder file that exists are reused. Visual samples are left out
-where ``matplotlib`` is not installed. ``run_info.json`` under ``--root``
-records the protocol, each stage's wall seconds, the card and the metrics.
+slices exist and an autoencoder file that exists are reused; so the first
+build under a root writes ``protocol.json`` there (corpus flags, size,
+slices, file counts, autoencoder epochs), and a later call whose protocol
+differs raises before it touches any file (:func:`guard_protocol`). Visual
+samples are left out where ``matplotlib`` is not installed.
+``run_info.json`` under ``--root`` records the protocol, each stage's wall
+seconds, the card and the metrics.
 The autoencoder's own reconstruction of three eval slices goes to
 ``encoder/ae_metrics.csv``. Keep ``run_info.json``, the progress logs and the
 metric files; the
@@ -72,8 +76,10 @@ def build_kernels() -> None:
 SPLIT_SEEDS = {"train": 0, "val": 1000, "eval": 2000}
 
 
-def add_protocol_args(ap: argparse.ArgumentParser, root: str) -> None:
-    """The protocol's options, shared with ``cli/results_run``."""
+def add_protocol_args(ap: argparse.ArgumentParser, root: str, corpus: bool = True) -> None:
+    """The protocol's options, shared with ``cli/results_run``; without
+    ``corpus`` the phantoms' flags (``--phase``, ``--snr-db``,
+    ``--texture``) are left to the caller."""
     ap.add_argument("--root", default=root)
     ap.add_argument("--epochs", type=int, default=600)
     ap.add_argument("--ae-epochs", type=int, default=30)
@@ -82,9 +88,10 @@ def add_protocol_args(ap: argparse.ArgumentParser, root: str) -> None:
     ap.add_argument("--eval-files", type=int, default=12)
     ap.add_argument("--slices", type=int, default=4)
     ap.add_argument("--size", type=int, default=256)
-    ap.add_argument("--phase", action="store_true")
-    ap.add_argument("--snr-db", type=float, default=None)
-    ap.add_argument("--texture", type=float, default=0.0)
+    if corpus:
+        ap.add_argument("--phase", action="store_true")
+        ap.add_argument("--snr-db", type=float, default=None)
+        ap.add_argument("--texture", type=float, default=0.0)
     ap.add_argument("--device", default=None,
                     help="cuda (default; raises without a card) or cpu")
     ap.add_argument("--set", dest="overrides", action="append", default=[],
@@ -92,11 +99,73 @@ def add_protocol_args(ap: argparse.ArgumentParser, root: str) -> None:
                          "the test CLI and model.latent_dim to the autoencoder")
 
 
+#: ``run_info.json`` keys of ``quality_run`` -> protocol keys
+_RUN_INFO_KEYS = {"image_size": "size", "slices_per_file": "slices", "train_files": "train_files",
+                  "val_files": "val_files", "eval_files": "eval_files", "ae_epochs": "ae_epochs"}
+
+
+def protocol_of(args) -> dict:
+    """The corpus and scale a call builds its splits and autoencoders from."""
+    return {"phase": bool(args.phase), "snr_db": args.snr_db, "texture": float(args.texture),
+            "size": args.size, "slices": args.slices, "train_files": args.train_files,
+            "val_files": args.val_files, "eval_files": args.eval_files,
+            "ae_epochs": args.ae_epochs}
+
+
+def default_protocol() -> dict:
+    """The protocol at the defaults of :func:`add_protocol_args`: the smooth
+    corpus of ``RESULTS.md:16-21``."""
+    ap = argparse.ArgumentParser()
+    add_protocol_args(ap, "")
+    return protocol_of(ap.parse_args([]))
+
+
+def _legacy_protocol(root: pathlib.Path) -> dict | None:
+    """The protocol of a root that holds splits or rows but no
+    ``protocol.json``: :func:`default_protocol` with the counts its
+    ``run_info.json`` records; None for a root that holds neither."""
+    info = root / "run_info.json"
+    if not (info.is_file() or (root / "rows.json").is_file()
+            or any((root / "data").glob("*/*/metadata.csv"))):
+        return None
+    out = default_protocol()
+    if info.is_file():
+        recorded = json.loads(info.read_text())
+        out.update({v: recorded[k] for k, v in _RUN_INFO_KEYS.items() if k in recorded})
+    return out
+
+
+def guard_protocol(root: pathlib.Path, args) -> dict:
+    """Hold the call's protocol against the one ``root`` was built with
+    (``root/protocol.json``; for an older root, :func:`_legacy_protocol`)
+    and write it there when the root has none. A different protocol raises
+    ``ValueError`` naming both, before any split, autoencoder or row under
+    ``root`` is touched."""
+    want = protocol_of(args)
+    path = root / "protocol.json"
+    have = json.loads(path.read_text()) if path.is_file() else _legacy_protocol(root)
+    if have is not None and have != want:
+        raise ValueError(f"{root} holds the protocol {json.dumps(have, sort_keys=True)} but "
+                         f"this call asks for {json.dumps(want, sort_keys=True)}: pass the "
+                         "root's own options or another --root")
+    if not path.is_file():
+        root.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(want, indent=2) + "\n")
+    return want
+
+
 def phantom_kspace(seed: int, args) -> np.ndarray:
     """The complex (slices, size, size) k-space of phantom volume ``seed``."""
     return synthetic.synthetic_kspace(seed, args.slices, args.size, args.size,
                                       phase=args.phase, snr_db=args.snr_db,
                                       texture=args.texture)
+
+
+def split_ready(meta: pathlib.Path) -> bool:
+    """Whether the split's ``metadata.csv`` and every slice it lists exist."""
+    return meta.exists() and all(pathlib.Path(row[col]).is_file()
+                                 for row in read_metadata(meta)
+                                 for col in row if col.startswith("path_"))
 
 
 def make_split(directory: pathlib.Path, num: int, seed: int, args, device: torch.device,
@@ -108,8 +177,7 @@ def make_split(directory: pathlib.Path, num: int, seed: int, args, device: torch
     exist is reused."""
     out = directory / processed
     meta = out / "metadata.csv"
-    if meta.exists() and all(pathlib.Path(row[col]).is_file() for row in read_metadata(meta)
-                             for col in row if col.startswith("path_")):
+    if split_ready(meta):
         return meta
     rows = []
     for i in range(num):
@@ -207,7 +275,7 @@ def main(argv: list[str] | None = None) -> dict:
     device = resolve_device(args.device)
     dev = ["--device", device.type]
     root = pathlib.Path(args.root).resolve()
-    root.mkdir(parents=True, exist_ok=True)
+    protocol = guard_protocol(root, args)
     card = card_name() if device.type == "cuda" else "cpu"
     print(f"quality run on {card}", flush=True)
     stages = {}
@@ -247,6 +315,7 @@ def main(argv: list[str] | None = None) -> dict:
         "eval_files": args.eval_files,
         "slices_per_file": args.slices,
         "image_size": args.size,
+        "corpus": protocol,
         "run_dir": cwd_relative(run_dir),
         "device": card,
         "torch": torch.__version__,

@@ -26,9 +26,11 @@ by default, so this row pairs with the JAX baseline and the port's
 ``baseline`` with the JAX ``train_sin5``), ``vgg_frozen_rand`` and
 ``vgg_frozen_corpus`` (a frozen VGG trunk, random or the VGG autoencoder's),
 ``vgg_frozen_rand_sin9`` (the random control with ``training.sin5=false``,
-as the JAX row trained its sines). The VGG rows record the trunk's feature
-mean over the train split's undersampled tiles (a mean above about 1 leaves
-the spliced SIREN ill-posed).
+as the JAX row trained its sines), ``vgg_frozen_rand_module`` (the random
+control on the module path, ``training.use_pallas=false``: exact sines and
+the module's dropout, the route the JAX row took). The VGG rows record the
+trunk's feature mean over the train split's undersampled tiles (a mean
+above about 1 leaves the spliced SIREN ill-posed).
 
 ``--seed K`` (K > 0) repeats the rows at another seed: ``training.seed=K``
 (the model's init, a random VGG trunk's too, and the dropout stream), and a
@@ -41,7 +43,9 @@ the JAX package's seed runs). Such a row is ``<row>@seed<K>`` in
 seed-0 JAX row. ``--seed 0`` (the default) is the rows as they were.
 
 ``rows.json`` under ``--root`` is rewritten after every row; each row holds
-its overrides, its autoencoder files, the mean / std / min / max of PSNR,
+its overrides, the corpus and scale of ``--root`` (``protocol.json``, which
+a call with another protocol raises on: ``quality_run.guard_protocol``), its
+autoencoder files, the mean / std / min / max of PSNR,
 SSIM and NRMSE, the seconds of each stage, the kernels' launches, the card
 and the torch version; ``<row>/run_info.json`` holds the same. A row already
 in ``rows.json`` is skipped, so a run continues where an earlier one
@@ -49,9 +53,11 @@ stopped. A row that fails is reported with its traceback and the later rows
 run; the process then exits nonzero naming the failed rows. ``--render``
 writes ``TABLE.md``: each row against its JAX row (read from the committed
 ``runs/results/rows.json`` and ``runs/quality``) with the bar of 0.3 dB /
-0.01 / 0.01, the orderings ``RESULTS.md:41-48`` reads, and for each row
-run at more than one seed its value at each seed, their mean and range
-beside the JAX readings.
+0.01 / 0.01 and each side's training route (``fused``: the SIREN kernels;
+``module``: the plain modules, as ``training.use_pallas=false`` and the
+residual model train), the orderings ``RESULTS.md:41-48`` reads, and for
+each row run at more than one seed its value at each seed, their mean and
+range beside the JAX readings.
 """
 
 from __future__ import annotations
@@ -63,9 +69,11 @@ import json
 import pathlib
 import time
 import traceback
+from collections.abc import Callable
 
 import numpy as np
 import torch
+import yaml
 
 from mri_inr_tpu_torch.cli import quality_run as qr
 from mri_inr_tpu_torch.cli import train as cli_train
@@ -139,7 +147,21 @@ ROWS = {
     "vgg_frozen_rand_sin9": Row("vgg_frozen_rand", (*_FROZEN, "training.sin5=false"), _VGG,
                                 encoder=None, note="degree-5 train sines off, as the JAX "
                                 "row trained through the Flax path"),
+    "vgg_frozen_rand_module": Row("vgg_frozen_rand", (*_FROZEN, "training.use_pallas=false"),
+                                  _VGG, encoder=None, note="trained on the module path "
+                                  "(exact sines, the module's dropout), the JAX row's "
+                                  "recorded route"),
 }
+
+
+def route(overrides) -> str:
+    """``module`` where train overrides (``k=v`` items, a ``--set`` between
+    them ignored) put training on the plain modules (``use_pallas`` off, or
+    the residual model, which has no kernel), else ``fused``."""
+    kv = dict(o.lower().split("=", 1) for o in overrides if "=" in o)
+    use = kv.get("training.use_pallas", "none")
+    use = kv.get("model.use_pallas", "true") if use in ("none", "null") else use
+    return "module" if use == "false" or kv.get("model.residual") == "true" else "fused"
 
 
 def row_key(name: str, seed: int) -> str:
@@ -155,9 +177,11 @@ def jax_pair(name: str, seed: int) -> str:
 
 class Protocol:
     """The splits, phantom volumes and autoencoders shared by the rows,
-    built when a row first asks for them."""
+    built when a row first asks for them, under a root whose protocol
+    matches ``args`` (``quality_run.guard_protocol``)."""
 
     def __init__(self, args, root: pathlib.Path, device: torch.device):
+        self.protocol = qr.guard_protocol(root, args)
         self.args, self.root, self.device = args, root, device
         self.dev = ["--device", device.type]
         self.latent = config_lib.load_train_configuration(None, args.overrides).model.latent_dim
@@ -221,8 +245,13 @@ def trunk_features(cfg, meta: pathlib.Path, device: torch.device, chunk: int = 4
     return {"tiles": len(tiles), "mean": total / count, "max": top, "zero_share": zeros / count}
 
 
-def run_row(name: str, proto: Protocol, card: str, seed: int = 0) -> dict:
+def run_row(name: str, proto: Protocol, card: str, seed: int = 0,
+            jax_row: str | None = None, note: str | None = None) -> dict:
+    """Train and score row ``name`` under ``proto``'s root; its record, held
+    against ``jax_row`` (by default :func:`jax_pair`'s), with ``note`` (by
+    default the row's own)."""
     spec, args, dev = ROWS[name], proto.args, proto.dev
+    note = spec.note if note is None else note
     key = row_key(name, seed)
     row_dir = proto.root / key
     stages, info = {}, {}
@@ -264,9 +293,29 @@ def run_row(name: str, proto: Protocol, card: str, seed: int = 0) -> dict:
     del trainer, datasets
     stages["train"] = time.perf_counter() - t0
 
+    return score_row(proto, spec, meta, run_dir, row_dir, "eval", card, stages, before, {
+        "row": key,
+        **({"base_row": name, "seed": seed} if seed else {}),
+        "jax_row": jax_row or jax_pair(name, seed),
+        **({"note": note} if note else {}),
+        "epochs": args.epochs,
+        "ae_epochs": args.ae_epochs,
+        "corpus": proto.protocol,
+        "run_dir": qr.cwd_relative(run_dir),
+        "eval_dir": qr.cwd_relative(row_dir / "eval"),
+        "train_overrides": sets}, info)
+
+
+def score_row(proto: Protocol, spec: Row, meta: dict, run_dir: pathlib.Path,
+              out_dir: pathlib.Path, eval_name: str, card: str, stages: dict, before: dict,
+              record: dict, info: dict) -> dict:
+    """The eval stage of a trained row: the test CLI's sweep of ``run_dir``
+    into ``out_dir / eval_name``; returns ``record`` and ``info`` completed
+    with the metrics, stage seconds, kernel launches since ``before`` and
+    the card, as written to ``<root>/<row>/run_info.json``."""
     t0 = time.perf_counter()
-    model_sets = [o for o in args.overrides if o.startswith("model.")]
-    rows = qr.eval_stage(meta, run_dir, row_dir, "eval", dev, *spec.eval, *model_sets)
+    model_sets = [o for o in proto.args.overrides if o.startswith("model.")]
+    rows = qr.eval_stage(meta, run_dir, out_dir, eval_name, proto.dev, *spec.eval, *model_sets)
     stages["eval"] = time.perf_counter() - t0
     # the row's CUDA graphs and device buffers go before the next row's
     gc.collect()
@@ -274,15 +323,7 @@ def run_row(name: str, proto: Protocol, card: str, seed: int = 0) -> dict:
         torch.cuda.empty_cache()
 
     out = {
-        "row": key,
-        **({"base_row": name, "seed": seed} if seed else {}),
-        "jax_row": jax_pair(name, seed),
-        **({"note": spec.note} if spec.note else {}),
-        "epochs": args.epochs,
-        "ae_epochs": args.ae_epochs,
-        "run_dir": qr.cwd_relative(run_dir),
-        "eval_dir": qr.cwd_relative(row_dir / "eval"),
-        "train_overrides": sets,
+        **record,
         "eval_overrides": [*spec.eval, *model_sets],
         "splits": spec.splits,
         **info,
@@ -295,6 +336,8 @@ def run_row(name: str, proto: Protocol, card: str, seed: int = 0) -> dict:
         "device": card,
         "torch": torch.__version__,
     }
+    row_dir = proto.root / record["row"]
+    row_dir.mkdir(parents=True, exist_ok=True)
     (row_dir / "run_info.json").write_text(json.dumps(out, indent=2) + "\n")
     return out
 
@@ -309,17 +352,65 @@ def read_summary(path: pathlib.Path) -> dict[str, dict]:
     return out
 
 
-def jax_rows(rows_json: pathlib.Path, baseline_summary: pathlib.Path) -> dict[str, dict]:
-    """The JAX package's rows by name: ``rows_json`` (``scripts/results_run.py``'s
-    file), the baseline row from its ``metrics_summary.txt``, and the seed
-    repeats of :data:`JAX_SEED_RUNS` from theirs beside ``rows_json``."""
-    rows = {r["row"]: r for r in json.loads(rows_json.read_text())}
-    rows["baseline"] = {"row": "baseline", **read_summary(baseline_summary)}
-    for run in JAX_SEED_RUNS.values():
-        summary = rows_json.parent / run / "eval" / "metrics_summary.txt"
+def _run_config(eval_dir: pathlib.Path) -> dict | None:
+    """The ``config.yaml`` of the run scored into ``eval_dir``: a run
+    directory beside it (``<row>/<row>_<stamp>``) or, for a quality run's
+    ``eval/<name>``, under ``train/``."""
+    found = (sorted(eval_dir.parent.glob("*/config.yaml"))
+             + sorted(eval_dir.parent.parent.glob("train/*/config.yaml")))
+    return yaml.safe_load(found[0].read_text()) if found else None
+
+
+def _config_route(eval_dir: pathlib.Path) -> str:
+    cfg = _run_config(eval_dir)
+    if cfg is None:
+        return "n/a"
+    return route([f"training.use_pallas={cfg['training'].get('use_pallas')}",
+                  f"model.use_pallas={cfg['model'].get('use_pallas', True)}",
+                  f"model.residual={cfg['model'].get('residual', False)}"])
+
+
+def jax_rows(rows_json: pathlib.Path, baseline_summary: pathlib.Path,
+             runs: dict[str, str] | None = None) -> dict[str, dict]:
+    """The JAX package's rows by name, each with its training ``route``:
+    ``rows_json`` (``scripts/results_run.py``'s file; the route from its
+    recorded overrides), the baseline row from its ``metrics_summary.txt``,
+    and each row of ``runs`` (JAX row -> the directory of its
+    ``metrics_summary.txt`` under ``rows_json``'s) that ``rows_json`` lacks,
+    where that file exists (the route from its run's ``config.yaml``). By
+    default ``runs`` holds the seed repeats of :data:`JAX_SEED_RUNS`."""
+    if runs is None:
+        runs = {run: f"{run}/eval" for run in JAX_SEED_RUNS.values()}
+    rows = {r["row"]: {**r, "route": route(r.get("train_overrides", []))}
+            for r in json.loads(rows_json.read_text())}
+    summaries = {"baseline": baseline_summary}
+    summaries.update({name: rows_json.parent / path / "metrics_summary.txt"
+                      for name, path in runs.items() if name not in rows})
+    for name, summary in summaries.items():
         if summary.is_file():
-            rows[run] = {"row": run, **read_summary(summary)}
+            rows[name] = {"row": name, **read_summary(summary),
+                          "route": _config_route(summary.parent)}
     return rows
+
+
+@dataclasses.dataclass(frozen=True)
+class Table:
+    """What a corpus's ``TABLE.md`` holds its rows against and reads."""
+    command: str  # the module whose --render writes it
+    heading: str
+    jax_files: str  # the JAX files, as TABLE.md names them
+    rows_json: pathlib.Path
+    baseline: pathlib.Path
+    runs: dict[str, str] | None  # jax_rows' runs
+    orderings: Callable[[dict], list]
+    orderings_source: str
+    #: port row -> JAX row where the JAX orderings read the rows by the port
+    #: row each pairs with; None: by the JAX rows' own names
+    pairs: dict[str, str] | None = None
+    ssim_min: bool = False  # a column of each side's SSIM minimum
+
+    def jax(self) -> dict[str, dict]:
+        return jax_rows(self.rows_json, self.baseline, self.runs)
 
 
 def _mean(row: dict | None, metric: str) -> float | None:
@@ -359,47 +450,59 @@ def orderings(rows: dict[str, dict], baseline: str = "baseline") -> list[tuple[s
     return out
 
 
-def render(port_rows: list[dict], jax: dict[str, dict]) -> str:
-    """``TABLE.md``: each port row against its JAX row, then the orderings."""
+def render(port_rows: list[dict], jax: dict[str, dict], table: Table | None = None,
+           extra: list[str] = ()) -> str:
+    """``TABLE.md``: each port row against its JAX row, then the orderings,
+    the seed section, ``extra`` lines and the notes."""
+    table = table or SMOOTH
     cards = sorted({r.get("device", "?") for r in port_rows})
+    ssim_min = ["SSIM min (port / JAX)"] if table.ssim_min else []
+    head = ["Row", "JAX row", "Route (port / JAX)", "PSNR", "JAX", "d", "SSIM", "JAX", "d",
+            *ssim_min, "NRMSE", "JAX", "d", "Within bar", "Train s", "Slices"]
     lines = [
-        "# The port's quality rows against the JAX package's",
+        table.heading,
         "",
-        "Written by `python -m mri_inr_tpu_torch.cli.results_run --render` from this "
-        "directory's `rows.json`. JAX rows: `runs/results/rows.json` and, for its baseline, "
-        "`runs/quality/eval/quality/metrics_summary.txt` (TPU v5e quality readings). Bar: "
+        f"Written by `python -m {table.command} --render` from this "
+        f"directory's `rows.json`. JAX rows: {table.jax_files} (TPU v5e quality readings). Bar: "
         + " / ".join(f"{k} {v}" for k, v in BARS.items())
         + " on the means. Port rows on: " + "; ".join(cards) + ".",
         "",
-        "| Row | JAX row | PSNR | JAX | d | SSIM | JAX | d | NRMSE | JAX | d | Within bar | "
-        "Train s | Slices |",
-        "|---|---|---|---|---|---|---|---|---|---|---|---|---|---|",
+        "| " + " | ".join(head) + " |",
+        "|" + "---|" * len(head),
     ]
     for r in port_rows:
         ref = jax.get(r["jax_row"])
-        cells, verdict = [], []
+        cells = [r["row"], r["jax_row"], f"{route(r.get('train_overrides', []))} / "
+                 + (ref.get("route", "n/a") if ref else "n/a")]
+        verdict = []
         for m in BARS:
             p, j = _mean(r, m), _mean(ref, m)
             if j is None:
                 cells += [f"{p:.4f}", "n/a", "n/a"]
-                continue
-            d = p - j
-            cells += [f"{p:.4f}", f"{j:.4f}", f"{d:+.4f}"]
-            verdict.append(f"{m} {'yes' if abs(d) <= BARS[m] else 'NO'}")
-        lines.append(f"| {r['row']} | {r['jax_row']} | " + " | ".join(cells)
-                     + f" | {', '.join(verdict) or 'no JAX row'} | "
-                     f"{r['stage_seconds']['train']:.1f} | {r['slices']} |")
-    lines += ["", "## Orderings (`RESULTS.md:41-48`)", "",
+            else:
+                d = p - j
+                cells += [f"{p:.4f}", f"{j:.4f}", f"{d:+.4f}"]
+                verdict.append(f"{m} {'yes' if abs(d) <= BARS[m] else 'NO'}")
+            if m == "SSIM" and table.ssim_min:
+                cells.append(f"{r['SSIM']['min']:.4f} / "
+                             + (f"{ref['SSIM']['min']:.4f}" if ref else "n/a"))
+        cells += [", ".join(verdict) or "no JAX row", f"{r['stage_seconds']['train']:.1f}",
+                  str(r["slices"])]
+        lines.append("| " + " | ".join(cells) + " |")
+    lines += ["", f"## Orderings (`{table.orderings_source}`)", "",
               "| Reads | Port | Holds | JAX | Holds |", "|---|---|---|---|---|"]
     port = {r["row"]: r for r in port_rows}
-    got = {what: (vals, ok) for what, vals, ok in orderings(port)}
-    want = {what: (vals, ok) for what, vals, ok in orderings(jax)}
+    jax_view = (jax if table.pairs is None else
+                {k: jax[v] for k, v in table.pairs.items() if v in jax})
+    got = {what: (vals, ok) for what, vals, ok in table.orderings(port)}
+    want = {what: (vals, ok) for what, vals, ok in table.orderings(jax_view)}
     for what in want:
         p = got.get(what)
         lines.append(f"| {what} | {p[0] if p else 'rows missing'} | "
                      f"{('yes' if p[1] else 'no') if p else 'n/a'} | {want[what][0]} | "
                      f"{'yes' if want[what][1] else 'no'} |")
     lines += seed_section(port_rows, jax)
+    lines += list(extra)
     notes = [r for r in port_rows if r.get("note") or "trunk_features" in r]
     if notes:
         lines += ["", "## Notes", ""]
@@ -456,23 +559,28 @@ def seed_section(port_rows: list[dict], jax: dict[str, dict]) -> list[str]:
     return lines + [""] + verdicts
 
 
-def main(argv: list[str] | None = None) -> dict[str, dict]:
-    ap = argparse.ArgumentParser(description=__doc__,
-                                 formatter_class=argparse.RawDescriptionHelpFormatter)
-    qr.add_protocol_args(ap, "runs/results_torch")
-    ap.add_argument("--rows", default=",".join(ROWS),
-                    help=f"comma-separated rows, run in this order (known: {', '.join(ROWS)})")
-    ap.add_argument("--seed", type=int, default=0,
-                    help="run the rows at this seed (> 0: rows <row>@seed<K>)")
-    ap.add_argument("--render", action="store_true", help="write TABLE.md under --root")
-    args = ap.parse_args(argv)
+SMOOTH = Table(
+    command="mri_inr_tpu_torch.cli.results_run",
+    heading="# The port's quality rows against the JAX package's",
+    jax_files="`runs/results/rows.json` and, for its baseline, "
+              "`runs/quality/eval/quality/metrics_summary.txt`",
+    rows_json=JAX_ROWS, baseline=JAX_BASELINE, runs=None, orderings=orderings,
+    orderings_source="RESULTS.md:41-48")
+
+
+def run_rows(args, wanted: list[str], known: dict, run_one: Callable[..., dict],
+             key: Callable[[str], str] = lambda name: name) -> tuple[dict, list, pathlib.Path]:
+    """The runners' loop: hold ``args``' protocol against ``--root``'s, then
+    run each row of ``wanted`` (``run_one(name, protocol, card)``) that
+    ``rows.json`` lacks under ``key(name)``, rewriting ``rows.json`` after
+    each. Returns the rows by key, the rows that failed (a traceback printed
+    for each) and the root."""
     root = pathlib.Path(args.root).resolve()
-    root.mkdir(parents=True, exist_ok=True)
+    qr.guard_protocol(root, args)
     rows_path = root / "rows.json"
     done = ({r["row"]: r for r in json.loads(rows_path.read_text())}
             if rows_path.exists() else {})
-    wanted = [r for r in args.rows.split(",") if r]
-    todo = [r for r in wanted if row_key(r, args.seed) not in done]
+    todo = [r for r in wanted if key(r) not in done]
     failed = []
     if todo:
         device = resolve_device(args.device)
@@ -484,30 +592,46 @@ def main(argv: list[str] | None = None) -> dict[str, dict]:
             qr.build_kernels()
             print(f"kernels built ({time.perf_counter() - t0:.1f}s)", flush=True)
     for name in wanted:
-        key = row_key(name, args.seed)
-        if key in done:
-            print(f"row {key}: already in {rows_path}, skipped", flush=True)
+        k = key(name)
+        if k in done:
+            print(f"row {k}: already in {rows_path}, skipped", flush=True)
             continue
-        if name not in ROWS:
-            print(f"row {name}: unknown (known: {', '.join(ROWS)})", flush=True)
+        if name not in known:
+            print(f"row {name}: unknown (known: {', '.join(known)})", flush=True)
             failed.append(name)
             continue
         t0 = time.perf_counter()
         try:
-            done[key] = run_row(name, proto, card, args.seed)
+            done[k] = run_one(name, proto, card)
         except Exception:
             traceback.print_exc()
-            print(f"row {key} FAILED after {time.perf_counter() - t0:.1f}s", flush=True)
-            failed.append(key)
+            print(f"row {k} FAILED after {time.perf_counter() - t0:.1f}s", flush=True)
+            failed.append(k)
             continue
         rows_path.write_text(json.dumps(list(done.values()), indent=2) + "\n")
-        r = done[key]
-        print(f"row {key} done in {time.perf_counter() - t0:.1f}s: PSNR "
+        r = done[k]
+        print(f"row {k} done in {time.perf_counter() - t0:.1f}s: PSNR "
               f"{r['PSNR']['mean']:.4f} SSIM {r['SSIM']['mean']:.4f} NRMSE "
               f"{r['NRMSE']['mean']:.4f}", flush=True)
+    return done, failed, root
+
+
+def main(argv: list[str] | None = None) -> dict[str, dict]:
+    ap = argparse.ArgumentParser(description=__doc__,
+                                 formatter_class=argparse.RawDescriptionHelpFormatter)
+    qr.add_protocol_args(ap, "runs/results_torch")
+    ap.add_argument("--rows", default=",".join(ROWS),
+                    help=f"comma-separated rows, run in this order (known: {', '.join(ROWS)})")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="run the rows at this seed (> 0: rows <row>@seed<K>)")
+    ap.add_argument("--render", action="store_true", help="write TABLE.md under --root")
+    args = ap.parse_args(argv)
+    done, failed, root = run_rows(
+        args, [r for r in args.rows.split(",") if r], ROWS,
+        lambda name, proto, card: run_row(name, proto, card, args.seed),
+        lambda name: row_key(name, args.seed))
     if args.render:
-        jax = jax_rows(JAX_ROWS, JAX_BASELINE)
-        (root / "TABLE.md").write_text(render(list(done.values()), jax))
+        (root / "TABLE.md").write_text(render(list(done.values()), SMOOTH.jax()))
         print(f"wrote {root / 'TABLE.md'}", flush=True)
     if failed:
         raise SystemExit(f"results_run: rows failed: {', '.join(failed)}")

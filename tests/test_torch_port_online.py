@@ -7,7 +7,8 @@ volumes.
 - With the JAX package's masks injected (``mask_fn``; the port's own draw
   is numpy's, the same distribution, not the same bits) the tiles equal
   JAX's ``materialize`` within 2e-5 (``torch.fft`` against ``jnp.fft``, the
-  preprocessing bar; measured 3.6e-7), remask on and off.
+  preprocessing bar; measured 3.6e-7), remask on and off, and on the hard
+  corpus's complex, noisy, textured k-space with remasking.
 - Remask off, the online tiles and slices equal the port's offline pipeline
   (``process_files`` -> ``MRIDataset`` / ``MRISampler``) within 2e-6
   (measured 0: the same masks, reconstruction and normalisation), also
@@ -78,9 +79,22 @@ def _np(t):
     return np.asarray(t)
 
 
+@pytest.fixture(scope="module")
+def hard_h5_root(tmp_path_factory):
+    """The volumes of ``h5_root`` in the hard mode of the hard-corpus table:
+    complex phase maps, k-space noise at SNR 32 dB, texture 0.18."""
+    d = tmp_path_factory.mktemp("online_hard")
+    jsyn.write_synthetic_h5(d, num_files=3, num_slices=3, height=64, width=48, phase=True,
+                            snr_db=32.0, texture=0.18)
+    return d
+
+
 # ------------------------------------------------------------------ tiles
-@pytest.mark.parametrize("remask", [True, False], ids=["remask", "fixed"])
-def test_tiles_match_jax_with_its_masks(h5_root, remask):
+@pytest.mark.parametrize("remask, corpus", [(True, "h5_root"), (False, "h5_root"),
+                                            (True, "hard_h5_root")],
+                         ids=["remask", "fixed", "hard"])
+def test_tiles_match_jax_with_its_masks(request, remask, corpus):
+    h5_root = request.getfixturevalue(corpus)
     jds = JaxOnline(h5_root, remask_each_epoch=remask)
     probe = _online(h5_root)
     tds = _online(h5_root, remask_each_epoch=remask,

@@ -108,6 +108,27 @@ def test_vgg_rows_splice_train_and_freeze_the_trunk(root):
     assert rows["vgg"]["autoencoder"].endswith("encoder_vgg/vgg_autoencoder_epoch_00000.pt")
 
 
+def test_frozen_vgg_module_row_trains_on_the_module_path(root):
+    """``vgg_frozen_rand_module``: the JAX row's recorded route (the plain
+    modules, ``training.use_pallas=false``), the trunk frozen at the seeded
+    init as in ``vgg_frozen_rand``, paired with the JAX ``vgg_frozen_rand``;
+    the same seed and init as the fused control, other losses."""
+    rows = _rows(root)
+    r, fused = rows["vgg_frozen_rand_module"], rows["vgg_frozen_rand"]
+    assert r["jax_row"] == "vgg_frozen_rand" and "autoencoder" not in r
+    assert rr.route(r["train_overrides"]) == "module"
+    assert rr.route(fused["train_overrides"]) == "fused"
+    cfg = yaml.safe_load((pathlib.Path(r["run_dir"]) / "config.yaml").read_text())
+    assert cfg["training"]["use_pallas"] is False and cfg["training"]["freeze_encoder"]
+    prefix = "encoder.encoder.trunk."
+    module, control = (_trunk(_final_model(x["run_dir"]), prefix) for x in (r, fused))
+    assert module.keys() == control.keys()
+    assert all(torch.equal(module[k], control[k]) for k in module)
+    assert r["trunk_features"] == fused["trunk_features"]
+    log = lambda x: (pathlib.Path(x["run_dir"]) / "progress_log.csv").read_text()
+    assert log(r) != log(fused)
+
+
 def test_perceptual_and_acceleration_rows(root):
     rows = _rows(root)
     perc = rows["perceptual"]
