@@ -117,8 +117,9 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    for the splits and each remask epoch, ``rows.json`` (finite means, this
    card), a second call that skips every row, and one volume's (0.2, 4) acc
    slices against the ``torch.fft`` route on the CPU; also the frozen random
-   VGG trunk on the module path (``vgg_frozen_rand_module``), which
-   launches no train kernel;
+   and corpus-pretrained VGG trunks on the module path
+   (``vgg_frozen_rand_module``, ``vgg_frozen_corpus_module``), which launch
+   no train kernel;
 15. the 940-file sweep's runner (``cli/sweep940``) at configs/test.yaml's
    width and 320x320, its depth cut to 24 evaluation volumes x 4 slices and
    a headline model of 4 volumes trained one epoch and resumed to a second
@@ -137,7 +138,9 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    ``rows.json``, one hard volume's slices against the ``torch.fft`` route
    on the CPU, a hard call into phase 14's smooth root refused by the
    protocol guard before any file changes, and a second call that skips
-   every row; the phase's wall time;
+   every row; then ``cli/hard_table --seed 1`` for the baseline row, named
+   ``baseline@seed1``, on the same splits (no DFT launch), whose losses
+   differ from seed 0's; the phase's wall time;
 12. times with CUDA events (warm-up, then the median): every kernel and its
    plain version per call, for the DFT also the ``torch.fft`` route, for the
    backward also its chain and weight-gradient kernels apart (device time
@@ -2009,15 +2012,23 @@ def multirank_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path,
 # cli/results_run's rows that no other phase drives, at configs/train.yaml's
 # width; the protocol's depth cut to 2 / 1 / 1 volumes x 4 slices of 256 x
 # 256, RESULTS_EPOCHS a row, one autoencoder epoch. The residual and Morlet
-# routes are phases 7 and 3's; vgg_frozen_rand_module trains a VGG trunk on
-# the module path (no train kernel; the sweep's forward is the kernel).
+# routes are phases 7 and 3's; vgg_frozen_rand_module and
+# vgg_frozen_corpus_module train a frozen VGG trunk on the module path (no
+# train kernel; the sweep's forward is the kernel).
 RESULTS_ROWS = ("online_remask", "vgg", "perceptual", "acc_02_4", "edge", "vgg_frozen_corpus",
-                "vgg_frozen_rand_module")
+                "vgg_frozen_rand_module", "vgg_frozen_corpus_module")
 RESULTS_EPOCHS = 2
 RESULTS_SLICES, RESULTS_SIZE = 4, 256  # the protocol's
 RESULTS_ARGV = ["--epochs", str(RESULTS_EPOCHS), "--ae-epochs", "1", "--train-files", "2",
                 "--val-files", "1", "--eval-files", "1", "--slices", str(RESULTS_SLICES),
                 "--size", str(RESULTS_SIZE), "--rows", ",".join(RESULTS_ROWS)]
+
+
+def run_losses(r: dict) -> list:
+    """A row's train and validation losses, epoch by epoch, from its run's
+    ``progress_log.csv`` (the timing columns left out)."""
+    with open(pathlib.Path(r["run_dir"]) / "progress_log.csv") as fh:
+        return [(float(e["train_loss"]), float(e["val_loss"])) for e in csv.DictReader(fh)]
 
 
 def check_row_route(rr, r: dict) -> None:
@@ -2036,8 +2047,8 @@ def check_row_route(rr, r: dict) -> None:
 
 def results_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
     """Phase 14: the quality protocol's runner on the card. Every row trains
-    on its route (the fused kernels, or the module path for
-    vgg_frozen_rand_module) and lands in rows.json with finite means and
+    on its route (the fused kernels, or the module path for the two
+    ``_module`` rows) and lands in rows.json with finite means and
     this card's name; the splits and the online row's remask epochs go
     through the DFT kernel; a second call skips every row; the acc split's
     (0.2, 4) slices of one volume equal the torch.fft route's on the CPU."""
@@ -2175,10 +2186,9 @@ def sweep940_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
     done = rr.main(["--root", str(root), *rows_argv, "--rows", SEED_ROW, "--seed", "1"])
     torch.cuda.synchronize()
     seeded, base = done[f"{SEED_ROW}@seed1"], done[SEED_ROW]
-    losses = lambda r: (pathlib.Path(r["run_dir"]) / "progress_log.csv").read_text()
     check(seeded["row"] == f"{SEED_ROW}@seed1" and seeded["seed"] == 1
           and "training.seed=1" in seeded["train_overrides"], f"seeded row {seeded['row']}")
-    check(losses(seeded) != losses(base), "the seed-1 row's losses equal seed 0's")
+    check(run_losses(seeded) != run_losses(base), "the seed-1 row's losses equal seed 0's")
     for k in ("siren_train_fwd", "siren_train_bwd", "siren_forward"):
         check(seeded["launches"][k] > 0, f"seeded row launched no {k}")
     print(f"results row {seeded['row']}: PSNR {seeded['PSNR']['mean']:.4f} against seed 0's "
@@ -2197,6 +2207,7 @@ def sweep940_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
 HARD_ROWS = ("baseline", "online_remask", "residual", "residual_1200")
 HARD_ARGV = [*RESULTS_ARGV[:RESULTS_ARGV.index("--rows")], "--resume-epochs",
              str(RESULTS_EPOCHS + 1), "--rows", ",".join(HARD_ROWS)]
+HARD_SEED_ROW = "baseline"
 
 
 def hard_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
@@ -2206,7 +2217,8 @@ def hard_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
     online row's remask epochs go through the DFT kernel on complex, noisy
     k-space and one volume's slices equal the torch.fft route's on the CPU;
     a call into phase 14's smooth root raises the protocol error before any
-    file changes; a second call skips every row."""
+    file changes; a second call skips every row; then a seed-1 row beside
+    them."""
     ht, qr = pkg["hard_table"], pkg["quality_run"]
     t_phase = time.perf_counter()
     root = tmp / "results_hard"
@@ -2285,9 +2297,27 @@ def hard_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
     print(f"hard split of {stem} ({', '.join(cols)}), card (DFT kernel) vs cpu (torch.fft): "
           f"max |diff| {gap:.3e} (<= {PREPROCESS_BAR:g})")
     check(gap <= PREPROCESS_BAR, "the hard split disagrees with the CPU route")
+
+    # a seeded row beside them: its own name, the seed in its run, the same splits
+    t0 = time.perf_counter()
+    rows_argv = HARD_ARGV[:HARD_ARGV.index("--rows")]
+    seeded_all = ht.main(["--root", str(root), *rows_argv, "--rows", HARD_SEED_ROW,
+                          "--seed", "1"])
+    torch.cuda.synchronize()
+    key = f"{HARD_SEED_ROW}@seed1"
+    seeded, base = seeded_all[key], done[HARD_SEED_ROW]
+    means = [seeded[m]["mean"] for m in ("PSNR", "SSIM", "NRMSE")]
+    check(seeded["row"] == key and seeded["seed"] == 1 and seeded["jax_row"] == HARD_SEED_ROW
+          and "training.seed=1" in seeded["train_overrides"] and seeded["device"] == card
+          and all(np.isfinite(means)), f"hard seeded row {seeded['row']}: {means}")
+    check(run_losses(seeded) != run_losses(base), "the hard seed-1 row's losses equal seed 0's")
+    check(seeded["launches"]["dft2c"] == 0, f"hard seeded row: {seeded['launches']}")
+    check_row_route(pkg["results_run"], seeded)
+    print(f"hard row {key}: PSNR {means[0]:.4f} against seed 0's {base['PSNR']['mean']:.4f}, "
+          f"launches {seeded['launches']} ({time.perf_counter() - t0:.1f} s)")
     print(f"hard phase: {len(HARD_ROWS)} rows at configs/train.yaml's width, "
-          f"{RESULTS_EPOCHS} epochs each (residual_1200 resumed to {RESULTS_EPOCHS + 1}), "
-          f"launches {launches}; {wall:.1f} s for the rows, "
+          f"{RESULTS_EPOCHS} epochs each (residual_1200 resumed to {RESULTS_EPOCHS + 1}) "
+          f"and {key}, launches {launches}; {wall:.1f} s for the rows, "
           f"{time.perf_counter() - t_phase:.1f} s wall with the checks [{card}]")
     return {"launches": launches, "rows": done}
 

@@ -4,8 +4,8 @@ again on phantoms with complex phase maps, k-space noise at SNR 32 dB and
 tissue texture 0.18, through ``cli/results_run``'s stage functions.
 
     python -m mri_inr_tpu_torch.cli.hard_table [--root runs/results_hard_torch] \\
-        [--rows a,b,...] [--epochs 600] [--resume-epochs 1200] [--ae-epochs 30] \\
-        [--device cpu|cuda] [--render]
+        [--rows a,b,...] [--seed K] [--epochs 600] [--resume-epochs 1200] \\
+        [--ae-epochs 30] [--device cpu|cuda] [--render]
 
 The corpus is fixed here (:data:`HARD`); the rest is ``RESULTS.md:16-21``'s
 protocol as ``cli/quality_run`` has it: phantom seeds 0 / 1000 / 2000, 24 /
@@ -30,6 +30,12 @@ rewrites ``progress_log.*`` from its first epoch on; the residual row's own
 log is kept beside it as ``progress_log_to<epochs>.*``). The module-path
 rows run last. ``rows.json`` is rewritten after every row and a row in it is
 skipped, as in ``cli/results_run``.
+
+``--seed K`` (K > 0) runs the rows as ``<row>@seed<K>``, as
+``cli/results_run --seed`` does (``training.seed=K``; a VGG or perceptual
+autoencoder pretrained at seed K under ``encoder_vgg_seedK/``, the conv one
+shared), each held against its JAX hard row (one seed on the JAX side);
+``residual_1200@seed<K>`` resumes ``residual@seed<K>``.
 
 ``--render`` writes ``TABLE.md``: each row against its JAX row at the bar of
 0.3 dB / 0.01 / 0.01 with each side's SSIM minimum and training route, the
@@ -130,12 +136,14 @@ TABLE = rr.Table(
     ssim_min=True)
 
 
-def run_resumed(name: str, proto: rr.Protocol, card: str) -> dict:
-    """Row ``name`` of :data:`RESUMED`: its parent row's run directory (as
-    ``rows.json`` records it) resumed by the train CLI to
-    ``--resume-epochs``, then scored into ``<parent>/<eval name>``."""
-    parent, eval_name = RESUMED[name]
-    args, spec = proto.args, rr.ROWS[parent]
+def run_resumed(name: str, proto: rr.Protocol, card: str, seed: int = 0) -> dict:
+    """Row ``name`` of :data:`RESUMED` at ``seed``: its parent row's run
+    directory at that seed (as ``rows.json`` records it) resumed by the
+    train CLI to ``--resume-epochs``, then scored into ``<parent>/<eval
+    name>``."""
+    base_parent, eval_name = RESUMED[name]
+    parent = rr.row_key(base_parent, seed)
+    args, spec = proto.args, rr.ROWS[base_parent]
     rows_path = proto.root / "rows.json"
     done = ({r["row"]: r for r in json.loads(rows_path.read_text())}
             if rows_path.is_file() else {})
@@ -161,7 +169,8 @@ def run_resumed(name: str, proto: rr.Protocol, card: str) -> dict:
     trainer = qr.train_stage(meta, run_dir.parent, parent, args.resume_epochs, proto.dev, *sets)
     del trainer
     stages["train"] = time.perf_counter() - t0
-    record = {"row": name, "jax_row": PAIRS[name], "note": NOTES[name], "resumes_row": parent,
+    record = {"row": rr.row_key(name, seed), **({"base_row": name, "seed": seed} if seed else {}),
+              "jax_row": PAIRS[name], "note": NOTES[name], "resumes_row": parent,
               "epochs": args.resume_epochs, "resumed_from_epochs": args.epochs,
               "ae_epochs": args.ae_epochs, "corpus": proto.protocol,
               "run_dir": qr.cwd_relative(run_dir),
@@ -171,10 +180,10 @@ def run_resumed(name: str, proto: rr.Protocol, card: str) -> dict:
                         stages, before, record, {})
 
 
-def run_one(name: str, proto: rr.Protocol, card: str) -> dict:
+def run_one(name: str, proto: rr.Protocol, card: str, seed: int = 0) -> dict:
     if name in RESUMED:
-        return run_resumed(name, proto, card)
-    return rr.run_row(name, proto, card, jax_row=PAIRS[name], note=NOTES.get(name))
+        return run_resumed(name, proto, card, seed)
+    return rr.run_row(name, proto, card, seed, jax_row=PAIRS[name], note=NOTES.get(name))
 
 
 # ------------------------------------------------------- zero-filled reading
@@ -231,6 +240,8 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
                     help="the epochs residual_1200 resumes the residual row's run to")
     ap.add_argument("--rows", default=",".join(PAIRS),
                     help=f"comma-separated rows, run in this order (known: {', '.join(PAIRS)})")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="run the rows at this seed (> 0: rows <row>@seed<K>)")
     ap.add_argument("--render", action="store_true", help="write TABLE.md under --root")
     args = ap.parse_args(argv)
     vars(args).update(HARD)
@@ -239,8 +250,10 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 def main(argv: list[str] | None = None) -> dict[str, dict]:
     args = parse_args(argv)
-    done, failed, root = rr.run_rows(args, [r for r in args.rows.split(",") if r], PAIRS,
-                                     run_one)
+    done, failed, root = rr.run_rows(
+        args, [r for r in args.rows.split(",") if r], PAIRS,
+        lambda name, proto, card: run_one(name, proto, card, args.seed),
+        lambda name: rr.row_key(name, args.seed))
     if args.render:
         readings_path = root / "zero_filled.json"
         split = root / "data" / "eval" / "processed" / "metadata.csv"

@@ -28,8 +28,10 @@ by default, so this row pairs with the JAX baseline and the port's
 ``vgg_frozen_rand_sin9`` (the random control with ``training.sin5=false``,
 as the JAX row trained its sines), ``vgg_frozen_rand_module`` (the random
 control on the module path, ``training.use_pallas=false``: exact sines and
-the module's dropout, the route the JAX row took). The VGG rows record the
-trunk's feature mean over the train split's undersampled tiles (a mean
+the module's dropout, the route the JAX row took), and
+``vgg_frozen_corpus_module`` (the same for the corpus-pretrained trunk:
+the row's own VGG autoencoder, as ``vgg_frozen_corpus``). The VGG rows
+record the trunk's feature mean over the train split's undersampled tiles (a mean
 above about 1 leaves the spliced SIREN ill-posed).
 
 ``--seed K`` (K > 0) repeats the rows at another seed: ``training.seed=K``
@@ -151,6 +153,11 @@ ROWS = {
                                   _VGG, encoder=None, note="trained on the module path "
                                   "(exact sines, the module's dropout), the JAX row's "
                                   "recorded route"),
+    "vgg_frozen_corpus_module": Row("vgg_frozen_corpus",
+                                    (*_FROZEN, "training.use_pallas=false"), _VGG,
+                                    encoder="vgg", note="trained on the module path (exact "
+                                    "sines, the module's dropout), the JAX row's recorded "
+                                    "route"),
 }
 
 

@@ -82,9 +82,25 @@ def _cpu_state(module: torch.nn.Module) -> dict:
     return {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
 
 
-def train(args, model: torch.nn.Module, patch: int, device: torch.device) -> dict:
+def train_step(model: torch.nn.Module, optimizer: torch.optim.Optimizer,
+               x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """One pretraining step (``train_encoder.py``'s ``train_step``): the MSE
+    of the reconstruction of ``x``, its gradient, one optimizer step;
+    returns (loss, reconstruction), both detached."""
+    optimizer.zero_grad(set_to_none=True)
+    out = model(x)
+    loss = torch.mean(torch.square(out - x))
+    loss.backward()
+    optimizer.step()
+    return loss.detach(), out.detach()
+
+
+def train(args, model: torch.nn.Module, patch: int, device: torch.device,
+          on_step=None) -> dict:
     """The pretraining loop; returns the per-epoch mean losses, the epochs'
-    seconds, the steps an epoch and the files saved."""
+    seconds, the steps an epoch and the files saved. ``on_step(epoch, x,
+    loss, out)``, where given, sees every step's batch, loss and
+    reconstruction."""
     dataset = MRIDataset(args.dataset)
     print(f"dataset: {len(dataset)} patches")
     tiles = torch.from_numpy(dataset.fully_tiles).to(device)
@@ -103,11 +119,10 @@ def train(args, model: torch.nn.Module, patch: int, device: torch.device) -> dic
         losses = []
         for idx in perm:
             x = tiles.index_select(0, idx)
-            optimizer.zero_grad(set_to_none=True)
-            loss = torch.mean(torch.square(model(x) - x))
-            loss.backward()
-            optimizer.step()
-            losses.append(loss.detach())
+            loss, out = train_step(model, optimizer, x)
+            if on_step is not None:
+                on_step(epoch, x, loss, out)
+            losses.append(loss)
         mean = float(torch.stack(losses).mean())
         secs = time.perf_counter() - t0
         result["losses"].append(mean)

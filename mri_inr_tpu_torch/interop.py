@@ -105,7 +105,9 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
 
 def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """``state_dict`` -> nested dict of f32 numpy arrays in Flax layout (the
-    inverse of :func:`params_from_flax`)."""
+    inverse of :func:`params_from_flax`). Every array is a copy: none shares
+    memory with a tensor of ``state_dict``, so a later in-place update of
+    the module (an optimizer step) leaves the tree as it was."""
     out: dict = {}
     for key, value in state_dict.items():
         path = re.sub(r"layers\.(\d+)", r"layer_\1", key).split(".")
@@ -125,7 +127,7 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
         node = out
         for part in path[:-1]:
             node = node.setdefault(part, {})
-        node[path[-1]] = np.ascontiguousarray(arr)
+        node[path[-1]] = np.array(arr, dtype=np.float32, order="C", copy=True)
     return out
 
 

@@ -30,6 +30,30 @@ CUDA toolkit and a card; imports no JAX.
 spliced SIREN for two epochs step by step twice on the card: through the
 kernels, and through the kernels' plain versions (same order of operations
 in the forward and in the backward's recomputed forward).
+
+``--plain-row ROW``: instead, the ``cli/results_run`` row ROW at the first
+of ``--seeds`` for ``--epochs`` epochs on the card twice, from one set of
+splits and one autoencoder: through the train kernels, and through their
+plain versions (the same operations in PyTorch, as ``--plain-card``). The
+arguments this script does not know go to ``results_run`` (e.g. ``--set
+training.sin5=false``). Writes both runs' per-epoch train and validation
+losses, metrics and launches to ``--out`` (JSON). On the CPU both runs take
+the plain versions.
+
+``--ae-draws``: instead, the VGG autoencoder's pretraining alone, as
+``cli/results_run`` runs it (``train_encoder --model vgg``, batch 256, lr
+1e-3), on the quality protocol's train split of each ``--corpus`` (24
+phantom volumes x 4 slices at 256x256; ``hard``: ``cli/hard_table``'s
+corpus), for each of ``--seeds`` and ``--epochs`` epochs, twice: with
+cuDNN's TF32 convolutions (torch's default, as the port runs) and with TF32
+off. Per step: the loss and the standard deviations of the reconstruction
+and of the batch; per run: the first step whose reconstruction is not
+flat (its std at least a tenth of the batch's), the step from which it
+stays flat to the end, and the sum of the initial weights (the torch
+generator draws them on the CPU at the seed, by this torch's
+``trunc_normal_``), against which ``tests/vgg_ae_cross_package.py`` checks
+that it starts the JAX package's step from the same weights. Writes
+``--out`` (JSON). Needs a card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -54,8 +78,22 @@ def main() -> int:
     parser.add_argument("--cpu-steps", type=int, default=4)
     parser.add_argument("--grads", action="store_true")
     parser.add_argument("--plain-card", type=int, default=0, metavar="N")
-    args = parser.parse_args()
+    parser.add_argument("--plain-row", default=None, metavar="ROW")
+    parser.add_argument("--ae-draws", action="store_true")
+    parser.add_argument("--corpus", default="smooth,hard", help="--ae-draws: smooth, hard or both")
+    parser.add_argument("--seeds", default="0,1,2,3,4,5,6,7",
+                        help="--ae-draws: the autoencoders' seeds")
+    parser.add_argument("--epochs", type=int, default=3,
+                        help="--ae-draws, --plain-row: epochs a run")
+    parser.add_argument("--out", default=None, help="--ae-draws, --plain-row: a JSON file")
+    args, rest = parser.parse_known_args()
+    if rest and not args.plain_row:
+        parser.error(f"unrecognized arguments: {' '.join(rest)}")
     sys.path.insert(0, str(REPO))
+    if args.ae_draws:
+        return autoencoder_draws(args)
+    if args.plain_row:
+        return plain_row(args, rest)
     spec = importlib.util.spec_from_file_location("chip_smoke", REPO / "chip_smoke.py")
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
@@ -254,6 +292,161 @@ def plain_card(cli, te, config, tr, meta, val_meta, tmp, dev, want: int) -> int:
         if found == want:
             break
     return 0
+
+
+def plain_row(args, rest: list[str]) -> int:
+    import csv
+    import json
+
+    from mri_inr_tpu_torch.cli import results_run as rr
+    from mri_inr_tpu_torch.ops import siren_train_kernel as stk
+
+    def counted(fn):  # a graph's replay advances the wrapper's launches
+        def call(*a, s_wt=None, **k):
+            call.launches += 1
+            return fn(*a, **k)
+
+        call.launches = 0
+        return call
+
+    kernels = (stk.siren_chain_train_fwd_cuda, stk.siren_chain_train_bwd_cuda)
+    plain = (counted(stk.siren_chain_train_fwd_reference),
+             counted(stk.siren_chain_train_bwd_reference))
+    seed = int(args.seeds.split(",")[0])
+    argv = ["--seed", str(seed), "--rows", args.plain_row, "--epochs", str(args.epochs), *rest]
+    report = {"row": args.plain_row, "results_run": argv, "runs": {}}
+    with tempfile.TemporaryDirectory() as tmp:
+        first = pathlib.Path(tmp) / "kernels"
+        for label, (fwd, bwd) in (("kernels", kernels), ("plain", plain)):
+            root = pathlib.Path(tmp) / label
+            if root != first:  # the first run's protocol, splits and autoencoders
+                root.mkdir()
+                for entry in first.iterdir():
+                    if entry.name == "protocol.json":
+                        (root / entry.name).write_text(entry.read_text())
+                    elif entry.name == "data" or entry.name.startswith("encoder"):
+                        (root / entry.name).symlink_to(entry)
+            stk.siren_chain_train_fwd_cuda, stk.siren_chain_train_bwd_cuda = fwd, bwd
+            try:
+                rec = next(iter(rr.main(["--root", str(root), *argv]).values()))
+            finally:
+                stk.siren_chain_train_fwd_cuda, stk.siren_chain_train_bwd_cuda = kernels
+            with open(pathlib.Path(rec["run_dir"]) / "progress_log.csv") as fh:
+                log = list(csv.DictReader(fh))
+            run = {k: [float(e[k]) for e in log] for k in ("train_loss", "val_loss")}
+            run.update({m: rec[m]["mean"] for m in ("PSNR", "SSIM", "NRMSE")},
+                       launches=rec["launches"], plain_launches=[f.launches for f in plain],
+                       trunk_features=rec.get("trunk_features"),
+                       train_seconds=rec["train_seconds"], device=rec["device"])
+            report["runs"][label] = run
+            print(f"{label}: train loss " + " ".join(f"{x:.4f}" for x in run["train_loss"])
+                  + f"; PSNR {run['PSNR']:.4f}; launches {run['launches']}, plain "
+                  f"{run['plain_launches']}; {run['train_seconds']:.1f} s", flush=True)
+            if args.out:
+                pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+                pathlib.Path(args.out).write_text(json.dumps(report, indent=1) + "\n")
+    return 0
+
+
+CORPORA = {"smooth": {"phase": False, "snr_db": None, "texture": 0.0}}
+FLAT = 0.1  # a reconstruction is flat while its std is below FLAT x the batch's
+
+
+def flat_from(out_std: list, x_std: list) -> int | None:
+    """The first step from which the reconstruction stays flat to the end
+    (None: it is not flat at the last step)."""
+    step = None
+    for i, (o, x) in enumerate(zip(out_std, x_std)):
+        if o >= FLAT * x:
+            step = None
+        elif step is None:
+            step = i
+    return step
+
+
+def structured_from(out_std: list, x_std: list) -> int | None:
+    """The first step whose reconstruction is not flat (None: none is; an
+    autoencoder's reconstruction starts flat, a constant)."""
+    return next((i for i, (o, x) in enumerate(zip(out_std, x_std)) if o >= FLAT * x), None)
+
+
+def train_split(corpus: str, root: pathlib.Path, dev: torch.device) -> pathlib.Path:
+    """The quality protocol's train split of ``corpus`` (24 phantom volumes x
+    4 slices at 256x256), preprocessed on ``dev`` under ``root`` (reused
+    where it is there)."""
+    from mri_inr_tpu_torch.cli import hard_table as ht
+    from mri_inr_tpu_torch.cli import quality_run as qr
+
+    pargs = argparse.Namespace(size=256, slices=4, **{**CORPORA, "hard": ht.HARD}[corpus])
+    return qr.make_split(root / corpus, 24, qr.SPLIT_SEEDS["train"], pargs, dev)
+
+
+def weight_sum(model: torch.nn.Module) -> float:
+    return float(sum(p.detach().double().sum().cpu() for p in model.parameters()))
+
+
+def autoencoder_draws(args) -> int:
+    import json
+    import time
+
+    from mri_inr_tpu_torch.cli import quality_run as qr
+    from mri_inr_tpu_torch.cli import train_encoder as te
+
+    seeds = [int(x) for x in args.seeds.split(",")]
+    dev = torch.device("cuda")
+    report = {"batch": 256, "lr": 1e-3, "flat_below": FLAT, "torch": torch.__version__,
+              "device": qr.card_name(), "runs": []}
+    print(report["device"], flush=True)
+    if args.out:
+        pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        for corpus in args.corpus.split(","):
+            t0 = time.perf_counter()
+            meta = train_split(corpus, pathlib.Path(tmp) / "data", dev)
+            print(f"{corpus} train split: {meta} ({time.perf_counter() - t0:.1f}s)", flush=True)
+            for seed in seeds:
+                for tf32 in (True, False):
+                    torch.backends.cudnn.allow_tf32 = tf32
+                    report["runs"].append(draw(args, te, meta, corpus, seed, tf32, dev,
+                                               pathlib.Path(tmp) / "ae"))
+                torch.backends.cudnn.allow_tf32 = True
+                if args.out:
+                    pathlib.Path(args.out).write_text(json.dumps(report) + "\n")
+    return 0
+
+
+def draw(args, te, meta, corpus: str, seed: int, tf32: bool, dev, out: pathlib.Path) -> dict:
+    """One VGG autoencoder pretrained by ``train_encoder.train`` at ``seed``,
+    every step's loss and stds recorded."""
+    import shutil
+
+    model, patch = te.build_autoencoder("vgg", seed=seed, device=dev)
+    init = weight_sum(model)
+    rec = {"loss": [], "out_std": [], "x_std": []}
+
+    def on_step(epoch, x, loss, y):
+        rec["loss"].append(loss)
+        rec["out_std"].append(y.std())
+        rec["x_std"].append(x.std())
+
+    ns = argparse.Namespace(dataset=str(meta), batch_size=256, lr=1e-3, epochs=args.epochs,
+                            output=str(out), model="vgg")
+    res = te.train(ns, model, patch, dev, on_step)
+    shutil.rmtree(out, ignore_errors=True)
+    rec = {k: [float(x) for x in torch.stack(v).cpu()] for k, v in rec.items()}
+    flat = flat_from(rec["out_std"], rec["x_std"])
+    structured = structured_from(rec["out_std"], rec["x_std"])
+    run = {"corpus": corpus, "seed": seed, "numerics": "tf32" if tf32 else "fp32",
+           "initial_weight_sum": init, "steps_per_epoch": res["steps_per_epoch"],
+           "epoch_losses": res["losses"], "structured_from_step": structured,
+           "flat_from_step": flat, **rec}
+    print(f"{corpus} seed {seed} {run['numerics']}: initial weight sum {init:.10g}; epoch "
+          f"losses {', '.join(f'{x:.6f}' for x in res['losses'])}; reconstruction std at the "
+          f"last step {rec['out_std'][-1]:.4g} (batch {rec['x_std'][-1]:.4g}); structured from "
+          f"step {structured}, flat from step {flat}; losses at steps 0, 10, 20, 40, 80: "
+          + " ".join(f"{rec['loss'][i]:.5f}" for i in (0, 10, 20, 40, 80)
+                     if i < len(rec["loss"])), flush=True)
+    return run
 
 
 def per_step(cli, tr, cfg, dev, train_ds, epochs: int, limit: int | None = None) -> list:

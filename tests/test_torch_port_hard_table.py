@@ -19,7 +19,10 @@ phantom slices, 2 / 1 / 1 volumes x 2 slices.
   the rows added since, to the table as it was before the column.
 - ``baseline``, ``residual`` and ``residual_1200`` run end to end at 2
   epochs (resumed to 3) and a second call skips every row; without its
-  parent's run directory ``residual_1200`` fails naming it.
+  parent's run directory ``residual_1200`` fails naming it. With ``--seed
+  1`` they run as ``<row>@seed1`` beside nothing else, ``training.seed=1``
+  in each run, each held against its JAX hard row, and
+  ``residual_1200@seed1`` resumes ``residual@seed1``'s run.
 """
 
 import argparse
@@ -30,6 +33,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+import yaml
 
 from mri_inr_tpu.data import kspace as jk
 from mri_inr_tpu.data import preprocessing as jpre
@@ -333,3 +337,27 @@ def test_resumed_row_without_its_parent_fails_naming_the_directory(tmp_path, cap
     err = capsys.readouterr().err
     assert f"{tmp_path / 'h' / 'residual'} holds no checkpoint" in err
     assert not (tmp_path / "h" / "rows.json").exists()
+
+
+def test_seed_rows_are_named_seeded_and_resume_their_own_parent(tmp_path):
+    root = tmp_path / "h"
+    ht.main(["--root", str(root), "--seed", "1", "--rows", "baseline,residual,residual_1200",
+             *TINY])
+    rows = _rows(root)
+    assert list(rows) == ["baseline@seed1", "residual@seed1", "residual_1200@seed1"]
+    for name in ("baseline", "residual", "residual_1200"):
+        r = rows[f"{name}@seed1"]
+        assert (r["base_row"], r["seed"], r["jax_row"]) == (name, 1, ht.PAIRS[name])
+        assert "training.seed=1" in r["train_overrides"], name
+        run_dir = pathlib.Path(r["run_dir"])
+        assert run_dir.parent == root / ("residual@seed1" if name == "residual_1200"
+                                         else f"{name}@seed1")
+        assert yaml.safe_load((run_dir / "config.yaml").read_text())["training"]["seed"] == 1
+        assert json.loads((root / f"{name}@seed1" / "run_info.json").read_text()) == r
+        assert all(np.isfinite(r[m]["mean"]) for m in ("PSNR", "SSIM", "NRMSE")), name
+    resumed, parent = rows["residual_1200@seed1"], rows["residual@seed1"]
+    assert resumed["run_dir"] == parent["run_dir"]
+    assert resumed["resumes_row"] == "residual@seed1"
+    assert resumed["eval_dir"].endswith("residual@seed1/eval1200")
+    assert (root / "residual@seed1" / "eval1200" / "metrics_summary.txt").is_file()
+    assert ckpt_lib.find_latest_step(pathlib.Path(parent["run_dir"])) == 3 * 2

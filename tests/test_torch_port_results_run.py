@@ -5,9 +5,10 @@ on the CPU at a tiny size: H=32, latent 16, L=2, 64x64 phantom slices, 2 / 1
 - Every row runs and lands in ``rows.json`` (and its own
   ``run_info.json``) with finite means: a VGG trunk spliced, trained, or
   frozen (the trunk after training equals the autoencoder's, or the seeded
-  init for the random control), the perceptual autoencoder's file as the
-  criterion's encoder, the acceleration rows on splits with four mask
-  columns, the online row on the in-memory k-space with its masks redrawn.
+  init for the random control; the frozen rows also on the module path),
+  the perceptual autoencoder's file as the criterion's encoder, the
+  acceleration rows on splits with four mask columns, the online row on the
+  in-memory k-space with its masks redrawn.
 - A second call skips every row and leaves ``rows.json`` as it was.
 - An unknown row and a row that raises make the process exit nonzero,
   naming both; the other rows still run and are kept.
@@ -64,6 +65,15 @@ def _final_model(run_dir):
 
 def _trunk(state, prefix):
     return {k[len(prefix):]: v for k, v in state.items() if k.startswith(prefix)}
+
+
+def _losses(record):
+    """The train and validation losses of a row's run, epoch by epoch (its
+    ``progress_log.csv`` without the timing columns)."""
+    lines = (pathlib.Path(record["run_dir"]) / "progress_log.csv").read_text().splitlines()
+    head = lines[0].split(",")
+    cols = [head.index("train_loss"), head.index("val_loss")]
+    return [[float(ln.split(",")[c]) for c in cols] for ln in lines[1:]]
 
 
 def test_every_row_lands_in_rows_json(root):
@@ -125,8 +135,31 @@ def test_frozen_vgg_module_row_trains_on_the_module_path(root):
     assert module.keys() == control.keys()
     assert all(torch.equal(module[k], control[k]) for k in module)
     assert r["trunk_features"] == fused["trunk_features"]
-    log = lambda x: (pathlib.Path(x["run_dir"]) / "progress_log.csv").read_text()
-    assert log(r) != log(fused)
+    assert _losses(r) != _losses(fused)
+
+
+def test_frozen_vgg_corpus_module_row_trains_on_the_module_path(root):
+    """``vgg_frozen_corpus_module``: the corpus-pretrained trunk (the same
+    VGG autoencoder file as ``vgg_frozen_corpus``) frozen, trained on the
+    module path (``training.use_pallas=false``, the JAX row's recorded
+    route), paired with the JAX ``vgg_frozen_corpus``; no train kernel
+    launched; the same trunk and features as the fused row, other losses."""
+    rows = _rows(root)
+    r, fused = rows["vgg_frozen_corpus_module"], rows["vgg_frozen_corpus"]
+    assert r["jax_row"] == "vgg_frozen_corpus" and r["autoencoder"] == fused["autoencoder"]
+    assert rr.route(r["train_overrides"]) == "module"
+    assert rr.route(fused["train_overrides"]) == "fused"
+    assert r["launches"]["siren_train_fwd"] == r["launches"]["siren_train_bwd"] == 0
+    cfg = yaml.safe_load((pathlib.Path(r["run_dir"]) / "config.yaml").read_text())
+    assert cfg["training"]["use_pallas"] is False and cfg["training"]["freeze_encoder"]
+    assert cfg["model"]["encoder_path"].endswith(r["autoencoder"])
+    prefix = "encoder.encoder.trunk."
+    ae = _trunk(torch.load(root / "encoder_vgg" / "vgg_autoencoder_epoch_00000.pt",
+                           weights_only=True), "trunk.")
+    module = _trunk(_final_model(r["run_dir"]), prefix)
+    assert module.keys() == ae.keys() and all(torch.equal(module[k], ae[k]) for k in ae)
+    assert r["trunk_features"] == fused["trunk_features"]
+    assert _losses(r) != _losses(fused)
 
 
 def test_perceptual_and_acceleration_rows(root):
@@ -284,8 +317,7 @@ def test_seed_rows_are_named_paired_and_seeded(root):
     a, b = trunk(seeded), trunk(before["vgg_frozen_corpus"]["autoencoder"])
     assert a.keys() == b.keys() and not all(torch.equal(a[k], b[k]) for k in a)
     # the seed reached the init: the first losses differ from seed 0's
-    first = lambda r: (pathlib.Path(r["run_dir"]) / "progress_log.csv").read_text()
-    assert first(rows["baseline@seed1"]) != first(before["baseline"])
+    assert _losses(rows["baseline@seed1"]) != _losses(before["baseline"])
 
 
 def test_jax_rows_hold_the_seed_repeats():
