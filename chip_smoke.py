@@ -99,7 +99,9 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    directory written by rank 0 alone, the checkpoint restored on both
    ranks, each rank's train-kernel launches equal to its steps, the
    TensorBoard losses against a one-process run on the ranks' two halves
-   of every batch (1e-5) and one on the whole batch (2e-3)); one
+   of every batch (1e-5) and one on the whole batch (9e-3, a bar that a
+   one-process run with every rank on rank 0's rows, a planted fault, must
+   exceed)); one
    data-parallel step with dropout against Adam on the mean of the two
    ranks' local steps emulated here; the test CLI with ``--devices 2``
    against the one-process, ``--shard`` and ``--merge-shards`` files, and
@@ -141,6 +143,14 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    every row; then ``cli/hard_table --seed 1`` for the baseline row, named
    ``baseline@seed1``, on the same splits (no DFT launch), whose losses
    differ from seed 0's; the phase's wall time;
+17. the seeded draws (before phase 4, on the CPU of the card's machine): the
+   initial weights the train CLI's ``build_model`` (configs/train.yaml's
+   model) and ``train_encoder``'s conv, VGG and perceptual autoencoders
+   draw at seeds 0 and 1, every leaf's float64 sum and sum of squares,
+   against the JAX package's ``init(jax.random.key(seed))``, and three
+   phantom stems' column masks against the JAX package's, both recorded
+   once on the CPU (``tests/data/jax_draws.json``): the draws are the JAX
+   package's under this machine's torch too; every later phase runs on them;
 12. times with CUDA events (warm-up, then the median): every kernel and its
    plain version per call, for the DFT also the ``torch.fft`` route, for the
    backward also its chain and weight-gradient kernels apart (device time
@@ -157,6 +167,7 @@ without the package beside this file, it exits 1 before doing anything.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import csv
 import importlib.util
@@ -521,6 +532,99 @@ def preprocess_cli(pkg, tmp: pathlib.Path, device) -> None:
     print("preprocess CLI: 2 synthetic .h5 volumes -> the array route's slices, bit for bit")
 
 
+DRAWS_FILE = REPO / "tests" / "data" / "jax_draws.json"  # tests/jax_draws_constants.py
+#: a lecun-normal leaf's float64 sum of values (of squares) against the JAX
+#: package's: within 1e-6 of std * sqrt(n) (std^2 * sqrt(n)); measured 3.4e-8
+#: (5.7e-8) on the CPU: an ulp or two of erfinv on about one value in a hundred
+DRAW_SUM_BAR = 1e-6
+
+
+def leaf_sums(tree, prefix=()) -> dict:
+    """``"a/b/kernel"`` -> [size, sum, sum of squares] of a Flax-layout tree,
+    the sums in float64 by ``math.fsum`` (exactly rounded: the same values
+    give the same numbers on any machine)."""
+    out = {}
+    for k, v in tree.items():
+        if hasattr(v, "items"):
+            out.update(leaf_sums(v, prefix + (k,)))
+        else:
+            a = np.asarray(v, np.float64).reshape(-1)
+            out["/".join(prefix + (k,))] = [int(a.size), math.fsum(a), math.fsum(a * a)]
+    return out
+
+
+def draw_mismatches(recorded: dict, got: dict) -> list[str]:
+    """The leaves where the port's draw (``leaf_sums``) misses the JAX
+    package's (``recorded``: size, sums, initializer): the uniform, zero and
+    one leaves must be equal, the lecun-normal ones within DRAW_SUM_BAR."""
+    bad = [f"leaves only on one side: {sorted(set(got) ^ set(recorded))}"] if (
+        set(got) != set(recorded)) else []
+    for leaf, (n, s, q, kind) in sorted(recorded.items()):
+        if leaf not in got:
+            continue
+        gn, gs, gq = got[leaf]
+        if kind == "lecun_normal":
+            std = math.sqrt(max(q / n - (s / n) ** 2, 0.0))
+            ok = (gn == n and abs(gs - s) <= DRAW_SUM_BAR * std * math.sqrt(n)
+                  and abs(gq - q) <= DRAW_SUM_BAR * std * std * math.sqrt(n))
+        else:
+            ok = [gn, gs, gq] == [n, s, q]
+        if not ok:
+            bad.append(f"{leaf} ({kind}): size {gn}, sums {gs!r} {gq!r}; JAX {n}, {s!r} {q!r}")
+    return bad
+
+
+def drawn_model(pkg, name: str, seed: int) -> torch.nn.Module:
+    """The model a user's entry point builds at ``seed``, on the CPU: the
+    train CLI's ``build_model`` at configs/train.yaml's width, and
+    ``train_encoder``'s three autoencoders at latent 256."""
+    if name == "modulated_siren":
+        cfg = pkg["config"].load_train_configuration(REPO / "configs" / "train.yaml",
+                                                     [f"training.seed={seed}"])
+        return pkg["cli_train"].build_model(cfg, torch.device("cpu"), log=lambda *_: None)
+    model, _ = pkg["train_encoder"].build_autoencoder(name.split("_")[0], latent_dim=256,
+                                                      seed=seed, device="cpu")
+    return model
+
+
+def draws_path(pkg, card: str) -> dict:
+    """The seeded draws on this machine's torch and numpy against the JAX
+    package's, recorded once on the CPU (``DRAWS_FILE``): every leaf of the
+    initial weights of four models at two seeds, and the column masks of
+    three phantom stems under each preprocessing mask pair."""
+    t0 = time.perf_counter()
+    rec = json.loads(DRAWS_FILE.read_text())
+    leaves = 0
+    for name, seeds in rec["models"].items():
+        for seed, recorded in seeds.items():
+            model = drawn_model(pkg, name, int(seed))
+            got = leaf_sums(pkg["interop"].variables_to_flax(model.state_dict())["params"])
+            for leaf, (n, s, q, kind) in sorted(recorded.items()):
+                g = got.get(leaf, [None] * 3)
+                print(f"draw {name}@{seed} {leaf} ({kind}, {n}): sum {g[1]!r} sumsq {g[2]!r}; "
+                      f"JAX {s!r} {q!r}")
+            bad = draw_mismatches(recorded, got)
+            check(not bad, f"{name} at seed {seed} is not the JAX package's draw: {bad[:3]}")
+            leaves += len(recorded)
+    jr, pre, kspace = pkg["jax_random"], pkg["preprocessing"], pkg["kspace"]
+    width = rec["mask_width"]
+    for key, want in sorted(rec["masks"].items()):
+        stem, cf, acc = key.split("|")
+        mask = kspace.random_mask(jr.key(pre._stable_seed(stem, float(cf), int(acc))), width,
+                                  float(cf), int(acc))
+        got = np.packbits(mask).tobytes().hex()
+        print(f"draw mask {stem} ({cf}, {acc}): {int(mask.sum())} of {width} columns, "
+              f"{'equal to' if got == want else 'NOT'} the JAX package's")
+        check(got == want, f"the mask of {key} is not the JAX package's")
+    secs = time.perf_counter() - t0
+    print(f"draws: {leaves} leaves of {len(rec['models'])} models at seeds "
+          f"{sorted({s for v in rec['models'].values() for s in v})} and {len(rec['masks'])} "
+          f"masks equal the JAX package's (uniform, zero, one leaves and masks bit for bit; "
+          f"lecun-normal leaves within {DRAW_SUM_BAR} of std * sqrt(n)) under torch "
+          f"{torch.__version__}, numpy {np.__version__} ({secs:.1f}s) [{card}]")
+    return {"leaves": leaves, "masks": len(rec["masks"]), "seconds": secs}
+
+
 def time_preprocessing(pkg, tmp: pathlib.Path, device, card: str) -> None:
     """One volume's preprocessing end to end (host clock, device finished)."""
     syn, pre = pkg["synthetic"], pkg["preprocessing"]
@@ -874,6 +978,21 @@ def train_path(pkg, tmp: pathlib.Path, device, train_meta: pathlib.Path,
 
 
 # ---------------------------------------------------------------- phase 7
+@contextlib.contextmanager
+def scan_seeds(tr):
+    """The per-step route on the graphed epoch's dropout seeds. The JAX
+    package's fused per-step (mesh) step folds the axis index into each
+    step's key and its scan epoch does not; the port draws as each route
+    does. A comparison of the graphed epoch with the per-step loop holds
+    both to one stream inside this context."""
+    kept = tr.epoch_seeds
+    tr.epoch_seeds = lambda base, step0, n, rank=None: kept(base, step0, n)
+    try:
+        yield
+    finally:
+        tr.epoch_seeds = kept
+
+
 def graph_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path, val_meta: pathlib.Path,
                card: str, label: str = "fused path", overrides: tuple = ()) -> dict:
     """The graphed epoch (Trainer with ``device_data``: the first epoch
@@ -916,8 +1035,9 @@ def graph_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path, val_meta: pat
         flat = torch.cat([q.detach().reshape(-1) for q in model.parameters()])
         return np.array(curve), flat, t
 
-    (la, pa, ta), (lb, pb, _), (lc, pc, tc) = (
-        run("per_step_a", False), run("per_step_b", False), run("graphed", True))
+    with scan_seeds(tr):
+        (la, pa, ta), (lb, pb, _) = run("per_step_a", False), run("per_step_b", False)
+    lc, pc, tc = run("graphed", True)
     spread = (float(np.abs(la - lb).max()), (pa - pb).abs().max().item())
     gap = (float(np.abs(lc - la).max()), (pc - pa).abs().max().item())
     repeats = spread == (0.0, 0.0)
@@ -1413,7 +1533,8 @@ def online_train(pkg, tmp: pathlib.Path, device, card: str, train, val) -> dict:
                       f"{r['val_loss']:.6f}" for r in logs))
 
     # (b) the per-step loop over the same materialised tiles (host batches)
-    (la, pa, _), (lb, pb, _) = run("per_step_a", False), run("per_step_b", False)
+    with scan_seeds(pkg["trainer"]):
+        (la, pa, _), (lb, pb, _) = run("per_step_a", False), run("per_step_b", False)
     spread = (float(np.abs(la - lb).max()), (pa - pb).abs().max().item())
     gap = (float(np.abs(lc - la).max()), (pc - pa).abs().max().item())
     repeats = spread == (0.0, 0.0)
@@ -1605,13 +1726,18 @@ DP_STEP_BAR = 1e-6  # the 2-rank dropout step against its emulation
 # one 2-rank SGD step (lr 1e-2, dropout off) against the one-process step,
 # the JAX package's own bars (tests/test_sharding.py): loss relative, params
 DP_SGD_LOSS_BAR, DP_SGD_PARAM_BAR = 1e-4, 1e-5
-# three epochs of Adam through the CLI, per-epoch losses relative: against
-# one process stepping on the ranks' two halves of every batch (the ranks'
-# own arithmetic), and against one process on the whole batch, where the
-# batch's sum runs in another order and Adam carries the rounding on (6.2e-4
-# measured on an H100 in bf16 and in fp32)
+# three epochs of Adam through the CLI, per-epoch losses relative: the 2
+# ranks against one process stepping on the ranks' two halves of every batch
+# (the ranks' own arithmetic, tests/torch_port_ranks.halves_step_body)
 MULTIRANK_HALVES_BAR = 1e-5
-MULTIRANK_LOSS_BAR = 2e-3
+# and against one process on the whole batch, whose sum runs in another
+# order: each half's bf16 gradient is rounded apart and Adam carries the
+# rounding on. A bar between the sound reading and that of a planted fault
+# the ranks could share with their witness, every rank stepping on rank 0's
+# rows, both read on an H100 (700 W) by scripts/torch_multirank_probe.py:
+# 2.754e-3 and 2.966e-2 (the sound gap 6.2e-4 on the torch generator's
+# earlier weights); the fault is run again here and must exceed the bar
+MULTIRANK_WHOLE_BAR = 9e-3
 # the test CLI's rows against the one-process rows (PSNR dB, SSIM, NRMSE):
 # --devices 2 (libraries' kernels at another batch) and the halo fold
 DP_ROW_BAR = 1e-5
@@ -1774,41 +1900,38 @@ def rank_worker(args: list[str]) -> int:
     return 0
 
 
-def halves_step_body(stk, tiling):
-    """A stand-in for the trainer's ``_make_step_body`` (fused path, one
-    process): every step computes the gradients of each rank's rows of the
-    batch apart, as the ranks do, and averages them in the collective's
-    order (the sum, then the division) before the same optimizer step. A
-    one-process run through it follows the ranks' arithmetic, where a
-    one-process run at the whole batch sums in another order."""
+def witness_runs(pkg, tmp: pathlib.Path, train_argv: list[str], tag: str,
+                 fault: bool = False) -> dict:
+    """Phase 13's one-process runs of the train CLI for three epochs, as
+    (train loss, validation loss) an epoch: ``whole``, on the whole batch;
+    ``halves``, every step's gradients computed on the ranks' two halves of
+    the batch and averaged as the collective does
+    (``tests/torch_port_ranks.halves_step_body``); and where ``fault`` is
+    set, ``fault``: the same, but every rank taking rank 0's rows."""
+    cli_train, trainer = pkg["cli_train"], pkg["trainer"]
+    sys.path.insert(0, str(REPO / "tests"))
+    import torch_port_ranks
 
-    def make(model, loss_fn, outer, siren, *, fused, sin5, freeze_encoder, group=None):
-        check(fused and not freeze_encoder and group is None, "halves_step_body: fused only")
+    def run(name: str):
+        return [(r["train_loss"], r["val_loss"]) for r in cli_train.main(train_argv + [
+            "--set", f"training.output_dir={tmp / f'dp_{name}_{tag}'}",
+            "--set", "training.epochs=3"])._progress]
 
-        def body(state, fully, under, seed):
-            target = tiling.extract_center_batch(fully, outer, siren).float()
-            total = None
-            for r in range(RANKS):
-                rows = slice(r * len(under) // RANKS, (r + 1) * len(under) // RANKS)
-                state.optimizer.zero_grad(set_to_none=True)
-                pred = stk.fused_train_apply(model, under[rows], seed, sin5=sin5)
-                loss = loss_fn(pred.float(), target[rows])
-                loss.backward()
-                grads = [p.grad for p in model.parameters() if p.grad is not None]
-                flat = torch.cat([g.reshape(-1) for g in grads]
-                                 + [loss.detach().float().reshape(1)])
-                total = flat if total is None else total + flat
-            total = total / RANKS
-            offset = 0
-            for g in grads:
-                g.copy_(total[offset : offset + g.numel()].view_as(g))
-                offset += g.numel()
-            state.optimizer.step()
-            return total[-1]
+    out = {"whole": run("whole")}
+    make_body = trainer._make_step_body
+    try:
+        for name, rows_of in (("halves", None), ("fault", lambda r: 0))[:1 + fault]:
+            trainer._make_step_body = torch_port_ranks.halves_step_body(RANKS, rows_of)
+            out[name] = run(name)
+    finally:
+        trainer._make_step_body = make_body
+    return out
 
-        return body
 
-    return make
+def loss_gap(got: list, want: list) -> float:
+    """The largest relative difference of per-epoch (train, validation) losses."""
+    check(len(got) == len(want), f"{len(got)} epochs against {len(want)}")
+    return max(abs(a - b) / abs(b) for g, w in zip(got, want) for a, b in zip(g, w))
 
 
 def multirank_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path,
@@ -1863,36 +1986,32 @@ def multirank_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path,
         check(got["siren_forward"] == 2 * (16 + 4) + 3 * 4, f"rank {r}: eval forward launches")
         launches[r] = got
 
-    single = cli_train.main(train_argv + ["--set", f"training.output_dir={tmp / 'dp_single'}",
-                                          "--set", "training.epochs=3"])
-    # the witness: one process again, every step's gradients computed on the
-    # ranks' two halves of the batch and averaged as the collective does
-    make_body = trainer._make_step_body
-    trainer._make_step_body = halves_step_body(stk, pkg["tiling"])
-    try:
-        halves = cli_train.main(train_argv + [
-            "--set", f"training.output_dir={tmp / 'dp_halves'}", "--set", "training.epochs=3"])
-    finally:
-        trainer._make_step_body = make_body
+    bf16 = witness_runs(pkg, tmp, train_argv, "bf16", fault=True)
     scalars = tb.read_scalars(run / "tensorboard")
     check(sorted(scalars) == ["training_loss", "validation_loss"]
           and [s for s, _ in scalars["training_loss"]] == [0, 1, 2]
           and [s for s, _ in scalars["validation_loss"]] == [0, 1, 2],
           f"TensorBoard scalars {scalars}")
-    rel = {"single": 0.0, "halves": 0.0}
-    for tag, key in (("training_loss", "train_loss"), ("validation_loss", "val_loss")):
-        for (step, value), one, two in zip(scalars[tag], single._progress, halves._progress):
-            for name, row in (("single", one), ("halves", two)):
-                rel[name] = max(rel[name], abs(value - row[key]) / abs(row[key]))
-            print(f"epoch {step} {key}: 2 ranks (TensorBoard, float32) {value:.7f}, one "
-                  f"process {one[key]:.7f}, one process on the two halves {two[key]:.7f}")
+    ranked = [(t, v) for (_, t), (_, v) in zip(scalars["training_loss"],
+                                               scalars["validation_loss"])]
+    for e, (two, one, halves) in enumerate(zip(ranked, bf16["whole"], bf16["halves"])):
+        for i, key in enumerate(("train_loss", "val_loss")):
+            print(f"epoch {e} {key}: 2 ranks (TensorBoard, float32) {two[i]:.7f}, one "
+                  f"process {one[i]:.7f}, one process on the two halves {halves[i]:.7f}")
+    gap = {"halves": loss_gap(ranked, bf16["halves"]), "whole": loss_gap(ranked, bf16["whole"]),
+           "fault": loss_gap(bf16["fault"], bf16["whole"])}
     print(f"2-rank train CLI, dropout off, bf16, Adam, 3 epochs: max relative per-epoch loss "
-          f"difference from one process on the two halves of every batch {rel['halves']:.3e} "
+          f"difference from one process on the two halves of every batch {gap['halves']:.3e} "
           f"(<= {MULTIRANK_HALVES_BAR:g}), from one process on the whole batch "
-          f"{rel['single']:.3e} (<= {MULTIRANK_LOSS_BAR:g}: the order of the batch's sum)")
-    check(rel["halves"] <= MULTIRANK_HALVES_BAR,
+          f"{gap['whole']:.3e} (<= {MULTIRANK_WHOLE_BAR:g}); one process with every rank "
+          f"stepping on rank 0's rows (a planted fault) lies {gap['fault']:.3e} from the whole "
+          f"batch (> {MULTIRANK_WHOLE_BAR:g})")
+    check(gap["halves"] <= MULTIRANK_HALVES_BAR,
           "2-rank losses disagree with one process on the two halves")
-    check(rel["single"] <= MULTIRANK_LOSS_BAR, "2-rank losses disagree with the one-process run")
+    check(gap["whole"] <= MULTIRANK_WHOLE_BAR,
+          "2-rank losses disagree with one process on the whole batch")
+    check(gap["fault"] > MULTIRANK_WHOLE_BAR,
+          "the whole-batch bar does not see half of the batch left out")
     for r, rep in enumerate(first + resumed):
         if rep is resumed[0]:
             print("  (resumed run)")
@@ -2542,7 +2661,7 @@ def main() -> int:
     if sys.argv[1:2] == ["--rank"]:  # one rank of phase 13
         return rank_worker(sys.argv[2:])
     sys.path.insert(0, str(REPO))
-    from mri_inr_tpu_torch import native
+    from mri_inr_tpu_torch import interop, native
     from mri_inr_tpu_torch.cli import preprocess as cli_preprocess
     from mri_inr_tpu_torch.cli import hard_table, quality_run, results_run, sweep940
     from mri_inr_tpu_torch.cli import test as cli_test
@@ -2558,7 +2677,7 @@ def main() -> int:
     from mri_inr_tpu_torch.ops import siren_train_kernel as stk
     from mri_inr_tpu_torch.ops import tiling
     from mri_inr_tpu_torch.train import losses, trainer
-    from mri_inr_tpu_torch.utils import profiling, tensorboard, visualization
+    from mri_inr_tpu_torch.utils import jax_random, profiling, tensorboard, visualization
 
     device = torch.device("cuda", torch.cuda.current_device())
     card = card_line()
@@ -2585,7 +2704,9 @@ def main() -> int:
                cli_preprocess=cli_preprocess, train_encoder=train_encoder, losses=losses,
                trainer=trainer, online=online, tiling=tiling, tensorboard=tensorboard,
                visualization=visualization, profiling=profiling, quality_run=quality_run,
-               results_run=results_run, sweep940=sweep940, hard_table=hard_table)
+               results_run=results_run, sweep940=sweep940, hard_table=hard_table,
+               interop=interop, jax_random=jax_random, kspace=kspace)
+    draws_path(pkg, card)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
         pre = preprocess_path(pkg, tmp, device)

@@ -18,8 +18,11 @@ The splits are built without ``h5py``: ``synthetic.synthetic_kspace`` ->
 ``write_synthetic_h5`` would store). A split whose ``metadata.csv`` and
 slices exist and an autoencoder file that exists are reused; so the first
 build under a root writes ``protocol.json`` there (corpus flags, size,
-slices, file counts, autoencoder epochs), and a later call whose protocol
-differs raises before it touches any file (:func:`guard_protocol`). Visual
+slices, file counts, autoencoder epochs, the draws), and a later call whose
+protocol differs raises before it touches any file (:func:`guard_protocol`):
+rows of the port's earlier numpy and torch draws (``"draws": "torch"``, every
+root built before the JAX package's draws were ported) never share a root
+with rows of the JAX package's draws (``"jax"``). Visual
 samples are left out where ``matplotlib`` is not installed.
 ``run_info.json`` under ``--root`` records the protocol, each stage's wall
 seconds, the card and the metrics.
@@ -104,12 +107,20 @@ _RUN_INFO_KEYS = {"image_size": "size", "slices_per_file": "slices", "train_file
                   "val_files": "val_files", "eval_files": "eval_files", "ae_epochs": "ae_epochs"}
 
 
+#: how the port draws its seeded values: ``"jax"``, the JAX package's own
+#: draws (``jax.random`` masks, Flax's initial weights, the fused dropout
+#: seeds); a root built before it drew them from numpy and torch generators
+#: and reads as ``"torch"``
+DRAWS = "jax"
+
+
 def protocol_of(args) -> dict:
-    """The corpus and scale a call builds its splits and autoencoders from."""
+    """The corpus, scale and draws a call builds its splits, autoencoders
+    and rows from."""
     return {"phase": bool(args.phase), "snr_db": args.snr_db, "texture": float(args.texture),
             "size": args.size, "slices": args.slices, "train_files": args.train_files,
             "val_files": args.val_files, "eval_files": args.eval_files,
-            "ae_epochs": args.ae_epochs}
+            "ae_epochs": args.ae_epochs, "draws": DRAWS}
 
 
 def default_protocol() -> dict:
@@ -123,32 +134,48 @@ def default_protocol() -> dict:
 def _legacy_protocol(root: pathlib.Path) -> dict | None:
     """The protocol of a root that holds splits or rows but no
     ``protocol.json``: :func:`default_protocol` with the counts its
-    ``run_info.json`` records; None for a root that holds neither."""
+    ``run_info.json`` records and the ``"torch"`` draws; None for a root that
+    holds neither."""
     info = root / "run_info.json"
     if not (info.is_file() or (root / "rows.json").is_file()
             or any((root / "data").glob("*/*/metadata.csv"))):
         return None
-    out = default_protocol()
+    out = {**default_protocol(), "draws": "torch"}
     if info.is_file():
         recorded = json.loads(info.read_text())
         out.update({v: recorded[k] for k, v in _RUN_INFO_KEYS.items() if k in recorded})
     return out
 
 
-def guard_protocol(root: pathlib.Path, args) -> dict:
+def root_protocol(root: pathlib.Path) -> dict | None:
+    """The protocol ``root`` was built with: its ``protocol.json`` (one
+    written before the draws were recorded drew ``"torch"``), else
+    :func:`_legacy_protocol`."""
+    path = root / "protocol.json"
+    if not path.is_file():
+        return _legacy_protocol(root)
+    return {"draws": "torch", **json.loads(path.read_text())}
+
+
+def guard_protocol(root: pathlib.Path, args, building: bool = True) -> dict:
     """Hold the call's protocol against the one ``root`` was built with
-    (``root/protocol.json``; for an older root, :func:`_legacy_protocol`)
-    and write it there when the root has none. A different protocol raises
-    ``ValueError`` naming both, before any split, autoencoder or row under
-    ``root`` is touched."""
+    (:func:`root_protocol`) and write it there when the root has none. A
+    different protocol raises ``ValueError`` naming both, before any split,
+    autoencoder or row under ``root`` is touched. A call that builds nothing
+    (``building=False``: every row it names is there, it only renders) is
+    not held to the root's draws, and leaves an older root's files as they
+    are."""
     want = protocol_of(args)
     path = root / "protocol.json"
-    have = json.loads(path.read_text()) if path.is_file() else _legacy_protocol(root)
-    if have is not None and have != want:
+    have = root_protocol(root)
+    def held(p: dict) -> dict:
+        return {k: v for k, v in p.items() if building or k != "draws"}
+
+    if have is not None and held(have) != held(want):
         raise ValueError(f"{root} holds the protocol {json.dumps(have, sort_keys=True)} but "
                          f"this call asks for {json.dumps(want, sort_keys=True)}: pass the "
                          "root's own options or another --root")
-    if not path.is_file():
+    if not path.is_file() and (building or have is None):
         root.mkdir(parents=True, exist_ok=True)
         path.write_text(json.dumps(want, indent=2) + "\n")
     return want

@@ -583,11 +583,11 @@ def run_rows(args, wanted: list[str], known: dict, run_one: Callable[..., dict],
     each. Returns the rows by key, the rows that failed (a traceback printed
     for each) and the root."""
     root = pathlib.Path(args.root).resolve()
-    qr.guard_protocol(root, args)
     rows_path = root / "rows.json"
     done = ({r["row"]: r for r in json.loads(rows_path.read_text())}
             if rows_path.exists() else {})
     todo = [r for r in wanted if key(r) not in done]
+    qr.guard_protocol(root, args, building=bool(todo))
     failed = []
     if todo:
         device = resolve_device(args.device)

@@ -47,6 +47,7 @@ import yaml
 from mri_inr_tpu_torch.configuration import config as config_lib
 from mri_inr_tpu_torch.data.dataset import MRIDataset, MRIDatasetLowMemory
 from mri_inr_tpu_torch.data.online import OnlineKspaceDataset
+from mri_inr_tpu_torch.models import flax_init
 from mri_inr_tpu_torch.models import modulated_siren as ms
 from mri_inr_tpu_torch.parallel import distributed
 from mri_inr_tpu_torch.train import checkpoint as ckpt_lib
@@ -100,12 +101,12 @@ def _dataset(split, dcfg, mcfg, device: torch.device | None = None, online: bool
 
 
 def build_model(cfg, device: torch.device, log=print):
-    """The seeded model of ``cfg`` on ``device``, with the pretrained encoder
-    of ``model.encoder_path`` spliced in."""
+    """The model of ``cfg`` on ``device`` with the JAX package's initial
+    weights at ``training.seed`` (``model.init(jax.random.key(seed), ...)``,
+    :func:`~mri_inr_tpu_torch.models.flax_init.seeded`), and the pretrained
+    encoder of ``model.encoder_path`` spliced in."""
     mcfg, tcfg = cfg.model, cfg.training
-    model = ms.from_config(mcfg, tcfg.precision,
-                           generator=torch.Generator().manual_seed(tcfg.seed),
-                           device=device)
+    model = flax_init.seeded(ms.from_config(mcfg, tcfg.precision, device=device), tcfg.seed)
     if mcfg.encoder_path:
         splice_pretrained_encoder(model, _load_state(mcfg.encoder_path, "model.encoder_path"))
         log(f"loaded pretrained {mcfg.encoder_type} encoder from {mcfg.encoder_path}")

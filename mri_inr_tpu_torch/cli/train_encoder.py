@@ -45,6 +45,7 @@ import torch
 
 from mri_inr_tpu_torch.data.dataset import MRIDataset, MRISampler
 from mri_inr_tpu_torch.eval.metrics import image_metrics
+from mri_inr_tpu_torch.models import flax_init
 from mri_inr_tpu_torch.models.encoder import ConvAutoencoder, VGGAutoencoder
 from mri_inr_tpu_torch.models.perceptual import PerceptualAutoencoderV2
 from mri_inr_tpu_torch.ops import tiling
@@ -57,17 +58,18 @@ MODELS = ("conv", "vgg", "perceptual")
 
 def build_autoencoder(name: str, latent_dim: int = 256, seed: int = 0,
                       device: torch.device | str = "cpu") -> tuple[torch.nn.Module, int]:
-    """(autoencoder with seeded init on ``device``, its patch size)."""
-    gen = torch.Generator().manual_seed(seed)
+    """(autoencoder on ``device`` with the JAX package's initial weights at
+    ``seed``, :func:`~mri_inr_tpu_torch.models.flax_init.seeded`; its patch
+    size)."""
     if name == "conv":
-        model, patch = ConvAutoencoder(latent_dim, generator=gen), 32
+        model, patch = ConvAutoencoder(latent_dim), 32
     elif name == "vgg":
-        model, patch = VGGAutoencoder(generator=gen), 32
+        model, patch = VGGAutoencoder(), 32
     elif name == "perceptual":
-        model, patch = PerceptualAutoencoderV2(latent_dim=latent_dim, generator=gen), 24
+        model, patch = PerceptualAutoencoderV2(latent_dim=latent_dim), 24
     else:
         raise ValueError(f"Unknown autoencoder {name!r}; expected one of {MODELS}")
-    return model.to(device), patch
+    return flax_init.seeded(model, seed).to(device), patch
 
 
 def checkpoint_paths(output: str | pathlib.Path, name: str,

@@ -10,9 +10,9 @@ normalisation (counterpart of ``mri_inr_tpu/data/kspace.py``).
 - :func:`normalize_scan`: whole-volume min-max to [0, 1].
 
 Plain functions on tensors through ``torch.fft``; they run wherever their
-input lies. The mask draw takes an explicit ``numpy.random.Generator``: the
-same distribution as the JAX package's draw under a ``jax.random`` key, not
-the same bits.
+input lies. The mask draw takes a ``jax.random`` key's data (``(2,)``
+uint32, :mod:`mri_inr_tpu_torch.utils.jax_random`) and draws the JAX
+package's mask under that key, bit for bit.
 
 Complex data also comes as float32 real/imag pairs ``(..., H, W, 2)`` (the
 ``*_ri`` functions), fastMRI's own layout and the DFT kernel's
@@ -23,6 +23,8 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+
+from mri_inr_tpu_torch.utils import jax_random
 
 
 def _shifted_fft2(x: torch.Tensor, inverse: bool) -> torch.Tensor:
@@ -50,16 +52,18 @@ def num_low_frequencies(num_cols: int, center_fraction: float) -> int:
     return round(num_cols * center_fraction)
 
 
-def random_mask(rng: np.random.Generator, num_cols: int, center_fraction: float,
+def random_mask(key: np.ndarray, num_cols: int, center_fraction: float,
                 acceleration: float) -> np.ndarray:
-    """Boolean column mask of shape (num_cols,). The expected retained
-    fraction is 1/acceleration: ``num_low`` centre columns, starting at
-    ``(num_cols - num_low + 1) // 2``, are always kept; each other column is
-    kept with probability ``(num_cols / acceleration - num_low) /
-    (num_cols - num_low)``."""
+    """Boolean column mask of shape (num_cols,) under the ``jax.random``
+    key ``key``. The expected retained fraction is 1/acceleration:
+    ``num_low`` centre columns, starting at ``(num_cols - num_low + 1) //
+    2``, are always kept; each other column is kept where its float32
+    uniform lies below ``(num_cols / acceleration - num_low) / (num_cols -
+    num_low)`` rounded to float32 (JAX compares a float32 array with a
+    Python float in float32)."""
     num_low = num_low_frequencies(num_cols, center_fraction)
     prob = (num_cols / acceleration - num_low) / (num_cols - num_low)
-    mask = rng.uniform(size=num_cols) < prob
+    mask = jax_random.uniform(key, (num_cols,)) < np.float32(prob)
     pad = (num_cols - num_low + 1) // 2
     mask[pad : pad + num_low] = True
     return mask
@@ -82,11 +86,11 @@ def normalize_scan(volume: torch.Tensor) -> torch.Tensor:
     return (volume - lo) / (hi - lo)
 
 
-def undersample_volume(kspace: torch.Tensor, rng, center_fraction: float,
+def undersample_volume(kspace: torch.Tensor, key: np.ndarray, center_fraction: float,
                        acceleration: float) -> tuple[torch.Tensor, np.ndarray]:
     """Mask a (..., H, W) k-space volume with one random column mask (fastMRI
     draws one mask per volume). Returns (masked k-space, mask)."""
-    mask = random_mask(rng, kspace.shape[-1], center_fraction, acceleration)
+    mask = random_mask(key, kspace.shape[-1], center_fraction, acceleration)
     return apply_mask(kspace, mask), mask
 
 
@@ -113,7 +117,7 @@ def apply_mask_ri(kspace_ri: torch.Tensor, mask) -> torch.Tensor:
     return kspace_ri * _as_mask(mask, kspace_ri)[:, None]
 
 
-def undersample_volume_ri(kspace_ri: torch.Tensor, rng, center_fraction: float,
+def undersample_volume_ri(kspace_ri: torch.Tensor, key: np.ndarray, center_fraction: float,
                           acceleration: float) -> tuple[torch.Tensor, np.ndarray]:
-    mask = random_mask(rng, kspace_ri.shape[-2], center_fraction, acceleration)
+    mask = random_mask(key, kspace_ri.shape[-2], center_fraction, acceleration)
     return apply_mask_ri(kspace_ri, mask), mask

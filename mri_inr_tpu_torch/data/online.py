@@ -15,18 +15,16 @@ Then each volume is min-max normalised over all its slices (a constant
 volume gives zeros, not NaN), the selected slices are taken and tiled.
 
 - **offline parity**: with ``remask_each_epoch=False`` each volume's mask
-  is drawn from ``numpy.random.default_rng(_stable_seed(stem, cf, acc))``,
-  the draw of :func:`~mri_inr_tpu_torch.data.preprocessing.
-  process_kspace_volume`, so the tiles equal those of :class:`~mri_inr_tpu_
-  torch.data.dataset.MRIDataset` over the offline pipeline's slices, and on
-  the card both come from the same kernel;
-- **remasking** (``remask_each_epoch=True``): epoch ``e`` draws from
-  ``default_rng(SeedSequence(_stable_seed(stem, cf, acc), spawn_key=(e,)))``,
-  epoch 0 included: numpy's child of that seed, the counterpart of
-  ``fold_in(key, epoch)``, so epoch 0 is not the offline mask (a seed list
-  ``[seed, 0]`` would be: numpy pads the entropy with zeros). The bits
-  differ from ``jax.random``'s by design; ``mask_fn(volume, epoch) -> (W,)
-  bool`` replaces the draw (tests inject the JAX masks).
+  is drawn under the key ``key(_stable_seed(stem, cf, acc))``, the draw of
+  :func:`~mri_inr_tpu_torch.data.preprocessing.process_kspace_volume`, so
+  the tiles equal those of :class:`~mri_inr_tpu_torch.data.dataset.
+  MRIDataset` over the offline pipeline's slices, and on the card both come
+  from the same kernel;
+- **remasking** (``remask_each_epoch=True``): epoch ``e`` draws under
+  ``fold_in(key, e)``, epoch 0 included, so epoch 0 is not the offline
+  mask. Both draws are the JAX package's, bit for bit
+  (:mod:`mri_inr_tpu_torch.utils.jax_random`); ``mask_fn(volume, epoch) ->
+  (W,) bool`` replaces the draw.
 
 The fully sampled tiles are made once. The undersampled tiles of each mask
 epoch are written into one persistent device buffer, so every epoch hands
@@ -53,6 +51,7 @@ from mri_inr_tpu_torch.data.dataset import (SlicePair, epoch_index_batches, pref
                                             sampler_order)
 from mri_inr_tpu_torch.data.preprocessing import _stable_seed, get_mri_type, load_h5
 from mri_inr_tpu_torch.ops import fft_kernel, tiling
+from mri_inr_tpu_torch.utils import jax_random
 from mri_inr_tpu_torch.utils.device import resolve_device
 
 READ_THREADS = 8
@@ -176,11 +175,10 @@ class OnlineKspaceDataset:
             if self.mask_fn is not None:
                 rows.append(np.asarray(self.mask_fn(vi, e), bool))
                 continue
-            key = _stable_seed(stem, self.cf, self.acc)
+            key = jax_random.key(_stable_seed(stem, self.cf, self.acc))
             if self.remask:
-                key = np.random.SeedSequence(key, spawn_key=(e,))
-            rng = np.random.default_rng(key)
-            rows.append(kspace.random_mask(rng, w, self.cf, self.acc))
+                key = jax_random.fold_in(key, e)
+            rows.append(kspace.random_mask(key, w, self.cf, self.acc))
         return np.stack(rows)
 
     @torch.no_grad()

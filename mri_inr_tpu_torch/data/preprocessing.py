@@ -16,9 +16,10 @@ min-max runs on the device and each variant comes back in one copy. With
 :mod:`mri_inr_tpu_torch.data.kspace` (the kernel where the accelerator is,
 the library FFT elsewhere, as in the JAX package).
 
-Masks are drawn from ``numpy.random.default_rng(_stable_seed(stem, cf,
-acc))``: one mask per volume and variant, reproducible across processes, the
-distribution of :func:`mri_inr_tpu_torch.data.kspace.random_mask`.
+Masks are drawn under the ``jax.random`` key ``key(_stable_seed(stem, cf,
+acc))``: one mask per volume and variant, reproducible across processes and
+equal to the JAX package's (:func:`mri_inr_tpu_torch.data.kspace.
+random_mask`).
 
 ``h5py`` is imported by :func:`load_h5` only, so
 :func:`process_kspace_volume` runs where it is not installed.
@@ -36,6 +37,7 @@ import torch
 from mri_inr_tpu_torch.data import kspace
 from mri_inr_tpu_torch.data.dataset import undersample_column
 from mri_inr_tpu_torch.ops import fft_kernel
+from mri_inr_tpu_torch.utils import jax_random
 from mri_inr_tpu_torch.utils.device import resolve_device
 
 DEFAULT_MASKS = ((0.05, 6), (0.1, 6))
@@ -97,8 +99,8 @@ def process_kspace_volume(
         if masks is not None and (cf, acc) in masks:
             mask = np.array(masks[(cf, acc)], bool)
         else:
-            rng = np.random.default_rng(_stable_seed(stem, cf, acc))
-            mask = kspace.random_mask(rng, k.shape[-2], cf, acc)
+            key = jax_random.key(_stable_seed(stem, cf, acc))
+            mask = kspace.random_mask(key, k.shape[-2], cf, acc)
         variants[(cf, acc)] = kspace.normalize_scan(recon(kspace.apply_mask_ri(k, mask)))
 
     full_np = full.cpu().numpy()

@@ -103,6 +103,25 @@ def load_flax_params(model: nn.Module, params: Mapping) -> nn.Module:
     return model
 
 
+def flax_leaf(key: str, arr: np.ndarray) -> tuple[list[str], np.ndarray]:
+    """One ``state_dict`` entry -> (its path in the Flax tree, the array in
+    Flax layout, a view where only axes move)."""
+    path = re.sub(r"layers\.(\d+)", r"layer_\1", key).split(".")
+    if path[-1] == "weight" and arr.ndim == 1:  # a BatchNorm's
+        path[-1] = "scale"
+    elif path[-1] == "weight":
+        path[-1] = "kernel"
+        if arr.ndim == 2:
+            arr = arr.T
+        elif arr.ndim == 4 and _is_transposed(path):
+            arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
+        elif arr.ndim == 4:
+            arr = arr.transpose(2, 3, 1, 0)
+    elif path[-1] in ("running_mean", "running_var"):
+        path[-1] = path[-1][len("running_"):]
+    return path, arr
+
+
 def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     """``state_dict`` -> nested dict of f32 numpy arrays in Flax layout (the
     inverse of :func:`params_from_flax`). Every array is a copy: none shares
@@ -110,20 +129,7 @@ def params_to_flax(state_dict: Mapping[str, torch.Tensor]) -> dict:
     the module (an optimizer step) leaves the tree as it was."""
     out: dict = {}
     for key, value in state_dict.items():
-        path = re.sub(r"layers\.(\d+)", r"layer_\1", key).split(".")
-        arr = value.detach().cpu().float().numpy()
-        if path[-1] == "weight" and arr.ndim == 1:  # a BatchNorm's
-            path[-1] = "scale"
-        elif path[-1] == "weight":
-            path[-1] = "kernel"
-            if arr.ndim == 2:
-                arr = arr.T
-            elif arr.ndim == 4 and _is_transposed(path):
-                arr = arr.transpose(2, 3, 0, 1)[::-1, ::-1]
-            elif arr.ndim == 4:
-                arr = arr.transpose(2, 3, 1, 0)
-        elif path[-1] in ("running_mean", "running_var"):
-            path[-1] = path[-1][len("running_"):]
+        path, arr = flax_leaf(key, value.detach().cpu().float().numpy())
         node = out
         for part in path[:-1]:
             node = node.setdefault(part, {})

@@ -35,7 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from mri_inr_tpu_torch.models.siren import dense, lecun_normal_init, linear
+from mri_inr_tpu_torch.models.siren import LECUN_ZEROS, dense, lecun_normal_init, linear
 
 
 def leaky_relu(x: torch.Tensor) -> torch.Tensor:
@@ -48,6 +48,7 @@ def _conv(cin: int, cout: int, kernel: int, stride: int, padding: int,
     lecun_normal_init(conv.weight, cin * kernel * kernel, generator)
     if bias:
         nn.init.zeros_(conv.bias)
+    conv.flax_init = LECUN_ZEROS
     return conv
 
 
@@ -92,6 +93,7 @@ class ConvTranspose(nn.Module):
         self.weight = nn.Parameter(torch.empty(cin, cout, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(cout))
         lecun_normal_init(self.weight, cin * kernel * kernel, generator)
+        self.flax_init = LECUN_ZEROS
 
     def forward(self, x: torch.Tensor, dtype: torch.dtype = torch.float32) -> torch.Tensor:
         y = F.conv_transpose2d(x.to(dtype), self.weight.to(dtype), self.bias.to(dtype),

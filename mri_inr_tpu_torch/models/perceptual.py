@@ -38,6 +38,8 @@ class BatchNorm(nn.Module):
     """Flax ``nn.BatchNorm`` over every axis but the channel axis 1 (NCHW or
     (B, C))."""
 
+    flax_init = {"weight": ("ones",), "bias": ("zeros",)}
+
     def __init__(self, features: int, momentum: float = MOMENTUM, eps: float = EPSILON):
         super().__init__()
         self.momentum, self.eps = momentum, eps

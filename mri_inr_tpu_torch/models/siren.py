@@ -4,7 +4,10 @@
   ``sin(w0*x) * exp(-x**2/2)``; the sine is the degree-9 polynomial
   ``fast_sin`` unless ``exact_sine``.
 - SIREN init: weight and bias from ``U(-s, s)``, ``s = 1/dim_in`` for the
-  first layer else ``sqrt(c/dim_in)/w0``, drawn from a ``torch.Generator``.
+  first layer else ``sqrt(c/dim_in)/w0``, drawn from a ``torch.Generator``;
+  the entry points draw the JAX package's own values instead
+  (:func:`mri_inr_tpu_torch.models.flax_init.seeded`), from the
+  initializer each layer names in its ``flax_init``.
 - ``SirenNet``: hidden layers (first ``w0_initial``, rest ``w0``), dropout
   after every hidden activation (layer 0 included), FiLM modulation
   ``x *= mod[:, None, :]``, the residual variant, and an output layer that
@@ -30,6 +33,11 @@ from torch import nn
 from mri_inr_tpu_torch.ops.fast_math import fast_sin
 
 
+#: the Flax initializers of a Dense, Conv or ConvTranspose layer's
+#: parameters, in the order Flax creates them (``flax_init.init_params``)
+LECUN_ZEROS = {"weight": ("lecun_normal",), "bias": ("zeros",)}
+
+
 def siren_uniform_init(tensor: torch.Tensor, scale: float,
                        generator: torch.Generator | None = None) -> torch.Tensor:
     """In place: ``U(-scale, scale)``."""
@@ -53,6 +61,7 @@ def dense(dim_in: int, dim_out: int,
     layer = nn.Linear(dim_in, dim_out)
     lecun_normal_init(layer.weight, dim_in, generator)
     nn.init.zeros_(layer.bias)
+    layer.flax_init = LECUN_ZEROS
     return layer
 
 
@@ -91,7 +100,8 @@ class SirenLayer(nn.Module):
         #: drawing from the global stream; the trainer sets the fused path's
         #: counter-hash masks here
         self.dropout_mask_fn = None
-        scale = (1.0 / dim_in) if is_first else math.sqrt(c / dim_in) / w0
+        scale = (1.0 / dim_in) if is_first else (c / dim_in) ** 0.5 / w0
+        self.flax_init = {"weight": ("uniform", scale), "bias": ("uniform", scale)}
         self.weight = nn.Parameter(
             siren_uniform_init(torch.empty(features, dim_in), scale, generator))
         self.bias = (

@@ -20,11 +20,13 @@ In PyTorch's idiom:
 - parameters stay f32; with ``precision: bf16`` the encoder and modulator
   compute in bf16 (the model's ``compute_dtype``) and the chain multiplies
   bf16 inputs into f32 sums;
-- the per-step dropout seed is an integer in [0, 2^23) drawn by a numpy
-  generator keyed on (base seed, step), so a resumed run continues the same
-  stream; both paths draw their masks from the counter hash of that seed
+- the per-step dropout seed is the integer in [0, 2^23) the JAX package's
+  fused chain draws for that step, ``randint(fold_in(key(base seed),
+  step))`` (:func:`step_seed`), so a resumed run continues the same stream;
+  both paths draw their masks from the counter hash of that seed
   (``ops/siren_train_kernel.py:dropout_mask``), the module path through
-  ``SirenLayer.dropout_mask_fn``;
+  ``SirenLayer.dropout_mask_fn`` (where the JAX package's module path draws
+  Flax's ``bernoulli`` masks instead);
 - ``device_data`` keeps each dataset's tiles on the device and runs each
   epoch through :func:`make_scan_epoch`, the counterpart of the JAX
   package's one-dispatch ``lax.scan`` epoch: every batch is gathered on the
@@ -37,7 +39,8 @@ Data parallelism (the counterpart of the JAX package's ``shard_map`` step
 over a ``data`` mesh): given a process group, every rank takes its
 contiguous ``B / N`` rows of each global batch (``parallel/mesh.py``), runs
 the same forward and backward on them with its own dropout stream
-(:func:`step_seed` with the rank folded in) and averages loss and
+(:func:`step_seed` with the rank folded in, as the mesh step folds in the
+device's axis index) and averages loss and
 gradients over the ranks in one all-reduce of one flat buffer a step
 (``lax.pmean``) before the same optimizer step on every rank; the module
 path takes the same recipe (the JAX package keeps GSPMD there). Only the
@@ -68,6 +71,7 @@ from mri_inr_tpu_torch.ops import tiling
 from mri_inr_tpu_torch.ops.siren_kernel import make_apply_fn
 from mri_inr_tpu_torch.parallel import distributed, mesh
 from mri_inr_tpu_torch.train import checkpoint as ckpt_lib
+from mri_inr_tpu_torch.utils import jax_random
 from mri_inr_tpu_torch.utils import tensorboard as tb_lib
 from mri_inr_tpu_torch.utils import visualization
 from mri_inr_tpu_torch.utils.device import module_device, resolve_device
@@ -133,15 +137,32 @@ def _freeze_encoder_grads(model: nn.Module) -> None:
             p.grad.zero_()
 
 
-def step_seed(base_seed: int, step: int, rank: int = 0) -> int:
-    """The dropout seed of train step ``step``: an integer in [0, 2^23)
-    (exact in float32), a pure function of (base_seed, step, rank). Rank
-    ``r > 0`` of a data-parallel step folds its index in (the counterpart
-    of ``fold_in(rng, axis_index("data"))``); rank 0 draws the
-    single-process stream, as numpy would anyway: ``default_rng([b, s, 0])``
-    equals ``default_rng([b, s])``."""
-    key = [int(base_seed), int(step)] + ([int(rank)] if rank else [])
-    return int(np.random.default_rng(key).integers(0, 2**23))
+def epoch_seeds(base_seed: int, step0: int, num_batches: int,
+                rank: int | None = None) -> np.ndarray:
+    """The dropout seeds of train steps ``step0 .. step0 + num_batches - 1``
+    as the (num_batches,) float32 array an epoch's seed buffer holds (every
+    seed is below 2^23, so exact). Step ``s`` draws the JAX package's fused
+    seed ``randint(k, (1,), 0, 2**23)`` (``mri_inr_tpu/ops/
+    siren_train_kernel.py:678``) of ``k = fold_in(key(base_seed), s)``
+    (``mri_inr_tpu/train/trainer.py:171,208,328``), and where ``rank`` is
+    given of ``fold_in(k, rank)``: the mesh step's ``fold_in(dropout_rng,
+    axis_index("data"))`` (``:186-188``)."""
+    keys = jax_random.fold_in(jax_random.key(base_seed),
+                              np.arange(step0, step0 + num_batches))
+    if rank is not None:
+        keys = jax_random.fold_in(keys, rank)
+    return jax_random.randint(keys, (), 0, 2**23).astype(np.float32)
+
+
+def step_seed(base_seed: int, step: int, rank: int | None = None) -> int:
+    """The dropout seed of train step ``step`` (:func:`epoch_seeds`)."""
+    return int(epoch_seeds(base_seed, step, 1, rank)[0])
+
+
+#: steps whose seeds the per-step route draws at once: on the host, one
+#: step's seed drawn alone costs about as much as 256 drawn together
+#: (``scripts/torch_step_seed_ab.py``)
+SEED_BLOCK = 256
 
 
 def _mean_over_ranks(model, loss: torch.Tensor, group) -> torch.Tensor:
@@ -211,17 +232,33 @@ def make_train_step(model, loss_fn, outer: int, siren: int, *, use_pallas: bool 
     process ``group`` of N > 1 ranks (the counterpart of the JAX package's
     ``mesh=``) every rank passes the same global batch, steps on its
     :func:`~mri_inr_tpu_torch.parallel.mesh.local_rows` with its rank's
-    dropout seed, and returns the loss averaged over the ranks."""
+    dropout seed, and returns the loss averaged over the ranks.
+
+    The seeds are those of the JAX train CLI's per-step route, which always
+    steps under a mesh (``train_mod_siren.py``): its fused step folds the
+    device's axis index into every step's key, on one device too
+    (``mri_inr_tpu/train/trainer.py:186-188,201``), its module step does not
+    (``:208``). Over ranks every route folds the rank in."""
     rank, world = distributed.rank_world(group)
-    body = _make_step_body(model, loss_fn, outer, siren, fused=_fused(model, use_pallas),
+    fused = _fused(model, use_pallas)
+    seed_rank = rank if fused or world > 1 else None
+    body = _make_step_body(model, loss_fn, outer, siren, fused=fused,
                            sin5=sin5, freeze_encoder=freeze_encoder,
                            group=group if world > 1 else None)
+    block: dict = {}  # the seeds of the SEED_BLOCK steps around the last step
+
+    def seed_of(base_seed: int, s: int) -> int:
+        start = s - s % SEED_BLOCK
+        if block.get("key") != (base_seed, start):
+            block.update(key=(base_seed, start),
+                         seeds=epoch_seeds(base_seed, start, SEED_BLOCK, seed_rank))
+        return int(block["seeds"][s - start])
 
     def step(state: TrainState, fully: torch.Tensor, under: torch.Tensor,
              base_seed: int) -> torch.Tensor:
         if world > 1:
             fully, under = (mesh.local_rows(t, rank, world) for t in (fully, under))
-        loss = body(state, fully, under, step_seed(base_seed, state.step, rank))
+        loss = body(state, fully, under, seed_of(base_seed, state.step))
         state.step += 1
         return loss
 
@@ -259,14 +296,6 @@ def make_epoch_perm(n: int, batch_size: int, seed: int, shuffle: bool) -> np.nda
     from the epoch's start): shared by the host loop and the device-resident
     epoch."""
     return np.stack(epoch_index_batches(n, batch_size, seed, shuffle)).astype(np.int32)
-
-
-def epoch_seeds(base_seed: int, step0: int, num_batches: int, rank: int = 0) -> np.ndarray:
-    """The dropout seeds of train steps ``step0 .. step0 + num_batches - 1``
-    (:func:`step_seed`, of ``rank``) as the (num_batches,) float32 array an
-    epoch's seed buffer holds (every seed is below 2^23, so exact)."""
-    return np.array([step_seed(base_seed, s, rank) for s in range(step0, step0 + num_batches)],
-                    np.float32)
 
 
 def _launch_counters() -> tuple:
@@ -447,8 +476,10 @@ class ScanEpoch:
         t0 = time.perf_counter()
         device = fully_all.device
         nb = perm.shape[0]
-        seeds = (epoch_seeds(base_seed, state.step, nb, self.rank) if train
-                 else np.zeros(nb, np.float32))
+        # one process: the JAX scan epoch's seeds (its trainer.py:328); over
+        # ranks the mesh step's, which the JAX package runs there instead
+        seeds = (epoch_seeds(base_seed, state.step, nb, self.rank if self.world > 1 else None)
+                 if train else np.zeros(nb, np.float32))
         if self.world > 1:  # this rank's rows of every global batch
             perm = np.ascontiguousarray(mesh.local_rows(perm.T, self.rank, self.world).T)
         key = (fully_all.data_ptr(), under_all.data_ptr(), tuple(fully_all.shape),

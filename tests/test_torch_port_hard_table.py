@@ -5,7 +5,8 @@ phantom slices, 2 / 1 / 1 volumes x 2 slices.
 
 - The hard splits the runner builds (complex phase, SNR 32 dB noise,
   texture 0.18) equal the JAX package's ``process_volume`` on its own hard
-  k-space, the JAX masks injected, within 2e-5 (the preprocessing bar).
+  k-space, each drawing the same masks, within 2e-5 (the preprocessing
+  bar).
 - A hard call into a smooth root raises before any file changes, and the
   reverse; a matching call proceeds; an older root without
   ``protocol.json`` is taken as the smooth protocol with the counts its
@@ -29,13 +30,11 @@ import argparse
 import json
 import pathlib
 
-import jax
 import numpy as np
 import pytest
 import torch
 import yaml
 
-from mri_inr_tpu.data import kspace as jk
 from mri_inr_tpu.data import preprocessing as jpre
 from mri_inr_tpu.data import synthetic as jsyn
 from mri_inr_tpu_torch.cli import hard_table as ht
@@ -66,16 +65,12 @@ def _files(root):
 
 
 # ------------------------------------------------------------ the hard splits
-def test_hard_splits_match_jax_preprocessing(tmp_path, monkeypatch):
+def test_hard_splits_match_jax_preprocessing(tmp_path):
     """Each split the runner builds holds the JAX package's preprocessing of
     its hard phantom volumes (seeds 0 / 1000 / 2000, the corpus flags of
-    ``scripts/r5_hard_table.sh``), the JAX masks injected."""
+    ``scripts/r5_hard_table.sh``), each package drawing its own masks (the
+    same ``jax.random`` draws)."""
     masks = tpre.DEFAULT_MASKS
-    jax_masks = lambda stem: {(cf, acc): np.asarray(jk.random_mask(
-        jax.random.key(jpre._stable_seed(stem, cf, acc)), 64, cf, acc)) for cf, acc in masks}
-    build = tpre.process_kspace_volume
-    monkeypatch.setattr(tpre, "process_kspace_volume", lambda k, stem, out, *a, **kw: build(
-        k, stem, out, *a, **{**kw, "masks": jax_masks(stem)}))
     args = ht.parse_args(["--root", str(tmp_path / "hard"), *SCALE])
     meta = rr.Protocol(args, tmp_path / "hard", torch.device("cpu")).splits("processed")
     counts = {"train": 2, "val": 1, "eval": 1}
@@ -105,15 +100,11 @@ def qr_args(root):
     return ap.parse_args(["--root", str(root), *SCALE, *MODEL])
 
 
-def test_zero_filled_reading_matches_the_jax_pipeline(tmp_path, monkeypatch):
+def test_zero_filled_reading_matches_the_jax_pipeline(tmp_path):
     """The eval split's zero-filled PSNR, read through the port's split and
     metrics, equals the JAX package's preprocessing of the same volumes with
-    the same masks, each slice's PSNR from the port's metric."""
-    jax_mask = lambda stem, cf, acc: np.asarray(jk.random_mask(
-        jax.random.key(jpre._stable_seed(stem, cf, acc)), 64, cf, acc))
-    build = tpre.process_kspace_volume
-    monkeypatch.setattr(tpre, "process_kspace_volume", lambda k, stem, out, **kw: build(
-        k, stem, out, **kw, masks={m: jax_mask(stem, *m) for m in kw["undersample_params"]}))
+    the same masks (each package's own draw), each slice's PSNR from the
+    port's metric."""
     args = ht.parse_args(["--root", str(tmp_path / "hard"), *SCALE])
     rr.Protocol(args, tmp_path / "hard", torch.device("cpu")).splits("processed")
     got = ht.zero_filled_readings(tmp_path / "hard", args, torch.device("cpu"))
@@ -164,11 +155,13 @@ def test_smooth_call_into_a_hard_root_raises(tmp_path):
         ht.main(["--root", str(hard), "--rows", "", *TINY[:-len(MODEL)], "--size", "32"])
 
 
-def test_a_root_without_protocol_json_is_the_smooth_protocol_it_records(tmp_path):
+def test_a_root_without_protocol_json_is_the_smooth_protocol_it_records(tmp_path,
+                                                                        monkeypatch):
     """An older root (splits and ``run_info.json``, no ``protocol.json``):
-    the smooth corpus with the counts ``run_info.json`` records; a matching
-    call writes its ``protocol.json`` and rebuilds nothing, a hard one
-    raises."""
+    the smooth corpus with the counts ``run_info.json`` records, drawn by
+    the earlier numpy and torch draws; a hard call raises, and so does a
+    call of the JAX package's draws; a call of the earlier draws matches,
+    writes its ``protocol.json`` and rebuilds nothing."""
     root = tmp_path / "legacy"
     qr.make_splits(root, qr_args(root), torch.device("cpu"))
     (root / "run_info.json").write_text(json.dumps({
@@ -178,6 +171,15 @@ def test_a_root_without_protocol_json_is_the_smooth_protocol_it_records(tmp_path
     with pytest.raises(ValueError, match="this call asks for"):
         ht.main(["--root", str(root), "--rows", "", *TINY])
     assert _files(root) == before
+    with pytest.raises(ValueError, match='"draws": "jax"'):
+        qr.guard_protocol(root, qr_args(root))
+    assert _files(root) == before
+    with pytest.raises(ValueError, match='"draws": "torch"'):
+        rr.main(["--root", str(root), "--rows", "edge", "--epochs", "2", *SCALE, *MODEL])
+    rr.main(["--root", str(root), "--rows", "", "--epochs", "2", *SCALE, *MODEL])  # builds nothing
+    assert _files(root) == before
+    assert qr._legacy_protocol(root) == {**qr.protocol_of(qr_args(root)), "draws": "torch"}
+    monkeypatch.setattr(qr, "DRAWS", "torch")
     assert qr.guard_protocol(root, qr_args(root)) == qr.protocol_of(qr_args(root))
     assert json.loads((root / "protocol.json").read_text()) == qr.protocol_of(qr_args(root))
     assert {p: t for p, t in _files(root).items() if p.name != "protocol.json"} == before
@@ -187,13 +189,13 @@ def test_a_root_without_protocol_json_is_the_smooth_protocol_it_records(tmp_path
 def test_committed_smooth_roots_hold_the_default_protocol(root):
     """The committed roots of the smooth protocol: their ``protocol.json``,
     or for a root built before it, what the guard takes them to hold, is
-    the default smooth protocol."""
-    root = REPO / root
-    path = root / "protocol.json"
-    have = json.loads(path.read_text()) if path.is_file() else qr._legacy_protocol(root)
-    assert have == qr.default_protocol()
+    the default smooth protocol of the earlier numpy and torch draws."""
+    have = qr.root_protocol(REPO / root)
+    assert have == {**qr.default_protocol(), "draws": "torch"}
     assert have == {"phase": False, "snr_db": None, "texture": 0.0, "size": 256, "slices": 4,
-                    "train_files": 24, "val_files": 4, "eval_files": 12, "ae_epochs": 30}
+                    "train_files": 24, "val_files": 4, "eval_files": 12, "ae_epochs": 30,
+                    "draws": "torch"}
+    assert qr.default_protocol()["draws"] == "jax"
 
 
 # ------------------------------------------------------------- the JAX rows

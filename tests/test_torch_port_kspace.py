@@ -4,9 +4,10 @@ against the JAX package's on the same seeded numpy inputs.
 Tolerances: the FFTs are float32 library transforms in both frameworks with
 different butterflies, 2e-5 * max(|ref|, 1) (the JAX package's own bar for
 its DFT kernel against its FFT); masking and min-max are one multiply or one
-subtract-and-divide, 1e-6. The mask draw cannot reproduce ``jax.random``'s
-bits, so it is held to the layout (``num_low``, the centre band's start) and
-to the expected retained fraction, with the JAX test's bar (0.01 over 200
+subtract-and-divide, 1e-6. The mask draw is ``jax.random``'s under the same
+key, so masks are held equal, bit for bit: for 200 stems and every (cf,
+acc) pair the protocol preprocesses, at the protocol's width and fastMRI's;
+the expected retained fraction keeps the JAX test's bar (0.01 over 200
 draws).
 """
 
@@ -17,7 +18,10 @@ import pytest
 import torch
 
 from mri_inr_tpu.data import kspace as jk
+from mri_inr_tpu.data import preprocessing as jpre
 from mri_inr_tpu_torch.data import kspace as tk
+from mri_inr_tpu_torch.data import preprocessing as tpre
+from mri_inr_tpu_torch.utils import jax_random as jr
 
 torch.set_num_threads(1)
 
@@ -85,7 +89,7 @@ def test_masking_and_normalisation_match():
                                          (33, 0.05, 4), (368, 0.04, 8)])
 def test_random_mask_layout_matches(cols, cf, acc):
     """The centre band (``num_low`` columns from the JAX package's start) is
-    always kept, by both; outside it the two draws differ."""
+    always kept, by both, and under one key both draw the same mask."""
     assert tk.num_low_frequencies(cols, cf) == jk.num_low_frequencies(cols, cf)
     num_low = jk.num_low_frequencies(cols, cf)
     start = (cols - num_low + 1) // 2
@@ -94,29 +98,54 @@ def test_random_mask_layout_matches(cols, cf, acc):
     # an acceleration so high that nothing outside the band survives shows
     # the band itself: both frameworks give exactly it
     want = np.asarray(jk.random_mask(jax.random.key(0), cols, cf, 1e9))
-    got = tk.random_mask(np.random.default_rng(0), cols, cf, 1e9)
+    got = tk.random_mask(jr.key(0), cols, cf, 1e9)
     np.testing.assert_array_equal(want, centre)
     np.testing.assert_array_equal(got, centre)
     for seed in range(3):
-        mask = tk.random_mask(np.random.default_rng(seed), cols, cf, acc)
+        mask = tk.random_mask(jr.key(seed), cols, cf, acc)
         assert mask.dtype == bool and mask.shape == (cols,)
         assert mask[centre].all()
+        np.testing.assert_array_equal(
+            mask, np.asarray(jk.random_mask(jax.random.key(seed), cols, cf, acc)))
+
+
+#: every (cf, acc) pair the protocol preprocesses (``configs/*.yaml``,
+#: ``preprocessing.DEFAULT_MASKS``, ``results_run.ACC_MASKS``)
+PROTOCOL_MASKS = ((0.05, 6), (0.05, 8), (0.1, 6), (0.2, 4))
+
+
+@pytest.mark.parametrize("cols", [256, 320])
+@pytest.mark.parametrize("cf,acc", PROTOCOL_MASKS)
+def test_stem_masks_equal_the_jax_packages(cols, cf, acc):
+    """200 stems: the mask under ``key(_stable_seed(stem, cf, acc))`` (the
+    offline pipeline's and the online set's without remasking) equals the
+    JAX package's, bit for bit."""
+    stems = [f"file_brain_AXFLAIR_{i:06d}" for i in range(200)]
+    draw = jax.jit(jax.vmap(lambda k: jk.random_mask(k, cols, cf, acc)))
+    want = np.asarray(draw(jax.vmap(jax.random.key)(jnp.asarray(
+        [jpre._stable_seed(s, cf, acc) for s in stems], jnp.uint32))))
+    got = np.stack([tk.random_mask(jr.key(tpre._stable_seed(s, cf, acc)), cols, cf, acc)
+                    for s in stems])
+    np.testing.assert_array_equal(got, want)
+    assert 0 < got.mean() < 1
 
 
 @pytest.mark.parametrize("cols,cf,acc", [(320, 0.05, 6), (320, 0.08, 4)])
 def test_random_mask_expected_fraction(cols, cf, acc):
-    rng = np.random.default_rng(1)
-    fracs = [tk.random_mask(rng, cols, cf, acc).mean() for _ in range(200)]
+    fracs = [tk.random_mask(jr.fold_in(jr.key(1), i), cols, cf, acc).mean()
+             for i in range(200)]
     assert abs(np.mean(fracs) - 1 / acc) < 0.01
 
 
 def test_undersample_volume_is_reproducible():
     k = torch.from_numpy(_kspace((2, 16, 40), seed=7))
-    a, mask_a = tk.undersample_volume(k, np.random.default_rng(3), 0.1, 4)
-    b, mask_b = tk.undersample_volume(k, np.random.default_rng(3), 0.1, 4)
+    a, mask_a = tk.undersample_volume(k, jr.key(3), 0.1, 4)
+    b, mask_b = tk.undersample_volume(k, jr.key(3), 0.1, 4)
     assert torch.equal(a, b) and (mask_a == mask_b).all()
     assert (a[..., ~mask_a] == 0).all()
     ri = torch.from_numpy(tk.to_ri(k.numpy()))
-    c, mask_c = tk.undersample_volume_ri(ri, np.random.default_rng(3), 0.1, 4)
+    c, mask_c = tk.undersample_volume_ri(ri, jr.key(3), 0.1, 4)
     assert (mask_c == mask_a).all()
     np.testing.assert_array_equal(torch.view_as_complex(c).numpy(), a.numpy())
+    _, want = jk.undersample_volume(jnp.asarray(k.numpy()), jax.random.key(3), 0.1, 4)
+    np.testing.assert_array_equal(mask_a, np.asarray(want))

@@ -4,11 +4,12 @@ kernel) against the JAX package's ``mri_inr_tpu/data/online.py`` and the
 port's own offline pipeline, on three 3-slice 64 x 48 phantom ``.h5``
 volumes.
 
-- With the JAX package's masks injected (``mask_fn``; the port's own draw
-  is numpy's, the same distribution, not the same bits) the tiles equal
-  JAX's ``materialize`` within 2e-5 (``torch.fft`` against ``jnp.fft``, the
+- The port draws the JAX package's masks (``jax.random`` under the same
+  keys, remask epochs 0-3 bit for bit), and its tiles equal JAX's
+  ``materialize`` within 2e-5 (``torch.fft`` against ``jnp.fft``, the
   preprocessing bar; measured 3.6e-7), remask on and off, and on the hard
-  corpus's complex, noisy, textured k-space with remasking.
+  corpus's complex, noisy, textured k-space with remasking. ``mask_fn``
+  replaces the draw.
 - Remask off, the online tiles and slices equal the port's offline pipeline
   (``process_files`` -> ``MRIDataset`` / ``MRISampler``) within 2e-6
   (measured 0: the same masks, reconstruction and normalisation), also
@@ -96,10 +97,12 @@ def hard_h5_root(tmp_path_factory):
 def test_tiles_match_jax_with_its_masks(request, remask, corpus):
     h5_root = request.getfixturevalue(corpus)
     jds = JaxOnline(h5_root, remask_each_epoch=remask)
-    probe = _online(h5_root)
-    tds = _online(h5_root, remask_each_epoch=remask,
-                  mask_fn=jax_masks(probe.stems, 48, remask))
+    tds = _online(h5_root, remask_each_epoch=remask)
     assert tds.stems == jds.stems and tds.slice_ids == jds.slice_ids and len(tds) == len(jds)
+    want = jax_masks(tds.stems, 48, remask)
+    for epoch in range(4):
+        for v in range(len(tds.stems)):
+            np.testing.assert_array_equal(tds.masks(epoch)[v], want(v, epoch))
     for epoch in (0, 1, 2):
         jf, ju = jds.materialize(epoch)
         tf, tu = tds.materialize(epoch)
@@ -157,20 +160,24 @@ def test_remask_epochs_are_deterministic_and_not_the_offline_masks(h5_root):
 
 
 def test_masks_are_the_preprocessing_draws(h5_root):
-    """Remask off: one mask per volume from default_rng(_stable_seed(stem,
-    cf, acc)), the draw of process_kspace_volume; remask on: the epoch's
-    child of that seed (SeedSequence spawn_key)."""
+    """Remask off: one mask per volume under ``key(_stable_seed(stem, cf,
+    acc))``, the draw of process_kspace_volume; remask on: under
+    ``fold_in(key, epoch)``; ``mask_fn`` replaces both."""
     from mri_inr_tpu_torch.data import kspace
+    from mri_inr_tpu_torch.utils import jax_random as jr
 
     fixed = _online(h5_root, remask_each_epoch=False)
     remask = _online(h5_root, remask_each_epoch=True)
     for v, stem in enumerate(fixed.stems):
-        key = tpre._stable_seed(stem, 0.05, 6)
-        want = kspace.random_mask(np.random.default_rng(key), 48, 0.05, 6)
+        key = jr.key(tpre._stable_seed(stem, 0.05, 6))
+        want = kspace.random_mask(key, 48, 0.05, 6)
         assert np.array_equal(fixed.masks(4)[v], want)
-        child = np.random.SeedSequence(key, spawn_key=(4,))
-        want = kspace.random_mask(np.random.default_rng(child), 48, 0.05, 6)
+        want = kspace.random_mask(jr.fold_in(key, 4), 48, 0.05, 6)
         assert np.array_equal(remask.masks(4)[v], want)
+    full = _online(h5_root, remask_each_epoch=True, mask_fn=lambda v, e: np.ones(48, bool))
+    assert full.masks(2).all()
+    np.testing.assert_array_equal(full.materialize(2)[1].numpy(),
+                                  full.materialize(2)[0].numpy())
 
 
 def test_batches_and_get_slice(h5_root):
@@ -331,10 +338,17 @@ def test_trainer_scan_epoch_with_online(h5_root, tmp_path):
 
 
 @pytest.mark.parametrize("use_pallas", [True, False], ids=["fused", "module"])
-def test_online_scan_epochs_equal_the_host_loop(h5_root, tmp_path, use_pallas):
+def test_online_scan_epochs_equal_the_host_loop(h5_root, tmp_path, use_pallas, monkeypatch):
     """Remask training with ``device_data`` (the materialised tiles, the
     epoch's plain loop) and without (host batches of the same tiles): the
-    same losses and parameters, bit for bit."""
+    same losses and parameters, bit for bit. The fused host step draws the
+    JAX mesh step's seeds (the axis index folded in), the epoch the scan
+    epoch's, as the JAX package's two routes do; here the host step draws
+    the epoch's, so the rest of the two routes is compared."""
+    scan_seeds = ttrainer.epoch_seeds
+    monkeypatch.setattr(ttrainer, "epoch_seeds",
+                        lambda base, step0, n, rank=None: scan_seeds(base, step0, n))
+
     def run(device_data):
         train = _online(h5_root, remask_each_epoch=True)
         val = _online(h5_root, remask_each_epoch=False, num_samples=2)

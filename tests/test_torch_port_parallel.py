@@ -162,14 +162,14 @@ def test_sharded_step_with_dropout_is_the_mean_of_the_ranks_local_steps(steps, c
     want, loss = ranks.emulate_step(case, "cpu", 2)
     np.testing.assert_allclose(steps[0][f"{case}_params"], want, rtol=0, atol=1e-6)
     np.testing.assert_allclose(steps[0][f"{case}_loss"][0], loss, rtol=1e-6)
-    # the two ranks' streams differ; rank 0's is the single-process stream
-    # (numpy's default_rng([b, s, 0]) equals default_rng([b, s]) besides)
-    assert trainer.step_seed(ranks.BASE_SEED, 0, 1) != trainer.step_seed(ranks.BASE_SEED, 0)
-    assert trainer.step_seed(ranks.BASE_SEED, 3, 0) == trainer.step_seed(ranks.BASE_SEED, 3)
-    assert (np.random.default_rng([ranks.BASE_SEED, 3, 0]).integers(0, 2**23)
-            == trainer.step_seed(ranks.BASE_SEED, 3))
-    np.testing.assert_array_equal(trainer.epoch_seeds(ranks.BASE_SEED, 0, 4, 1),
-                                  [trainer.step_seed(ranks.BASE_SEED, s, 1) for s in range(4)])
+    # the two ranks' streams differ: each is the JAX mesh step's stream of
+    # its axis index, randint(fold_in(fold_in(key(b), s), rank))
+    assert trainer.step_seed(ranks.BASE_SEED, 0, 1) != trainer.step_seed(ranks.BASE_SEED, 0, 0)
+    for r in (0, 1):
+        want = [int(jax.random.randint(jax.random.fold_in(jax.random.fold_in(
+            jax.random.key(ranks.BASE_SEED), s), r), (1,), 0, 2**23)[0]) for s in range(4)]
+        np.testing.assert_array_equal(trainer.epoch_seeds(ranks.BASE_SEED, 0, 4, r), want)
+        assert [trainer.step_seed(ranks.BASE_SEED, s, r) for s in range(4)] == want
 
 
 def test_sharded_step_matches_the_jax_mesh_step(steps):

@@ -1,9 +1,12 @@
 """Both CLIs over ranks on the CPU: 2 gloo ranks started as processes
 (``tests/torch_port_ranks.py``: a rendezvous on a free local port, a hard
 timeout a launch; and ``torchrun``) against the port's
-one-process runs. The train CLI's per-epoch losses within 1e-5 relative
-(fp32; dropout off), one run directory written by rank 0 alone, the
-checkpoint restored on both ranks, TensorBoard scalars of every epoch; the
+one-process runs. The train CLI's per-epoch losses within 1e-5 relative of
+one process stepping on the ranks' halves of every batch (fp32; dropout
+off) and within WHOLE_BATCH_BAR of one process on the whole batch, a bar
+that a planted fault (every rank on rank 0's rows) exceeds; one run
+directory written by rank 0 alone, the checkpoint restored on both ranks,
+TensorBoard scalars of every epoch; the
 test CLI's gathered rows exactly equal to the ``--shard`` /
 ``--merge-shards`` file and to the one-process rows.
 """
@@ -24,6 +27,7 @@ from mri_inr_tpu.data.preprocessing import process_files
 from mri_inr_tpu_torch.cli import test as cli_test
 from mri_inr_tpu_torch.cli import train as cli_train
 from mri_inr_tpu_torch.parallel import distributed
+from mri_inr_tpu_torch.train import trainer as ttrainer
 from mri_inr_tpu_torch.utils import tensorboard
 
 # the test workers share the cores: one torch thread each (the ranks get
@@ -33,6 +37,12 @@ torch.set_num_threads(1)
 
 MODEL_SETS = ["--set", "model.dim_hidden=32", "--set", "model.latent_dim=32",
               "--set", "model.num_layers=2"]
+# the ranks' arithmetic (their two halves of every batch, summed in rank
+# order) against one process on the whole batch, per-epoch losses relative
+# over three epochs of Adam in fp32: measured 1.221e-5 at most for both
+# values of training.device_data, and 5.2e-3 to 4.8e-2 an epoch where every
+# rank steps on rank 0's rows (test_the_whole_batch_bar_sees_half_a_batch)
+WHOLE_BATCH_BAR = 5e-5
 
 
 @pytest.fixture(scope="module")
@@ -59,16 +69,23 @@ def _progress(run_dir):
 
 
 @pytest.mark.parametrize("device_data", ["false", "true"])
-def test_train_cli_over_two_ranks_matches_one_process(corpus, tmp_path, device_data):
+def test_train_cli_over_two_ranks_matches_one_process(corpus, tmp_path, device_data,
+                                                      monkeypatch):
     """Two ranks of the train CLI (dropout off, data_axis_size 2): one run
     directory, written by rank 0 alone (rank 1 is pointed at a directory it
     must never create); two epochs and a resumed third whose losses equal a
-    one-process run's (1e-5 relative); the checkpoint restored on both
+    one-process run's that steps on the ranks' two halves of every batch
+    (``torch_port_ranks.halves_step_body``: the ranks' arithmetic, 1e-5
+    relative; measured 0 for the train losses, 8.4e-8 at most for the
+    validation losses) and lie within WHOLE_BATCH_BAR relative of a
+    one-process run on the whole batch (the summation order alone,
+    amplified by Adam over three epochs); the checkpoint restored on both
     ranks; TensorBoard scalars of every epoch. In fp32: under bf16 compute
-    the encoder's and the modulator's weight gradients are rounded to bf16
-    on each rank before the all-reduce, so a sum of two halves' rounded
-    gradients parts from the rounded gradient of the whole batch (2e-5 to
-    8e-5 of the loss after three epochs here)."""
+    the encoder's and the
+    modulator's weight gradients are rounded to bf16 on each rank before the
+    all-reduce, so a sum of two halves' rounded gradients parts from the
+    rounded gradient of the whole batch (2e-5 to 8e-5 of the loss after
+    three epochs here)."""
     sets = ("model.dropout=0.0", "training.precision=fp32",
             f"training.device_data={device_data}", "training.data_axis_size=2",
             "training.logging=true")
@@ -84,17 +101,42 @@ def test_train_cli_over_two_ranks_matches_one_process(corpus, tmp_path, device_d
     (run_dir,) = (tmp_path / "dp").iterdir()
     assert all("restored step" in o and "continuing at epoch 2" in o for o in outs), outs
     assert "data-parallel over 2 ranks" in outs[0]
-    single = cli_train.main(_train_argv(corpus, tmp_path / "single", "training.epochs=3",
-                                        "model.dropout=0.0", "training.precision=fp32"))
-    got, want = _progress(run_dir), [(r["epoch"], r["train_loss"], r["val_loss"])
-                                     for r in single._progress]
+    one = ("model.dropout=0.0", "training.precision=fp32", f"training.device_data={device_data}")
+    single = cli_train.main(_train_argv(corpus, tmp_path / "single", "training.epochs=3", *one))
+    monkeypatch.setattr(ttrainer, "_make_step_body", ranks.halves_step_body(2))
+    halves = cli_train.main(_train_argv(corpus, tmp_path / "halves", "training.epochs=3", *one))
+    got = _progress(run_dir)
     assert [g[0] for g in got] == [2]  # the resumed run's log
-    np.testing.assert_allclose([g[1:] for g in got], [w[1:] for w in want[2:]], rtol=1e-5)
-    assert (run_dir / "checkpoints" / f"step_{single.state.step:08d}" / "state.pt").is_file()
     scalars = tensorboard.read_scalars(run_dir / "tensorboard")
     assert [s for s, _ in scalars["training_loss"]] == [0, 1, 2]
-    np.testing.assert_allclose([v for _, v in scalars["validation_loss"]],
-                               [w[2] for w in want], rtol=1e-5)
+    for ref, bar in ((halves, 1e-5), (single, WHOLE_BATCH_BAR)):
+        want = [(r["epoch"], r["train_loss"], r["val_loss"]) for r in ref._progress]
+        np.testing.assert_allclose([g[1:] for g in got], [w[1:] for w in want[2:]], rtol=bar)
+        np.testing.assert_allclose([v for _, v in scalars["validation_loss"]],
+                                   [w[2] for w in want], rtol=bar)
+    assert (run_dir / "checkpoints" / f"step_{single.state.step:08d}" / "state.pt").is_file()
+
+
+@pytest.mark.parametrize("device_data", ["false", "true"])
+def test_the_whole_batch_bar_sees_half_a_batch(corpus, tmp_path, device_data, monkeypatch):
+    """The planted fault that the ranks could share with their witness
+    (``halves_step_body``, whose rows both come from ``mesh.local_rows``):
+    every rank stepping on rank 0's rows, so half of every batch is left out
+    (as where each rank steps on its own gradients, unreduced). Against one
+    process on the whole batch it lies outside WHOLE_BATCH_BAR at every
+    epoch, the ranks' true halves inside it."""
+    one = ("model.dropout=0.0", "training.precision=fp32", f"training.device_data={device_data}",
+           "training.epochs=3")
+    single = cli_train.main(_train_argv(corpus, tmp_path / "single", *one))
+    runs = {}
+    for name, rows_of in (("halves", None), ("fault", lambda r: 0)):
+        monkeypatch.setattr(ttrainer, "_make_step_body", ranks.halves_step_body(2, rows_of))
+        runs[name] = cli_train.main(_train_argv(corpus, tmp_path / name, *one))
+    gap = {name: [max(abs(a[k] - b[k]) / abs(b[k]) for k in ("train_loss", "val_loss"))
+                  for a, b in zip(run._progress, single._progress)]
+           for name, run in runs.items()}
+    assert len(gap["fault"]) == 3 and min(gap["fault"]) > WHOLE_BATCH_BAR, gap
+    assert max(gap["halves"]) <= WHOLE_BATCH_BAR, gap
 
 
 def test_torchrun_starts_the_ranks(corpus, tmp_path):

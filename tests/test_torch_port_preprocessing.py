@@ -4,11 +4,11 @@ native tile helpers against the JAX package's.
 
 - synthetic: numpy only on both sides, the same seeds: equal arrays.
 - preprocessing: the same ``.h5`` files through both ``process_files``; the
-  port on the CPU (``torch.fft``) with the JAX package's masks injected
-  (``jax.random`` bits cannot be redrawn): the same header and rows, every
-  ``.npy`` within 2e-5 (two float32 FFT libraries, then a min-max to [0, 1]).
-- without injection the port's run repeats itself bit for bit and its masks
-  keep the centre band.
+  port on the CPU (``torch.fft``), each package drawing its own masks (the
+  same ``jax.random`` draws): the same header and rows, every ``.npy``
+  within 2e-5 (two float32 FFT libraries, then a min-max to [0, 1]).
+- the port's run repeats itself bit for bit and its masks keep the centre
+  band.
 - native: the C++ functions exact-equal to the numpy ones.
 """
 
@@ -16,12 +16,10 @@ import csv
 import pathlib
 
 import h5py
-import jax
 import numpy as np
 import pytest
 import torch
 
-from mri_inr_tpu.data import kspace as jk
 from mri_inr_tpu.data import preprocessing as jpre
 from mri_inr_tpu.data import synthetic as jsyn
 from mri_inr_tpu_torch import native
@@ -29,6 +27,7 @@ from mri_inr_tpu_torch.cli import preprocess as cli_preprocess
 from mri_inr_tpu_torch.data import kspace as tk
 from mri_inr_tpu_torch.data import preprocessing as tpre
 from mri_inr_tpu_torch.data import synthetic as tsyn
+from mri_inr_tpu_torch.utils import jax_random as jr
 
 torch.set_num_threads(1)
 
@@ -84,13 +83,6 @@ def h5_dir(tmp_path_factory):
     return d
 
 
-def _jax_masks(h5_dir, width):
-    """The masks the JAX package draws for each volume and variant."""
-    return {p.stem: {(cf, acc): np.asarray(jk.random_mask(
-        jax.random.key(jpre._stable_seed(p.stem, cf, acc)), width, cf, acc))
-        for cf, acc in MASKS} for p in sorted(h5_dir.glob("*.h5"))}
-
-
 def _rows(meta):
     with open(meta, newline="") as f:
         reader = csv.DictReader(f)
@@ -98,9 +90,10 @@ def _rows(meta):
 
 
 def test_process_files_matches_jax(h5_dir, tmp_path):
+    """Each package draws its own masks (no mask injected): the same
+    ``jax.random`` draws, so the files agree to the FFTs' bar."""
     want_meta = jpre.process_files(h5_dir, tmp_path / "jax", MASKS)
-    got_meta = tpre.process_files(h5_dir, tmp_path / "port", MASKS, device="cpu",
-                                  masks=_jax_masks(h5_dir, 48))
+    got_meta = tpre.process_files(h5_dir, tmp_path / "port", MASKS, device="cpu")
     assert got_meta == tmp_path / "port" / "metadata.csv"
     (got_head, got_rows), (want_head, want_rows) = _rows(got_meta), _rows(want_meta)
     assert got_head == want_head
@@ -130,8 +123,7 @@ def test_process_files_repeats_itself_and_keeps_the_centre(h5_dir, tmp_path):
     stem = sorted(h5_dir.glob("*.h5"))[0].stem
     k = torch.from_numpy(tk.to_ri(tpre.load_h5(h5_dir / f"{stem}.h5")))
     for cf, acc in MASKS:
-        mask = tk.random_mask(np.random.default_rng(tpre._stable_seed(stem, cf, acc)),
-                              48, cf, acc)
+        mask = tk.random_mask(jr.key(tpre._stable_seed(stem, cf, acc)), 48, cf, acc)
         low = tk.num_low_frequencies(48, cf)
         start = (48 - low + 1) // 2
         assert mask[start : start + low].all() and not mask.all()

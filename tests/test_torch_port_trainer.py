@@ -148,12 +148,62 @@ def test_the_card_tests_adam_reference_is_optax():
                                atol=1e-7)
 
 
-def test_step_seed_is_a_pure_function_in_range():
-    seeds = [ttrainer.step_seed(1, s) for s in range(200)]
-    assert seeds == [ttrainer.step_seed(1, s) for s in range(200)]
+def _jax_seeds(base, steps, rank=None):
+    """The JAX package's fused dropout seeds: ``randint(fold_in(key(base),
+    step), (1,), 0, 2**23)``, the mesh step's with ``fold_in(., rank)``."""
+    def one(step):
+        key = jax.random.fold_in(jax.random.key(base), step)
+        if rank is not None:
+            key = jax.random.fold_in(key, rank)
+        return jax.random.randint(key, (1,), 0, 2**23)[0]
+    return np.asarray(jax.jit(jax.vmap(one))(jnp.asarray(steps)))
+
+
+@pytest.mark.parametrize("rank", [None, 0, 1], ids=["scan", "rank0", "rank1"])
+def test_step_seed_is_a_pure_function_in_range(rank):
+    """Steps 0-2,000 of each route equal the JAX package's draws (the scan
+    epoch's without a rank, the mesh step's of ranks 0 and 1)."""
+    steps = np.arange(2001)
+    seeds = [ttrainer.step_seed(1, s, rank) for s in range(200)]
+    assert seeds == [ttrainer.step_seed(1, s, rank) for s in range(200)]
     assert all(0 <= s < 2**23 for s in seeds)
     assert len(set(seeds)) > 190
-    assert ttrainer.step_seed(2, 0) != ttrainer.step_seed(1, 0)
+    assert ttrainer.step_seed(2, 0, rank) != ttrainer.step_seed(1, 0, rank)
+    for base in (1, 31416):
+        got = ttrainer.epoch_seeds(base, 0, len(steps), rank)
+        np.testing.assert_array_equal(got, _jax_seeds(base, steps, rank).astype(np.float32))
+        assert [ttrainer.step_seed(base, s, rank) for s in (0, 7, 2000)] == list(got[[0, 7, 2000]])
+
+
+def test_each_step_route_draws_its_jax_routes_seed(datasets, monkeypatch):
+    """The fused per-step route draws the mesh step's seed (rank 0 folded in,
+    as ``train_mod_siren.py``'s one-device mesh does), the module step and
+    the scan epoch the unfolded seed: the seed each route's dropout sees."""
+    train, _ = datasets
+    fully, under = (torch.from_numpy(a) for a in next(train.batches(32, seed=0)))
+    seen = set()
+    seed_tensor = tstk.seed_tensor
+    monkeypatch.setattr(tstk, "seed_tensor",
+                        lambda seed, device: seen.add(int(seed)) or seed_tensor(seed, device))
+
+    def draws(use_pallas, scan):
+        seen.clear()
+        model = _model(dropout=0.1)
+        state = ttrainer.create_train_state(model, "sgd", 1e-3)
+        state.step = 5
+        if scan:
+            epoch = ttrainer.make_scan_epoch(model, tlosses.mse, 32, 24, use_pallas=use_pallas)
+            epoch(state, fully, under, np.arange(32, dtype=np.int32)[None], 9, True)
+        else:
+            step = ttrainer.make_train_step(model, tlosses.mse, 32, 24, use_pallas=use_pallas)
+            step(state, fully, under, 9)
+        return set(seen)
+
+    mesh_seed, scan_seed = _jax_seeds(9, [5], rank=0)[0], _jax_seeds(9, [5])[0]
+    assert mesh_seed != scan_seed
+    assert draws(True, scan=False) == {mesh_seed}
+    assert draws(False, scan=False) == {scan_seed}
+    assert draws(True, scan=True) == draws(False, scan=True) == {scan_seed}
 
 
 def test_fused_train_step_reduces_loss_with_dropout(datasets):
@@ -307,13 +357,18 @@ def _tiles(dataset):
 
 
 @pytest.mark.parametrize("use_pallas", [True, False], ids=["fused", "module"])
-def test_scan_epoch_equals_the_per_step_loop(datasets, use_pallas):
+def test_scan_epoch_equals_the_per_step_loop(datasets, use_pallas, monkeypatch):
     """The epoch's CPU loop (the body a CUDA graph captures on the card) and
     the per-step functions over the same batches: two train epochs with
     dropout 0.1 and Adam, then a validation epoch; losses and parameters
     bit for bit (the same operations on the same values: the seed buffer
     holds the per-step seeds exactly, and the eval body packs the weights as
-    ``WeightPack`` does)."""
+    ``WeightPack`` does). The fused per-step route draws the JAX mesh step's
+    seeds, the epoch the scan epoch's (the JAX package's two routes); here
+    the per-step functions draw the epoch's, so the rest is compared."""
+    scan_seeds = ttrainer.epoch_seeds
+    monkeypatch.setattr(ttrainer, "epoch_seeds",
+                        lambda base, step0, n, rank=None: scan_seeds(base, step0, n))
     train, val = datasets
 
     def state_of():
@@ -446,7 +501,14 @@ def _trainer(datasets, run_dir, **kw):
                             tlosses.mse, train, val, run_dir, **args)
 
 
-def test_device_resident_epoch_equals_host_loop(datasets, tmp_path):
+def test_device_resident_epoch_equals_host_loop(datasets, tmp_path, monkeypatch):
+    """The Trainer with and without ``device_data``: the same losses and
+    parameters. The fused host loop draws the JAX mesh step's seeds, the
+    device-resident epoch the scan epoch's; here the host loop draws the
+    epoch's, so the rest of the two routes is compared."""
+    scan_seeds = ttrainer.epoch_seeds
+    monkeypatch.setattr(ttrainer, "epoch_seeds",
+                        lambda base, step0, n, rank=None: scan_seeds(base, step0, n))
     train, val = datasets
 
     def run(device_data, tmp):
@@ -598,6 +660,41 @@ def _cli_args(metadata, out, *extra):
     for s in sets:
         argv += ["--set", s]
     return argv
+
+
+def test_train_cli_seeded_equals_the_jax_scan_epoch(metadata, tmp_path):
+    """No weights transplanted: the train CLI at ``training.seed=3`` draws
+    the JAX package's initial weights and dropout seeds, so its first epoch
+    (three steps of the device-resident epoch, dropout 0.1, fp32, SGD at lr
+    1e-3) equals the JAX ``make_scan_epoch(use_pallas=True, interpret=True)``
+    from ``key(3)`` and ``key(4)`` on the same split, to the bars of
+    test_three_sgd_steps_match_jax (loss 1e-5, parameters 1e-6)."""
+    from mri_inr_tpu.data.dataset import MRIDataset as JaxDataset
+
+    jds = JaxDataset(metadata, mri_type="Flair", max_slice_num=None)
+    n = len(jds)
+    batch = -(-n // 3)
+    trainer = cli_train.main(_cli_args(
+        metadata, tmp_path / "out", "training.epochs=1", "training.seed=3",
+        "training.optimizer=sgd", "training.lr=1e-3", "training.precision=fp32",
+        "training.device_data=true", "data.train.max_slice_num=null",
+        f"training.batch_size={batch}"))
+    assert trainer.state.step == 3 and len(trainer.train_dataset) == n
+    np.testing.assert_array_equal(trainer.train_dataset.under_tiles, jds.under_tiles)
+
+    jm = JaxModel(dropout=0.1, **WIDTHS)
+    jstate = jtrainer.create_train_state(jm, jax.random.key(3), jnp.zeros((2, 32, 32)),
+                                         "sgd", 1e-3)
+    jepoch = jtrainer.make_scan_epoch(jm, jlosses.mse, 32, 24, use_pallas=True,
+                                      interpret=True, sin5=True)
+    perm = jtrainer.make_epoch_perm(n, batch, 0, shuffle=True)
+    jstate, jloss = jepoch(jstate, jnp.asarray(jds.fully_tiles), jnp.asarray(jds.under_tiles),
+                           jnp.asarray(perm), jax.random.key(4), True)
+    assert abs(trainer._progress[0]["train_loss"] - float(jloss)) <= 1e-5
+    want = params_from_flax(jax.device_get(jstate.params))
+    for name, p in trainer.model.named_parameters():
+        np.testing.assert_allclose(p.detach().numpy(), want[name].numpy(), rtol=0,
+                                   atol=1e-6, err_msg=name)
 
 
 def test_train_cli_two_epochs_then_a_resumed_third(metadata, tmp_path, capsys):

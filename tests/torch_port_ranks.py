@@ -159,6 +159,52 @@ def emulate_step(case: str, device, world: int) -> tuple[np.ndarray, float]:
     return flat_params(model), sum(local) / world
 
 
+def halves_step_body(world: int, rows_of=None):
+    """A stand-in for ``trainer._make_step_body`` (fused path, one process):
+    every step computes the gradients of each rank's rows of the batch
+    (``mesh.local_rows``) apart and averages them as the ranks' all-reduce
+    does (the sum in rank order, then the division), the loss likewise,
+    before the one optimizer step. A one-process run through it follows the
+    ranks' arithmetic; one at the whole batch sums in another order.
+
+    ``rows_of(r)`` names the rank whose rows rank ``r`` takes (itself by
+    default). ``rows_of=lambda r: 0`` plants a fault the ranks could share
+    with this witness: every rank steps on rank 0's rows, so the rest of
+    the batch is left out (as it is where each rank steps on its own
+    gradients, unreduced); only a comparison with the whole batch sees it."""
+    from mri_inr_tpu_torch.ops import siren_train_kernel as stk
+    from mri_inr_tpu_torch.ops import tiling
+    from mri_inr_tpu_torch.parallel import mesh
+
+    def make(model, loss_fn, outer, siren, *, fused, sin5, freeze_encoder, group=None):
+        if not fused or freeze_encoder or group is not None:
+            raise ValueError("halves_step_body: the fused path of one process only")
+
+        def body(state, fully, under, seed):
+            total = None
+            for r in range(world):
+                src = r if rows_of is None else rows_of(r)
+                f, u = (mesh.local_rows(t, src, world) for t in (fully, under))
+                state.optimizer.zero_grad(set_to_none=True)
+                pred = stk.fused_train_apply(model, u, seed, sin5=sin5)
+                loss = loss_fn(pred.float(), tiling.extract_center_batch(f, outer, siren).float())
+                loss.backward()
+                grads = [p.grad for p in model.parameters() if p.grad is not None]
+                flat = torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)])
+                total = flat if total is None else total + flat
+            total = total / world
+            offset = 0
+            for g in grads:
+                g.copy_(total[offset : offset + g.numel()].view_as(g))
+                offset += g.numel()
+            state.optimizer.step()
+            return total[-1]
+
+        return body
+
+    return make
+
+
 # ------------------------------------------------------------- scenarios
 def steps(device, group) -> dict:
     """The data-parallel train and eval steps (``trainer.make_train_step``

@@ -6,11 +6,15 @@ counterpart, across packages, of ``scripts/torch_vgg_splice_probe.py
 package, so it lives with the tests; pytest does not collect it.
 
     python tests/vgg_ae_cross_package.py --corpus hard --seeds 4,5 --steps 12 \
-        [--data-root DIR] [--out F.json]
+        [--draw jax|torch2.11] [--data-root DIR] [--out F.json]
 
-For each seed: the port's VGG autoencoder at that seed as the card draws
-it (:func:`card_autoencoder`; ``--ae-draws`` records the sum of its
-weights), carried into Flax by ``interop.params_to_flax``; then ``--steps`` steps of the port's
+For each seed K: the port's VGG autoencoder at K, by default the JAX
+package's own draw, ``init(jax.random.key(K))`` (``train_encoder.
+build_autoencoder``, within an ulp or two of Flax's), with ``--draw
+torch2.11`` the weights the card's runs of the earlier draw started from,
+a torch 2.11 generator's draw (:func:`card_autoencoder`; ``--ae-draws``
+recorded the sum of its weights); carried into Flax by ``interop.params_to_flax``, so both
+sides start from the same values; then ``--steps`` steps of the port's
 ``train_encoder.train_step`` and of ``train_encoder.py``'s step (Flax
 ``VGGAutoencoder``, ``optax.adam``, lr 1e-3, batch 256) on the same
 batches (``make_epoch_perm`` against the JAX ``MRIDataset.batches(seed=
@@ -49,6 +53,7 @@ from mri_inr_tpu.models.encoder import VGGAutoencoder as JaxVGG  # noqa: E402
 from mri_inr_tpu_torch import interop  # noqa: E402
 from mri_inr_tpu_torch.cli import train_encoder as te  # noqa: E402
 from mri_inr_tpu_torch.data.dataset import MRIDataset  # noqa: E402
+from mri_inr_tpu_torch.models.encoder import VGGAutoencoder  # noqa: E402
 from mri_inr_tpu_torch.train.trainer import make_epoch_perm, make_optimizer  # noqa: E402
 from torch_vgg_splice_probe import (flat_from, structured_from, train_split,  # noqa: E402
                                     weight_sum)
@@ -72,21 +77,25 @@ def _inverse_cdf_trunc_normal_(tensor, mean=0.0, std=1.0, a=-2.0, b=2.0, generat
 
 
 def card_autoencoder(seed: int) -> torch.nn.Module:
-    """``train_encoder.build_autoencoder("vgg", seed=seed)`` on the CPU with
-    the weights the card's torch draws at that seed, whatever torch runs
-    here."""
+    """The VGG autoencoder the card's runs of the earlier draw pretrained
+    from at ``seed`` (``train_encoder.build_autoencoder`` drew it from a
+    torch generator then): the card's torch 2.11 draw, on the CPU, whatever
+    torch runs here."""
     kept = torch.nn.init.trunc_normal_
     torch.nn.init.trunc_normal_ = _inverse_cdf_trunc_normal_
     try:
-        return te.build_autoencoder("vgg", seed=seed, device="cpu")[0]
+        return VGGAutoencoder(generator=torch.Generator().manual_seed(seed))
     finally:
         torch.nn.init.trunc_normal_ = kept
 
 
-def cross_package(meta: pathlib.Path, corpus: str, seed: int, steps: int) -> dict:
-    """Both packages' pretraining steps from the port's initial weights at
-    ``seed``, every step's readings."""
-    model = card_autoencoder(seed)
+def cross_package(meta: pathlib.Path, corpus: str, seed: int, steps: int,
+                  draw: str = "jax") -> dict:
+    """Both packages' pretraining steps from one set of initial weights at
+    ``seed`` (``draw``: the JAX package's, or the card's earlier draw), every
+    step's readings."""
+    model = (te.build_autoencoder("vgg", seed=seed, device="cpu")[0] if draw == "jax"
+             else card_autoencoder(seed))
     init = weight_sum(model)
     params = jax.tree.map(jnp.asarray, interop.params_to_flax(model.state_dict()))
     jm, tx = JaxVGG(), optax.adam(1e-3)
@@ -105,7 +114,8 @@ def cross_package(meta: pathlib.Path, corpus: str, seed: int, steps: int) -> dic
 
     tiles = torch.from_numpy(MRIDataset(meta).fully_tiles)
     jds = JaxDataset(str(meta))
-    run = {"corpus": corpus, "seed": seed, "initial_weight_sum": init, "port_loss": [],
+    run = {"corpus": corpus, "seed": seed, "draw": draw, "initial_weight_sum": init,
+           "port_loss": [],
            "jax_loss": [], "port_out_std": [], "jax_out_std": [], "x_std": [], "param_gap": []}
     step, epoch = 0, 0
     while step < steps:
@@ -158,6 +168,9 @@ def main() -> int:
     ap.add_argument("--corpus", default="hard", choices=("smooth", "hard"))
     ap.add_argument("--seeds", default="4,5")
     ap.add_argument("--steps", type=int, default=12)
+    ap.add_argument("--draw", default="jax", choices=("jax", "torch2.11"),
+                    help="the initial weights: the JAX package's init at key(K), or the "
+                         "torch 2.11 generator draw of the card's earlier runs")
     ap.add_argument("--data-root", default=None,
                     help="where the split is built (kept; default: a temporary one)")
     ap.add_argument("--out", default=None, help="a JSON file of every step's readings")
@@ -170,7 +183,8 @@ def main() -> int:
                            torch.device("cpu"))
         print(f"{args.corpus} train split: {meta} ({time.perf_counter() - t0:.1f}s)", flush=True)
         for seed in (int(s) for s in args.seeds.split(",")):
-            report["runs"].append(cross_package(meta, args.corpus, seed, args.steps))
+            report["runs"].append(cross_package(meta, args.corpus, seed, args.steps,
+                                                args.draw))
             if args.out:
                 pathlib.Path(args.out).parent.mkdir(parents=True, exist_ok=True)
                 pathlib.Path(args.out).write_text(json.dumps(report) + "\n")
