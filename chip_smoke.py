@@ -47,8 +47,9 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    replay) and under torch.profiler (the device's idle share, the kernels
    counted by name against the launch counters); the same comparison on the
    module path (``model.use_pallas=false``) and on a residual model, whose
-   epochs are graphed too (their dropout is the fused path's counter hash of
-   a device seed), with their steps/s graphed and per-step;
+   epochs are graphed too (their dropout is Flax's masks, drawn on the card
+   by the dropout kernel from keys in a device buffer), with their steps/s
+   graphed and per-step;
 8. the training path through the train CLI's ``main``: configs/train.yaml
    (only paths, epochs, save_interval and device_data overridden) on the 16
    slices (6,400 patches, 16 steps of batch 400 an epoch) with 4 more as
@@ -151,6 +152,19 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    phantom stems' column masks against the JAX package's, both recorded
    once on the CPU (``tests/data/jax_draws.json``): the draws are the JAX
    package's under this machine's torch too; every later phase runs on them;
+18. the module path's dropout (after phase 7): the dropout kernel
+   (``csrc/threefry_dropout.cu``) against its plain version, bit for bit, at
+   the train batch (400 x 576 x 256) for the five hidden layers of two
+   steps, and against the masks the JAX package draws there, recorded once
+   on the CPU (``tests/data/jax_dropout_masks.json``: keys, kept counts,
+   SHA-256 of the packed bits), the keys also against the port's
+   ``epoch_dropout_keys``; then the graphed module epoch
+   (configs/train.yaml with ``model.use_pallas=false``, ``device_data``) for
+   an eager epoch, a captured one and a second replay: in each replay every
+   step's masks differ from the step before and equal the plain version's
+   of the keys staged for it, and the kernel's launches are the epochs'
+   steps times five; the kernel's time and the module epoch's steps/s
+   (phase 7's);
 12. times with CUDA events (warm-up, then the median): every kernel and its
    plain version per call, for the DFT also the ``torch.fft`` route, for the
    backward also its chain and weight-gradient kernels apart (device time
@@ -170,6 +184,7 @@ import argparse
 import contextlib
 import copy
 import csv
+import hashlib
 import importlib.util
 import json
 import math
@@ -247,6 +262,8 @@ def kernel_label(entry: str) -> str:
     """A mangled kernel name, shortened; the forward kernels' template
     arguments spelled out."""
     act = {"0": "sine", "1": "morlet"}
+    if "threefry_keep_mask_kernel" in entry:
+        return "threefry_keep_mask_kernel"
     m = re.search(r"siren_forward_int8_kernelILi(\d+)ELb([01])E", entry)
     if m is not None:
         return f"siren_forward_int8_kernel<H={m[1]}, {act[m[2]]}>"
@@ -2151,14 +2168,17 @@ def run_losses(r: dict) -> list:
 
 
 def check_row_route(rr, r: dict) -> None:
-    """A row trained on its route: the fused rows launch both train kernels,
-    the module rows neither; the sweep's eval forward is the kernel but for
-    the residual model, which has none."""
+    """A row trained on its route: the fused rows launch both train kernels
+    and no dropout kernel, the module rows the dropout kernel (Flax's masks,
+    configs/train.yaml's dropout 0.1) and neither train kernel; the sweep's
+    eval forward is the kernel but for the residual model, which has none."""
     train = [r["launches"][k] for k in ("siren_train_fwd", "siren_train_bwd")]
+    drops = r["launches"]["threefry_dropout"]
     if rr.route(r["train_overrides"]) == "fused":
-        check(all(train), f"results row {r['row']} (fused) launches {r['launches']}")
+        check(all(train) and not drops, f"results row {r['row']} (fused) launches {r['launches']}")
     else:
-        check(not any(train), f"results row {r['row']} (module path) launches {r['launches']}")
+        check(not any(train) and drops > 0,
+              f"results row {r['row']} (module path) launches {r['launches']}")
     residual = "model.residual=true" in r["train_overrides"]
     check((r["launches"]["siren_forward"] > 0) != residual,
           f"results row {r['row']}: siren_forward launches {r['launches']['siren_forward']}")
@@ -2441,6 +2461,137 @@ def hard_path(pkg, tmp: pathlib.Path, device, card: str) -> dict:
     return {"launches": launches, "rows": done}
 
 
+# --------------------------------------------------------------- phase 18
+DROPOUT_FILE = REPO / "tests" / "data" / "jax_dropout_masks.json"  # tests/jax_dropout_constants.py
+# 32-bit integer operations an element of the dropout kernel
+# (csrc/threefry_dropout.cu): 20 rounds of add, rotate and xor, ten
+# key-injection adds, the counter's split, the float, the compare and the
+# byte's place in its word. The guide's table has no integer rate: they are
+# counted at the f32 rate of the CUDA cores, which no integer unit exceeds,
+# so the bound is a least time.
+DROPOUT_INT_OPS = 85
+
+
+def packed_sha256(mask: torch.Tensor) -> str:
+    return hashlib.sha256(np.packbits(mask.cpu().numpy()).tobytes()).hexdigest()
+
+
+def dropout_masks(pkg, device, card) -> dict:
+    """Phase 18, first part: the dropout kernel against its plain version
+    and the JAX package's recorded masks at the train batch's shape, every
+    hidden layer of two steps; its time and its plain version's."""
+    dr, tr = pkg["dropout"], pkg["trainer"]
+    rec = json.loads(DROPOUT_FILE.read_text())
+    cfg = pkg["config"].load_train_configuration(REPO / "configs" / "train.yaml")
+    model = pkg["ms"].from_config(cfg.model, cfg.training.precision, device=device)
+    shape, keep = tuple(rec["shape"]), rec["keep"]
+    check(keep == 1.0 - cfg.model.dropout and shape == (cfg.training.batch_size, 576,
+                                                         cfg.model.dim_hidden),
+          f"the recorded masks' shape {shape} and keep {keep}")
+    wrong = 0
+    for m in rec["masks"]:
+        keys = tr.epoch_dropout_keys(rec["base_seed"], m["step"], 1, model)[0][m["layer"]]
+        check(keys.tolist() == m["key"], f"step {m['step']} layer {m['layer']}: the port's key "
+              f"{keys.tolist()}, the JAX package's {m['key']}")
+        kt = dr.keys_tensor(keys, device)
+        got = dr.threefry_keep_mask_cuda(kt, shape, keep)
+        want = dr.threefry_keep_mask_reference(kt, shape, keep)
+        differ = int((got != want).sum())
+        wrong += differ
+        check(differ == 0, f"step {m['step']} layer {m['layer']}: the kernel's mask differs "
+              f"from the plain version's in {differ} elements")
+        check(int(got.sum()) == m["kept"] and packed_sha256(got) == m["sha256"],
+              f"step {m['step']} layer {m['layer']}: the mask is not the JAX package's")
+    print(f"dropout kernel at {shape}, keep {keep}: {len(rec['masks'])} masks (5 layers x "
+          f"{len(rec['masks']) // 5} steps) equal the plain version's and the JAX package's "
+          f"recorded masks bit for bit ({DROPOUT_FILE.name}: keys, kept counts, SHA-256) [{card}]")
+    kt = dr.keys_tensor(np.array(rec["masks"][0]["key"], np.uint32), device)
+    return {"wrong": wrong, "numel": math.prod(shape), "masks": len(rec["masks"]),
+            "ms": cuda_median_ms(lambda: dr.threefry_keep_mask_cuda(kt, shape, keep)),
+            "plain_ms": cuda_median_ms(lambda: dr.threefry_keep_mask_reference(kt, shape, keep),
+                                       reps=5, warmup=1)}
+
+
+def dropout_graph_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path,
+                       val_meta: pathlib.Path, card: str) -> dict:
+    """Phase 18, second part: the graphed module epoch (configs/train.yaml
+    with ``model.use_pallas=false``, ``device_data``) for three train
+    epochs: eager, captured and replayed, replayed. Each mask the steps
+    draw is also copied inside the graph; after each replay every step's
+    masks equal the plain version's of the keys staged for that step, and
+    differ from the step before's and from the last replay's. The kernel's
+    launch count is set to 0 before the three epochs and read after."""
+    dr, tr = pkg["dropout"], pkg["trainer"]
+    cfg = pkg["config"].load_train_configuration(REPO / "configs" / "train.yaml",
+                                                 ["model.use_pallas=false"])
+    tcfg, mcfg, dcfg = cfg.training, cfg.model, cfg.data
+    train = pkg["dataset"].MRIDataset(
+        meta, center_fraction=dcfg.center_fraction, acceleration=dcfg.acceleration,
+        mri_type=dcfg.train.mri_type, max_slice_num=dcfg.train.max_slice_num,
+        outer_patch_size=mcfg.outer_patch_size, inner_patch_size=mcfg.inner_patch_size)
+    model = pkg["ms"].from_config(mcfg, tcfg.precision, device=device)
+    t = tr.Trainer(model, tr.create_train_state(model, tcfg.optimizer, tcfg.lr),
+                   pkg["losses"].make_loss_fn(tcfg.criterion), train, train,
+                   tmp / "dropout_graph", batch_size=tcfg.batch_size, save_interval=1000,
+                   base_seed=tcfg.seed + 1, use_pallas=False, sin5=tcfg.sin5,
+                   device_data=True, device=device, log=lambda *_: None)
+    check(not t.scan_epoch.fused, "the module epoch is not on the module path")
+    keep = 1.0 - mcfg.dropout
+    layers = len(pkg["flax_init"].dropout_layers(model))
+    steps = -(-len(train) // tcfg.batch_size)
+    real = dr.threefry_keep_mask
+    drawn: list = []
+
+    def spy(keys, shape, keep_, offset=0):
+        mask = real(keys, shape, keep_, offset)
+        drawn.append((keys, mask.clone()))  # inside a capture: a copy the graph makes
+        return mask
+
+    dr.threefry_keep_mask_cuda.launches = 0
+    dr.threefry_keep_mask = spy
+    last = None  # the last replay's first step's masks
+    try:
+        for epoch in range(3):
+            if epoch == 1:  # the capture: the copies it records are refilled by every replay
+                drawn.clear()
+            step0 = t.state.step
+            t._epoch_loss(train, train=True, epoch=epoch)
+            torch.cuda.synchronize()
+            if epoch == 0:  # eager: the capture's warm-up
+                continue
+            check(len(drawn) == steps * layers, f"{len(drawn)} masks for {steps} steps")
+            want_keys = tr.epoch_dropout_keys(tcfg.seed + 1, step0, steps, model)
+            before = None
+            for i in range(steps):
+                row = drawn[i * layers:(i + 1) * layers]
+                check(np.array_equal(np.stack([k.cpu().numpy().view(np.uint32) for k, _ in row]),
+                                     want_keys[i]), f"epoch {epoch} step {i}: staged keys")
+                for j, (k, m) in enumerate(row):
+                    check(torch.equal(m, dr.threefry_keep_mask_reference(k, m.shape, keep)),
+                          f"epoch {epoch} step {i} layer {j}: the graph's mask differs from "
+                          "the plain version's")
+                masks = [m for _, m in row]
+                check(before is None or not any(torch.equal(a, b) for a, b in zip(masks, before)),
+                      f"epoch {epoch} step {i}: a mask of the step before")
+                before = masks
+            first = [m.clone() for _, m in drawn[:layers]]
+            check(last is None or not any(torch.equal(a, b) for a, b in zip(first, last)),
+                  "a replay drew the last replay's masks")
+            last = first
+    finally:
+        dr.threefry_keep_mask = real
+    launches = dr.threefry_keep_mask_cuda.launches
+    check(t.scan_epoch.captures == 1 and t.scan_epoch.replays == 2,
+          f"graphs {t.scan_epoch.captures} captured, {t.scan_epoch.replays} replays")
+    check(launches == 3 * steps * layers,
+          f"{launches} dropout launches in 3 epochs of {steps} steps x {layers} layers")
+    print(f"graphed module epoch ({steps} steps of {tcfg.batch_size}, {layers} dropping layers): "
+          f"eager, captured and replayed, replayed; in each replay every step's masks equal the "
+          f"plain version's of its staged keys and differ from the step before's; dropout "
+          f"launches {launches} [{card}]")
+    return {"launches": launches, "steps": steps, "layers": layers}
+
+
 def time_train_steps(pkg, device) -> dict:
     """One whole train step at the width and batch of configs/train.yaml:
     fused kernels, and the module path under autograd for comparison."""
@@ -2616,16 +2767,17 @@ def siren_f32_ops(rows: int, hidden: int, layers: int, kind: str) -> int:
 
 def kernel_record(name, replaces, launches, err, ms, plain_ms, flops, nbytes,
                   card, executed_flops=None, peak=PEAK_BF16_FLOPS, unit="bf16 FLOP",
-                  library_ms=None, f32_ops=0, **extra) -> dict:
+                  library_ms=None, f32_ops=0, ops_term=None, **extra) -> dict:
     """``flops``: the operations the function needs on these inputs (the
-    bound's), at the card's ``peak`` rate for their type; ``f32_ops``: the
-    f32 operations it needs outside the tensor cores besides, at the f32
-    rate; ``executed_flops``: those the kernel runs, where recomputation
-    makes them more. The bound is the largest of the three times."""
+    bound's), at the card's ``peak`` rate for their type (named
+    ``ops_term``); ``f32_ops``: the f32 operations it needs outside the
+    tensor cores besides, at the f32 rate; ``executed_flops``: those the
+    kernel runs, where recomputation makes them more. The bound is the
+    largest of the three times."""
     ops_ms, bytes_ms = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     f32_ms = f32_ops / PEAK_F32_FLOPS * 1e3
-    terms = {"f32 operations" if peak == PEAK_F32_FLOPS else "tensor operations": ops_ms,
-             "bytes": bytes_ms}
+    ops_term = ops_term or ("f32 operations" if peak == PEAK_F32_FLOPS else "tensor operations")
+    terms = {ops_term: ops_ms, "bytes": bytes_ms}
     if f32_ops:
         terms["f32 operations"] = f32_ms
     bound_term = max(terms, key=terms.get)
@@ -2671,7 +2823,9 @@ def main() -> int:
     from mri_inr_tpu_torch.data import dataset, kspace, online, preprocessing, synthetic
     from mri_inr_tpu_torch.eval import evaluate as ev
     from mri_inr_tpu_torch.models import modulated_siren as ms
+    from mri_inr_tpu_torch.models import flax_init
     from mri_inr_tpu_torch.ops import _build
+    from mri_inr_tpu_torch.ops import dropout
     from mri_inr_tpu_torch.ops import fft_kernel as fk
     from mri_inr_tpu_torch.ops import siren_kernel as sk
     from mri_inr_tpu_torch.ops import siren_train_kernel as stk
@@ -2690,7 +2844,7 @@ def main() -> int:
     print("TF32 off for matmul and cuDNN: comparisons run in full f32")
 
     build_kernels(_build, ["siren_forward", "siren_forward_int8", "siren_train_fwd",
-                           "siren_train_bwd", "dft2c"])
+                           "siren_train_bwd", "dft2c", "threefry_dropout"])
     print(f"host tile helpers (g++, OpenMP): have_native() = {native.have_native()}")
     check(native.have_native(), "the native tile helpers did not build")
     cmp = compare_kernel(sk, ms, device)
@@ -2705,7 +2859,8 @@ def main() -> int:
                trainer=trainer, online=online, tiling=tiling, tensorboard=tensorboard,
                visualization=visualization, profiling=profiling, quality_run=quality_run,
                results_run=results_run, sweep940=sweep940, hard_table=hard_table,
-               interop=interop, jax_random=jax_random, kspace=kspace)
+               interop=interop, jax_random=jax_random, kspace=kspace, dropout=dropout,
+               flax_init=flax_init)
     draws_path(pkg, card)
     with tempfile.TemporaryDirectory() as tmp:
         tmp = pathlib.Path(tmp)
@@ -2714,9 +2869,13 @@ def main() -> int:
         step_ms = time_train_steps(pkg, device)
         report_train_step(step_ms, card)
         graph_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card)
-        for label, overrides in (("module path", ("model.use_pallas=false",)),
-                                 ("residual model", ("model.residual=true",))):
-            graph_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card, label, overrides)
+        module_epochs = {
+            label: graph_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card, label,
+                              overrides)
+            for label, overrides in (("module path", ("model.use_pallas=false",)),
+                                     ("residual model", ("model.residual=true",)))}
+        drop_masks = dropout_masks(pkg, device, card)
+        drop_graph = dropout_graph_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card)
         trn = train_path(pkg, tmp, device, pre["meta"], pre["val_meta"])
         qnt = quantized_path(pkg, tmp, device, pre["meta"], trn["run_dir"])
         ptr = pretraining_path(pkg, tmp, device, pre["meta"], pre["val_meta"], card)
@@ -2821,6 +2980,24 @@ def main() -> int:
         ms_per_rank_at_local_batch=cuda_median_ms(lambda: stk.siren_chain_train_bwd_cuda(
             *local_targs, cot[:LOCAL_BATCH].contiguous(), **tkw)), local_batch=LOCAL_BATCH,
         max_abs_err_at_local_batch=cmp_local["bwd_err"], **parts))
+
+    # ---- dropout kernel: one hidden layer's mask at the train batch, the
+    # launches of phase 18's graphed module epoch
+    records.append(kernel_record(
+        "threefry_dropout",
+        "none: the JAX module path's dropout bits come from XLA (mri_inr_tpu/models/siren.py:80 "
+        "nn.Dropout -> jax.random.bernoulli)", drop_graph["launches"],
+        float(drop_masks["wrong"]), drop_masks["ms"], drop_masks["plain_ms"],
+        DROPOUT_INT_OPS * drop_masks["numel"], drop_masks["numel"] + 8, card,
+        peak=PEAK_F32_FLOPS, unit="int32 OP", ops_term="int32 operations",
+        launches_per_step=drop_graph["layers"],
+        launches_results_path=res["launches"]["threefry_dropout"],
+        launches_hard_path=hrd["launches"]["threefry_dropout"]))
+    for label, out in module_epochs.items():
+        g = out["graphed"]["wall_ms"]
+        print(f"{label} epoch, graphed (phase 7, Flax's masks by the dropout kernel, "
+              f"{drop_graph['layers']} launches a step): {drop_graph['steps'] / g * 1e3:.2f} "
+              f"steps/s ({g:.4f} ms an epoch of {drop_graph['steps']} steps) [{card}]")
 
     # ---- DFT kernel: the preprocessing call (inverse, magnitude) at one
     # fastMRI brain volume; the other shapes beside it

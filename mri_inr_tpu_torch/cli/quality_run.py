@@ -18,11 +18,14 @@ The splits are built without ``h5py``: ``synthetic.synthetic_kspace`` ->
 ``write_synthetic_h5`` would store). A split whose ``metadata.csv`` and
 slices exist and an autoencoder file that exists are reused; so the first
 build under a root writes ``protocol.json`` there (corpus flags, size,
-slices, file counts, autoencoder epochs, the draws), and a later call whose
-protocol differs raises before it touches any file (:func:`guard_protocol`):
+slices, file counts, autoencoder epochs, the draws, the module dropout),
+and a later call whose protocol differs raises before it touches any file
+(:func:`guard_protocol`):
 rows of the port's earlier numpy and torch draws (``"draws": "torch"``, every
 root built before the JAX package's draws were ported) never share a root
-with rows of the JAX package's draws (``"jax"``). Visual
+with rows of the JAX package's draws (``"jax"``), and rows whose module path
+dropped with the fused path's counter hash (``"module_dropout": "hash"``)
+never share one with rows of Flax's masks (``"flax"``). Visual
 samples are left out where ``matplotlib`` is not installed.
 ``run_info.json`` under ``--root`` records the protocol, each stage's wall
 seconds, the card and the metrics.
@@ -113,6 +116,15 @@ _RUN_INFO_KEYS = {"image_size": "size", "slices_per_file": "slices", "train_file
 #: and reads as ``"torch"``
 DRAWS = "jax"
 
+#: how the module path (``training.use_pallas=false``, residual models)
+#: drops: ``"flax"``, Flax's ``bernoulli`` masks (``ops/dropout.py``); a
+#: root built before it dropped with the fused path's counter hash and
+#: reads as ``"hash"``
+MODULE_DROPOUT = "flax"
+
+#: protocol keys a render-only call is not held to: how the rows were drawn
+_DRAW_KEYS = ("draws", "module_dropout")
+
 
 def protocol_of(args) -> dict:
     """The corpus, scale and draws a call builds its splits, autoencoders
@@ -120,7 +132,7 @@ def protocol_of(args) -> dict:
     return {"phase": bool(args.phase), "snr_db": args.snr_db, "texture": float(args.texture),
             "size": args.size, "slices": args.slices, "train_files": args.train_files,
             "val_files": args.val_files, "eval_files": args.eval_files,
-            "ae_epochs": args.ae_epochs, "draws": DRAWS}
+            "ae_epochs": args.ae_epochs, "draws": DRAWS, "module_dropout": MODULE_DROPOUT}
 
 
 def default_protocol() -> dict:
@@ -134,13 +146,13 @@ def default_protocol() -> dict:
 def _legacy_protocol(root: pathlib.Path) -> dict | None:
     """The protocol of a root that holds splits or rows but no
     ``protocol.json``: :func:`default_protocol` with the counts its
-    ``run_info.json`` records and the ``"torch"`` draws; None for a root that
-    holds neither."""
+    ``run_info.json`` records, the ``"torch"`` draws and the ``"hash"``
+    module dropout; None for a root that holds neither."""
     info = root / "run_info.json"
     if not (info.is_file() or (root / "rows.json").is_file()
             or any((root / "data").glob("*/*/metadata.csv"))):
         return None
-    out = {**default_protocol(), "draws": "torch"}
+    out = {**default_protocol(), "draws": "torch", "module_dropout": "hash"}
     if info.is_file():
         recorded = json.loads(info.read_text())
         out.update({v: recorded[k] for k, v in _RUN_INFO_KEYS.items() if k in recorded})
@@ -149,12 +161,13 @@ def _legacy_protocol(root: pathlib.Path) -> dict | None:
 
 def root_protocol(root: pathlib.Path) -> dict | None:
     """The protocol ``root`` was built with: its ``protocol.json`` (one
-    written before the draws were recorded drew ``"torch"``), else
+    written before the draws were recorded drew ``"torch"``, one written
+    before the module dropout was recorded dropped by the ``"hash"``), else
     :func:`_legacy_protocol`."""
     path = root / "protocol.json"
     if not path.is_file():
         return _legacy_protocol(root)
-    return {"draws": "torch", **json.loads(path.read_text())}
+    return {"draws": "torch", "module_dropout": "hash", **json.loads(path.read_text())}
 
 
 def guard_protocol(root: pathlib.Path, args, building: bool = True) -> dict:
@@ -163,13 +176,13 @@ def guard_protocol(root: pathlib.Path, args, building: bool = True) -> dict:
     different protocol raises ``ValueError`` naming both, before any split,
     autoencoder or row under ``root`` is touched. A call that builds nothing
     (``building=False``: every row it names is there, it only renders) is
-    not held to the root's draws, and leaves an older root's files as they
-    are."""
+    not held to the root's draws and module dropout, and leaves an older
+    root's files as they are."""
     want = protocol_of(args)
     path = root / "protocol.json"
     have = root_protocol(root)
     def held(p: dict) -> dict:
-        return {k: v for k, v in p.items() if building or k != "draws"}
+        return {k: v for k, v in p.items() if building or k not in _DRAW_KEYS}
 
     if have is not None and held(have) != held(want):
         raise ValueError(f"{root} holds the protocol {json.dumps(have, sort_keys=True)} but "

@@ -83,7 +83,7 @@ from mri_inr_tpu_torch.configuration import config as config_lib
 from mri_inr_tpu_torch.data import preprocessing, synthetic
 from mri_inr_tpu_torch.data.dataset import MRIDataset
 from mri_inr_tpu_torch.data.online import OnlineKspaceDataset
-from mri_inr_tpu_torch.ops import fft_kernel, siren_kernel, siren_train_kernel
+from mri_inr_tpu_torch.ops import dropout, fft_kernel, siren_kernel, siren_train_kernel
 from mri_inr_tpu_torch.utils.device import resolve_device
 
 REPO = pathlib.Path(__file__).resolve().parents[2]
@@ -102,7 +102,8 @@ BARS = {"PSNR": 0.3, "SSIM": 0.01, "NRMSE": 0.01}
 COUNTERS = {"dft2c": fft_kernel.dft2c_ri_cuda,
             "siren_train_fwd": siren_train_kernel.siren_chain_train_fwd_cuda,
             "siren_train_bwd": siren_train_kernel.siren_chain_train_bwd_cuda,
-            "siren_forward": siren_kernel.siren_forward_cuda}
+            "siren_forward": siren_kernel.siren_forward_cuda,
+            "threefry_dropout": dropout.threefry_keep_mask_cuda}
 #: autoencoder -> (directory under --root, train_encoder model, batch); each
 #: trains at train_encoder's default lr of 1e-3
 AUTOENCODERS = {"conv": ("encoder", "conv", 1024),

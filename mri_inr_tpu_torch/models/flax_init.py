@@ -24,6 +24,10 @@ port's layer that owns it (in Flax's creation order). The draws are those of
 :mod:`mri_inr_tpu_torch.utils.jax_random`: the uniform, zero and one leaves
 equal Flax's bit for bit, the truncated-normal leaves lie within an ulp or
 two of them. None of it depends on the installed torch.
+
+:func:`dropout_keys` gives, the same way, the keys a train-mode ``apply``
+hands each ``nn.Dropout`` of the model (the module path's masks,
+``ops/dropout.py``).
 """
 
 from __future__ import annotations
@@ -41,19 +45,51 @@ from mri_inr_tpu_torch.utils import jax_random
 _TRUNCATED_STD = 0.87962566103423978
 
 
-def fold_in_static(key: np.ndarray, *suffix: str | int) -> np.ndarray:
-    """Flax's ``_fold_in_static``: fold the first four bytes (big-endian) of
-    the SHA-1 of the suffix's parts (strings as UTF-8, ints as their
-    shortest big-endian bytes, no separator) into ``key``."""
-    if not suffix:
-        return key
+def static_data(*suffix: str | int) -> int:
+    """The integer Flax's ``_fold_in_static`` folds in for ``suffix``: the
+    first four bytes (big-endian) of the SHA-1 of its parts (strings as
+    UTF-8, ints as their shortest big-endian bytes, no separator)."""
     m = hashlib.sha1()
     for part in suffix:
         if isinstance(part, str):
             m.update(part.encode("utf-8"))
         else:
             m.update(part.to_bytes((part.bit_length() + 7) // 8, byteorder="big"))
-    return jax_random.fold_in(key, int.from_bytes(m.digest()[:4], byteorder="big"))
+    return int.from_bytes(m.digest()[:4], byteorder="big")
+
+
+def fold_in_static(key: np.ndarray, *suffix: str | int) -> np.ndarray:
+    """Flax's ``_fold_in_static``: fold :func:`static_data` of the suffix
+    into ``key`` (keys ``(..., 2)`` each)."""
+    if not suffix:
+        return key
+    return jax_random.fold_in(key, static_data(*suffix))
+
+
+def dropout_layers(model: nn.Module) -> list[tuple[nn.Module, tuple[str, ...]]]:
+    """The layers of ``model`` that drop (a ``dropout`` rate and a
+    ``dropout_mask_fn`` slot: the SIREN's hidden layers), in module order,
+    each with its Flax scope path, taken from its weight's leaf
+    (:func:`mri_inr_tpu_torch.interop.flax_leaf`): ``("net", "layer_i")``
+    in a ``ModulatedSiren``."""
+    out = []
+    for name, module in model.named_modules():
+        if hasattr(module, "dropout_mask_fn") and module.dropout > 0.0:
+            path, _ = interop.flax_leaf(f"{name}.weight", np.zeros((1, 1), np.float32))
+            out.append((module, tuple(path[:-1])))
+    return out
+
+
+def dropout_keys(model: nn.Module, step_keys: np.ndarray) -> np.ndarray:
+    """The ``(..., L, 2)`` dropout keys of the L dropping layers
+    (:func:`dropout_layers`) for step keys ``(..., 2)`` (the ``rngs=
+    {"dropout": k}`` of an ``apply``): each layer's ``nn.Dropout`` is its
+    scope's ``Dropout_0``, whose first ``make_rng("dropout")`` is
+    ``fold_in_static(k, *path, "Dropout_0", 1)`` (``flax/core/scope.py``:
+    ``LazyRng``, ``make_rng``)."""
+    data = [static_data(*path, "Dropout_0", 1) for _, path in dropout_layers(model)]
+    step_keys = np.asarray(step_keys, np.uint32)
+    return jax_random.fold_in(step_keys[..., None, :], np.array(data, np.int64))
 
 
 def _draw(spec: tuple, key: np.ndarray, shape: tuple) -> np.ndarray:

@@ -24,8 +24,10 @@ stay f32.
 
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -80,6 +82,24 @@ def apply_activation(pre: torch.Tensor, w0: float, activation: str,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def keep_scale(rate: float, dtype: torch.dtype) -> float:
+    """The factor Flax's dropout puts on a kept element of ``dtype``:
+    ``inputs / keep_prob`` with the weak-typed ``keep_prob = 1 - rate``
+    rounded to ``dtype`` first (bf16: 0.9 -> 0.8984375), which XLA on the
+    CPU computes as the product with the float32 reciprocal, rounded back to
+    ``dtype``: the float32 value ``1 / keep_prob``."""
+    keep = torch.tensor(1.0 - rate, dtype=dtype).item()
+    return float(np.float32(1.0) / np.float32(keep))
+
+
+def flax_dropout(x: torch.Tensor, keep: torch.Tensor, rate: float) -> torch.Tensor:
+    """Flax's ``nn.Dropout`` of ``x`` with the bool ``keep`` mask:
+    ``select(keep, x / keep_prob, 0)``, the kept values scaled as XLA
+    rounds them (:func:`keep_scale`)."""
+    return torch.where(keep, (x.float() * keep_scale(rate, x.dtype)).to(x.dtype), 0.0)
+
+
 class SirenLayer(nn.Module):
     """One sine(-or-Morlet)-activated linear layer with SIREN init."""
 
@@ -95,10 +115,10 @@ class SirenLayer(nn.Module):
         self.dropout = dropout
         self.compute_dtype = compute_dtype
         self.exact_sine = exact_sine
-        #: when set, train-mode dropout multiplies the output by
-        #: ``dropout_mask_fn(shape)`` (an f32 mask of {0, 1/keep}) instead of
-        #: drawing from the global stream; the trainer sets the fused path's
-        #: counter-hash masks here
+        #: when set, train-mode dropout keeps the elements where
+        #: ``dropout_mask_fn(shape)`` (a bool mask) is true instead of drawing
+        #: from the global stream; the trainer sets Flax's masks here
+        #: (``ops/dropout.py``)
         self.dropout_mask_fn = None
         scale = (1.0 / dim_in) if is_first else (c / dim_in) ** 0.5 / w0
         self.flax_init = {"weight": ("uniform", scale), "bias": ("uniform", scale)}
@@ -113,7 +133,7 @@ class SirenLayer(nn.Module):
         pre = linear(x, self, self.compute_dtype)
         out = apply_activation(pre, self.w0, self.activation, self.exact_sine)
         if self.dropout > 0.0 and self.training and self.dropout_mask_fn is not None:
-            out = (out.float() * self.dropout_mask_fn(tuple(out.shape))).to(out.dtype)
+            out = flax_dropout(out, self.dropout_mask_fn(tuple(out.shape)), self.dropout)
         elif self.dropout > 0.0:
             out = F.dropout(out, self.dropout, training=self.training)
         return out

@@ -20,13 +20,15 @@ In PyTorch's idiom:
 - parameters stay f32; with ``precision: bf16`` the encoder and modulator
   compute in bf16 (the model's ``compute_dtype``) and the chain multiplies
   bf16 inputs into f32 sums;
-- the per-step dropout seed is the integer in [0, 2^23) the JAX package's
-  fused chain draws for that step, ``randint(fold_in(key(base seed),
-  step))`` (:func:`step_seed`), so a resumed run continues the same stream;
-  both paths draw their masks from the counter hash of that seed
-  (``ops/siren_train_kernel.py:dropout_mask``), the module path through
-  ``SirenLayer.dropout_mask_fn`` (where the JAX package's module path draws
-  Flax's ``bernoulli`` masks instead);
+- each step's dropout is the JAX package's, from ``fold_in(key(base
+  seed), step)``, so a resumed run continues the same stream. The fused
+  path takes the integer in [0, 2^23) its chain draws from that key
+  (:func:`step_seed`) and the counter hash of it
+  (``ops/siren_train_kernel.py:dropout_mask``); the module path draws
+  Flax's masks: each hidden layer's ``nn.Dropout`` key
+  (:func:`epoch_dropout_keys`) and ``bernoulli`` per element
+  (``ops/dropout.py``, a CUDA kernel on the card), set on each
+  ``SirenLayer`` as ``dropout_mask_fn``;
 - ``device_data`` keeps each dataset's tiles on the device and runs each
   epoch through :func:`make_scan_epoch`, the counterpart of the JAX
   package's one-dispatch ``lax.scan`` epoch: every batch is gathered on the
@@ -38,12 +40,13 @@ In PyTorch's idiom:
 Data parallelism (the counterpart of the JAX package's ``shard_map`` step
 over a ``data`` mesh): given a process group, every rank takes its
 contiguous ``B / N`` rows of each global batch (``parallel/mesh.py``), runs
-the same forward and backward on them with its own dropout stream
-(:func:`step_seed` with the rank folded in, as the mesh step folds in the
-device's axis index) and averages loss and
-gradients over the ranks in one all-reduce of one flat buffer a step
-(``lax.pmean``) before the same optimizer step on every rank; the module
-path takes the same recipe (the JAX package keeps GSPMD there). Only the
+the same forward and backward on them and averages loss and gradients over
+the ranks in one all-reduce of one flat buffer a step (``lax.pmean``) before
+the same optimizer step on every rank. On the fused path each rank drops
+with its own stream (:func:`step_seed` with the rank folded in, as the mesh
+step folds in the device's axis index); on the module path, where the JAX
+package keeps GSPMD and one global mask, each rank draws its rows of that
+mask (the same keys, at an offset of ``rank * B / N`` rows). Only the
 primary rank writes checkpoints, snapshots, the progress log and the
 TensorBoard scalars (``tensorboard=True``: ``training_loss`` and
 ``validation_loss`` per epoch under ``run_dir/tensorboard``); every rank
@@ -54,6 +57,7 @@ from __future__ import annotations
 
 import csv
 import functools
+import math
 import pathlib
 import signal
 import time
@@ -65,6 +69,8 @@ from torch import nn
 
 from mri_inr_tpu_torch.data.dataset import epoch_index_batches
 from mri_inr_tpu_torch.eval.evaluate import SliceReconstructor
+from mri_inr_tpu_torch.models import flax_init
+from mri_inr_tpu_torch.ops import dropout as drop_ops
 from mri_inr_tpu_torch.ops import siren_kernel as sk
 from mri_inr_tpu_torch.ops import siren_train_kernel as stk
 from mri_inr_tpu_torch.ops import tiling
@@ -159,6 +165,20 @@ def step_seed(base_seed: int, step: int, rank: int | None = None) -> int:
     return int(epoch_seeds(base_seed, step, 1, rank)[0])
 
 
+def epoch_dropout_keys(base_seed: int, step0: int, num_batches: int, model) -> np.ndarray:
+    """The module path's dropout keys of train steps ``step0 .. step0 +
+    num_batches - 1``: ``(num_batches, L, 2)`` uint32, one key per step and
+    dropping layer. Step ``s`` applies the model under ``rngs={"dropout":
+    fold_in(key(base_seed), s)}`` (``mri_inr_tpu/train/trainer.py:
+    171,208,328``), and hidden layer ``i`` draws under that key folded as
+    its ``nn.Dropout`` (:func:`~mri_inr_tpu_torch.models.flax_init.
+    dropout_keys`). No rank is folded in: the JAX module path's mesh step
+    is GSPMD, one global mask."""
+    steps = jax_random.fold_in(jax_random.key(base_seed),
+                               np.arange(step0, step0 + num_batches))
+    return flax_init.dropout_keys(model, steps)
+
+
 #: steps whose seeds the per-step route draws at once: on the host, one
 #: step's seed drawn alone costs about as much as 256 drawn together
 #: (``scripts/torch_step_seed_ab.py``)
@@ -183,24 +203,33 @@ def _fused(model, use_pallas: bool) -> bool:
     return bool(use_pallas) and not getattr(model, "residual", False)
 
 
+def _rank_mask(keys: torch.Tensor, keep: float, rank: int, shape: tuple) -> torch.Tensor:
+    """This rank's rows of the global keep mask: ``shape`` is the local
+    batch's, rank ``r`` starts ``r`` local batches into the global one."""
+    return drop_ops.threefry_keep_mask(keys, shape, keep, offset=rank * math.prod(shape))
+
+
 def _make_step_body(model, loss_fn, outer: int, siren: int, *, fused: bool, sin5: bool,
                     freeze_encoder: bool, group=None):
-    """``body(state, fully, under, seed) -> loss``: one optimizer step on
-    ``state`` with the dropout ``seed`` (an int or a (1,) float32 tensor
-    holding one), ``state.step`` left alone. With a ``group`` of more than
-    one rank the batch is this rank's rows, and loss and gradients are
-    averaged over the ranks before the optimizer step."""
-    hidden_layers = [] if fused else list(model.net.layers)
+    """``body(state, fully, under, drop) -> loss``: one optimizer step on
+    ``state``, ``state.step`` left alone. ``drop`` is the step's dropout: on
+    the fused path its seed (an int or a (1,) float32 tensor holding one),
+    on the module path its (L, 2) int32 keys (:func:`epoch_dropout_keys`)
+    on the batch's device. With a ``group`` of more than one rank the batch
+    is this rank's rows, and loss and gradients are averaged over the ranks
+    before the optimizer step."""
+    hidden_layers = [] if fused else [layer for layer, _ in flax_init.dropout_layers(model)]
+    rank, _ = distributed.rank_world(group)
 
-    def forward(under: torch.Tensor, seed) -> torch.Tensor:
+    def forward(under: torch.Tensor, drop) -> torch.Tensor:
         if fused:
-            return stk.fused_train_apply(model, under, seed, sin5=sin5)
-        # module path: hidden layer i drops with the fused path's hash masks
-        # of (seed, i), so no host RNG runs and the step can be captured
-        seed_t = stk.seed_tensor(seed, under.device)
+            return stk.fused_train_apply(model, under, drop, sin5=sin5)
+        # module path: hidden layer i keeps Flax's bernoulli mask of its key
+        # drop[i], read on the device, so no host RNG runs and the step can
+        # be captured
         for i, layer in enumerate(hidden_layers):
-            layer.dropout_mask_fn = functools.partial(stk.dropout_mask, seed_t, i,
-                                                      1.0 - layer.dropout)
+            layer.dropout_mask_fn = functools.partial(_rank_mask, drop[i],
+                                                      1.0 - layer.dropout, rank)
         model.train()
         try:
             return model(under)
@@ -209,10 +238,10 @@ def _make_step_body(model, loss_fn, outer: int, siren: int, *, fused: bool, sin5
             for layer in hidden_layers:
                 layer.dropout_mask_fn = None
 
-    def body(state: TrainState, fully: torch.Tensor, under: torch.Tensor, seed) -> torch.Tensor:
+    def body(state: TrainState, fully: torch.Tensor, under: torch.Tensor, drop) -> torch.Tensor:
         target = tiling.extract_center_batch(fully, outer, siren).float()
         state.optimizer.zero_grad(set_to_none=True)
-        pred = forward(under, seed)
+        pred = forward(under, drop)
         loss = loss_fn(pred.float(), target)
         loss.backward()
         if freeze_encoder:
@@ -232,33 +261,38 @@ def make_train_step(model, loss_fn, outer: int, siren: int, *, use_pallas: bool 
     process ``group`` of N > 1 ranks (the counterpart of the JAX package's
     ``mesh=``) every rank passes the same global batch, steps on its
     :func:`~mri_inr_tpu_torch.parallel.mesh.local_rows` with its rank's
-    dropout seed, and returns the loss averaged over the ranks.
+    dropout, and returns the loss averaged over the ranks.
 
-    The seeds are those of the JAX train CLI's per-step route, which always
+    The dropout is that of the JAX train CLI's per-step route, which always
     steps under a mesh (``train_mod_siren.py``): its fused step folds the
     device's axis index into every step's key, on one device too
-    (``mri_inr_tpu/train/trainer.py:186-188,201``), its module step does not
-    (``:208``). Over ranks every route folds the rank in."""
+    (``mri_inr_tpu/train/trainer.py:186-188,201``), and over ranks the port
+    folds the rank in; its module step does not (``:208``), and the port's
+    ranks draw their rows of one global mask (:func:`epoch_dropout_keys`)."""
     rank, world = distributed.rank_world(group)
     fused = _fused(model, use_pallas)
-    seed_rank = rank if fused or world > 1 else None
     body = _make_step_body(model, loss_fn, outer, siren, fused=fused,
                            sin5=sin5, freeze_encoder=freeze_encoder,
                            group=group if world > 1 else None)
-    block: dict = {}  # the seeds of the SEED_BLOCK steps around the last step
+    block: dict = {}  # the dropout of the SEED_BLOCK steps around the last step
 
-    def seed_of(base_seed: int, s: int) -> int:
+    def drop_of(base_seed: int, s: int, device: torch.device):
         start = s - s % SEED_BLOCK
-        if block.get("key") != (base_seed, start):
-            block.update(key=(base_seed, start),
-                         seeds=epoch_seeds(base_seed, start, SEED_BLOCK, seed_rank))
-        return int(block["seeds"][s - start])
+        if block.get("key") != (base_seed, start, device):
+            if fused:
+                drops = epoch_seeds(base_seed, start, SEED_BLOCK, rank)
+            else:  # the block's keys on the device: one copy every SEED_BLOCK steps
+                drops = drop_ops.keys_tensor(
+                    epoch_dropout_keys(base_seed, start, SEED_BLOCK, model), device)
+            block.update(key=(base_seed, start, device), drops=drops)
+        drop = block["drops"][s - start]
+        return int(drop) if fused else drop
 
     def step(state: TrainState, fully: torch.Tensor, under: torch.Tensor,
              base_seed: int) -> torch.Tensor:
         if world > 1:
             fully, under = (mesh.local_rows(t, rank, world) for t in (fully, under))
-        loss = body(state, fully, under, seed_of(base_seed, state.step))
+        loss = body(state, fully, under, drop_of(base_seed, state.step, under.device))
         state.step += 1
         return loss
 
@@ -301,13 +335,14 @@ def make_epoch_perm(n: int, batch_size: int, seed: int, shuffle: bool) -> np.nda
 def _launch_counters() -> tuple:
     """The kernel wrappers whose ``launches`` a graph replay must advance."""
     return (stk.siren_chain_train_fwd_cuda, stk.siren_chain_train_bwd_cuda,
-            sk.siren_forward_cuda, sk.siren_forward_int8_cuda)
+            sk.siren_forward_cuda, sk.siren_forward_int8_cuda, drop_ops.threefry_keep_mask_cuda)
 
 
 @dataclass
 class _Buffers:
-    """An epoch's two inputs: the permutation and the seeds, in static
-    device tensors a graph reads, staged through pinned host memory."""
+    """An epoch's two inputs: the permutation and the dropout draws (the
+    fused path's seeds, or the module path's keys), in static device tensors
+    a graph reads, staged through pinned host memory."""
 
     host_perm: torch.Tensor
     host_seeds: torch.Tensor
@@ -332,16 +367,17 @@ class ScanEpoch:
     loss, a 0-d tensor (on the card a graph's output: read it before the next
     epoch). A train epoch steps the optimizer once a batch and advances
     ``state.step`` by ``num_batches``; step ``i`` of the epoch draws its
-    dropout from ``seeds[i]`` of :func:`epoch_seeds`.
+    dropout from ``seeds[i]`` of :func:`epoch_seeds` on the fused path, from
+    the keys ``[i]`` of :func:`epoch_dropout_keys` on the module path.
 
     On the card the epoch is one CUDA graph per (tiles, shape, train flag),
     on the fused path and on the module path (``use_pallas: false``, residual
-    models) alike: both draw their dropout from the epoch's device seed
-    buffer. The first epoch of each runs eagerly on a side stream: it
+    models) alike: both draw their dropout from the epoch's device buffer of
+    seeds or keys. The first epoch of each runs eagerly on a side stream: it
     is the warm-up torch's capture recipe asks for (Adam's state, the kernel
     libraries and their function attributes, cuBLAS), and a real epoch. The
     second is captured, which runs nothing, and then replayed, like every
-    later one: the host copies the permutation and the seeds into the
+    later one: the host copies the permutation and the seeds or keys into the
     graph's static buffers, replays, and the caller reads one loss. The
     eval graph repacks the kernel weights from the parameters inside the
     graph, once an epoch. A capture or a replay that fails raises.
@@ -389,7 +425,7 @@ class ScanEpoch:
         if bufs is None:
             pin = device.type == "cuda"
             hp = torch.empty(perm.shape, dtype=torch.int64, pin_memory=pin)
-            hs = torch.empty(seeds.shape, dtype=torch.float32, pin_memory=pin)
+            hs = torch.empty(seeds.shape, dtype=torch.from_numpy(seeds).dtype, pin_memory=pin)
             bufs = self._buffers[key] = _Buffers(
                 hp, hs, torch.empty_like(hp, device=device), torch.empty_like(hs, device=device))
         if bufs.copied is not None:  # the last epoch's copies have left the pinned memory
@@ -414,7 +450,8 @@ class ScanEpoch:
             fully = fully_all.index_select(0, idx)
             under = under_all.index_select(0, idx)
             if train:
-                losses.append(self._train_body(state, fully, under, bufs.seeds[i : i + 1]))
+                drop = bufs.seeds[i : i + 1] if self.fused else bufs.seeds[i]
+                losses.append(self._train_body(state, fully, under, drop))
                 continue
             with torch.no_grad():
                 target = tiling.extract_center_batch(fully, self.outer, self.siren).float()
@@ -476,10 +513,14 @@ class ScanEpoch:
         t0 = time.perf_counter()
         device = fully_all.device
         nb = perm.shape[0]
-        # one process: the JAX scan epoch's seeds (its trainer.py:328); over
-        # ranks the mesh step's, which the JAX package runs there instead
-        seeds = (epoch_seeds(base_seed, state.step, nb, self.rank if self.world > 1 else None)
-                 if train else np.zeros(nb, np.float32))
+        # one process: the JAX scan epoch's dropout (its trainer.py:328);
+        # over ranks the mesh step's, which the JAX package runs there instead
+        if not train:
+            seeds = np.zeros(nb, np.float32)
+        elif self.fused:
+            seeds = epoch_seeds(base_seed, state.step, nb, self.rank if self.world > 1 else None)
+        else:
+            seeds = epoch_dropout_keys(base_seed, state.step, nb, self.model).view(np.int32)
         if self.world > 1:  # this rank's rows of every global batch
             perm = np.ascontiguousarray(mesh.local_rows(perm.T, self.rank, self.world).T)
         key = (fully_all.data_ptr(), under_all.data_ptr(), tuple(fully_all.shape),

@@ -178,24 +178,59 @@ def test_a_root_without_protocol_json_is_the_smooth_protocol_it_records(tmp_path
         rr.main(["--root", str(root), "--rows", "edge", "--epochs", "2", *SCALE, *MODEL])
     rr.main(["--root", str(root), "--rows", "", "--epochs", "2", *SCALE, *MODEL])  # builds nothing
     assert _files(root) == before
-    assert qr._legacy_protocol(root) == {**qr.protocol_of(qr_args(root)), "draws": "torch"}
+    assert qr._legacy_protocol(root) == {**qr.protocol_of(qr_args(root)), "draws": "torch",
+                                         "module_dropout": "hash"}
     monkeypatch.setattr(qr, "DRAWS", "torch")
+    monkeypatch.setattr(qr, "MODULE_DROPOUT", "hash")
     assert qr.guard_protocol(root, qr_args(root)) == qr.protocol_of(qr_args(root))
     assert json.loads((root / "protocol.json").read_text()) == qr.protocol_of(qr_args(root))
     assert {p: t for p, t in _files(root).items() if p.name != "protocol.json"} == before
+
+
+def test_the_guard_keeps_hash_and_flax_module_dropout_apart(tmp_path, monkeypatch):
+    """A root of the JAX package's draws whose ``protocol.json`` predates the
+    module dropout (``runs/results_torch_jaxdraw``'s) reads as the
+    ``"hash"`` dropout: a call that builds rows there raises naming it, a
+    render-only call does not; a ``"flax"`` root refuses a ``"hash"`` call
+    in turn. No file changes on a refusal."""
+    for committed in ("runs/results_torch_jaxdraw", "runs/results_hard_torch_jaxdraw"):
+        assert qr.root_protocol(REPO / committed)["module_dropout"] == "hash"
+    old = tmp_path / "jaxdraw"
+    old.mkdir()
+    legacy = {k: v for k, v in qr.protocol_of(qr_args(old)).items() if k != "module_dropout"}
+    (old / "protocol.json").write_text(json.dumps(legacy))
+    before = _files(old)
+    with pytest.raises(ValueError, match='"module_dropout": "hash"'):
+        qr.guard_protocol(old, qr_args(old))
+    with pytest.raises(ValueError, match='"module_dropout": "flax"'):
+        rr.main(["--root", str(old), "--rows", "residual", "--epochs", "2", *SCALE, *MODEL])
+    assert _files(old) == before
+    qr.guard_protocol(old, qr_args(old), building=False)  # a render-only call
+    assert _files(old) == before
+
+    new = tmp_path / "flaxdrop"
+    assert qr.guard_protocol(new, qr_args(new))["module_dropout"] == "flax"
+    assert json.loads((new / "protocol.json").read_text())["module_dropout"] == "flax"
+    before = _files(new)
+    monkeypatch.setattr(qr, "MODULE_DROPOUT", "hash")
+    with pytest.raises(ValueError, match='"module_dropout": "flax"'):
+        qr.guard_protocol(new, qr_args(new))
+    assert _files(new) == before
 
 
 @pytest.mark.parametrize("root", ["runs/quality_torch", "runs/results_torch"])
 def test_committed_smooth_roots_hold_the_default_protocol(root):
     """The committed roots of the smooth protocol: their ``protocol.json``,
     or for a root built before it, what the guard takes them to hold, is
-    the default smooth protocol of the earlier numpy and torch draws."""
+    the default smooth protocol of the earlier numpy and torch draws and of
+    the module path's counter-hash dropout."""
     have = qr.root_protocol(REPO / root)
-    assert have == {**qr.default_protocol(), "draws": "torch"}
+    assert have == {**qr.default_protocol(), "draws": "torch", "module_dropout": "hash"}
     assert have == {"phase": False, "snr_db": None, "texture": 0.0, "size": 256, "slices": 4,
                     "train_files": 24, "val_files": 4, "eval_files": 12, "ae_epochs": 30,
-                    "draws": "torch"}
+                    "draws": "torch", "module_dropout": "hash"}
     assert qr.default_protocol()["draws"] == "jax"
+    assert qr.default_protocol()["module_dropout"] == "flax"
 
 
 # ------------------------------------------------------------- the JAX rows

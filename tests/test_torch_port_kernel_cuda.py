@@ -1,7 +1,7 @@
 """The hand-written CUDA kernels (``ops/csrc/siren_forward.cu``,
 ``siren_forward_int8.cu``, ``siren_train_fwd.cu``, ``siren_train_bwd.cu``,
-``dft2c.cu``) against their plain PyTorch versions, on the card. Skips
-without one.
+``dft2c.cu``, ``threefry_dropout.cu``) against their plain PyTorch versions,
+on the card. Skips without one.
 
 Imports no JAX, so it also runs where only PyTorch is installed:
 
@@ -44,13 +44,17 @@ The FFT kernel runs the plain version's stages with fused multiply-adds
 and another radix-R butterfly than its length-R DFT products: 2e-5 *
 max(|plain|, 1), the JAX package's bar against the FFT, against both the
 plain version and ``torch.fft``.
+
+The dropout kernel's masks are integer hashes compared in float32 exactly
+as the plain version compares them: equal, bit for bit, at every size,
+offset and key, and read from the key's memory when the kernel runs.
 """
 
 import pytest
 import torch
 
 from mri_inr_tpu_torch.models.modulated_siren import ModulatedSiren, coordinate_grid
-from mri_inr_tpu_torch.ops import fft_kernel, siren_kernel
+from mri_inr_tpu_torch.ops import dropout, fft_kernel, siren_kernel
 from mri_inr_tpu_torch.ops import siren_train_kernel as stk
 
 pytestmark = pytest.mark.cuda
@@ -397,3 +401,46 @@ def test_dft_kernel_takes_views_and_refuses_large_sizes(device):
     assert (got - want).abs().max().item() <= 2e-5 * max(want.abs().max().item(), 1.0)
     with pytest.raises(ValueError, match="DFT_MAX_DIM"):
         fft_kernel.dft2c_ri_cuda(torch.zeros((1, 8, 641, 2), device=device))
+
+
+DROPOUT_CASES = [((400, 576, 256), 0), ((3, 5, 7), 0), ((1,), 0), ((2, 576, 16), 3),
+                 ((4, 1001), 2**32 - 5), ((200, 576, 256), 200 * 576 * 256)]
+
+
+@pytest.mark.parametrize("shape,offset", DROPOUT_CASES, ids=str)
+@pytest.mark.parametrize("keep", [0.9, 0.5])
+def test_dropout_kernel_matches_plain_version(device, shape, offset, keep):
+    g = torch.Generator().manual_seed(sum(shape) + offset % 997)
+    keys = torch.randint(-2**31, 2**31, (2,), generator=g, dtype=torch.int64).to(torch.int32)
+    before = dropout.threefry_keep_mask_cuda.launches
+    got = dropout.threefry_keep_mask(keys.to(device), shape, keep, offset)
+    assert dropout.threefry_keep_mask_cuda.launches == before + 1
+    want = dropout.threefry_keep_mask_reference(keys.to(device), shape, keep, offset)
+    assert got.dtype == torch.bool and tuple(got.shape) == tuple(shape)
+    assert torch.equal(got, want)
+
+
+def test_dropout_kernel_reads_its_key_when_it_runs(device):
+    """A CUDA graph that launches the kernel draws the mask of the key
+    staged before each replay."""
+    keys = torch.tensor([1, 2], dtype=torch.int32, device=device)
+    dropout.threefry_keep_mask_cuda(keys, (8, 576, 64), 0.9)  # built and loaded
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dropout.threefry_keep_mask_cuda(keys, (8, 576, 64), 0.9)
+    masks = []
+    for k in ([1, 2], [3, 4], [1, 2]):
+        keys.copy_(torch.tensor(k, dtype=torch.int32))
+        graph.replay()
+        torch.cuda.synchronize()
+        want = dropout.threefry_keep_mask_reference(keys.cpu(), (8, 576, 64), 0.9)
+        assert torch.equal(out.cpu(), want)
+        masks.append(out.clone())
+    assert not torch.equal(masks[0], masks[1]) and torch.equal(masks[0], masks[2])
+
+
+def test_dropout_kernel_refuses_a_key_on_the_cpu(device):
+    with pytest.raises(ValueError, match="CUDA key"):
+        dropout.threefry_keep_mask_cuda(torch.zeros(2, dtype=torch.int32), (4,), 0.9)
+    with pytest.raises(ValueError, match="int32"):
+        dropout.threefry_keep_mask_cuda(torch.zeros(2, device=device), (4,), 0.9)

@@ -23,6 +23,10 @@ residual:
   the port's does not. Held three steps without re-syncing, that gap took
   the losses 3e-3 apart by the third step.
 
+With ``model.dropout=0.1`` both packages drop with Flax's masks from the
+step key ``fold_in(key(1), step)`` (the port's ``ops/dropout.py``), and the
+same cases hold at the same bars.
+
 ``sin5`` is no parameter here: it reaches only the fused kernels
 (``mri_inr_tpu/train/trainer.py:_make_forward``), never the module path.
 """
@@ -45,12 +49,11 @@ from mri_inr_tpu_torch.train import trainer as ttrainer
 
 torch.set_num_threads(1)
 
-WIDTHS = ("model.dim_hidden=64", "model.latent_dim=32", "model.num_layers=3",
-          "model.dropout=0.0")
+WIDTHS = ("model.dim_hidden=64", "model.latent_dim=32", "model.num_layers=3")
 
 
-def _models(residual: bool, precision: str):
-    sets = [*WIDTHS, f"model.residual={str(residual).lower()}"]
+def _models(residual: bool, precision: str, dropout: float = 0.0):
+    sets = [*WIDTHS, f"model.dropout={dropout}", f"model.residual={str(residual).lower()}"]
     jm = jms.from_config(jconfig.load_train_configuration(None, sets).model, precision)
     tm = tms.from_config(tconfig.load_train_configuration(None, sets).model, precision,
                          device="cpu")
@@ -68,8 +71,8 @@ class Steppers:
     """Both packages' module-path SGD steps on one model configuration, from
     the weights the JAX model's ``init`` draws."""
 
-    def __init__(self, residual: bool, precision: str):
-        jm, self.model = _models(residual, precision)
+    def __init__(self, residual: bool, precision: str, dropout: float = 0.0):
+        jm, self.model = _models(residual, precision, dropout)
         self.jstate = jtrainer.create_train_state(jm, jax.random.key(0),
                                                   jnp.zeros((4, 32, 32)), "sgd", 1e-3)
         load_flax_params(self.model, jax.device_get(self.jstate.params))
@@ -95,11 +98,11 @@ class Steppers:
         return {n: p.detach().clone() for n, p in self.model.named_parameters()}
 
 
-def three_module_steps(residual: bool, data_seed: int = 0):
+def three_module_steps(residual: bool, data_seed: int = 0, dropout: float = 0.0):
     """(JAX losses, port losses, JAX parameters, port parameters, start)
     after three fp32 SGD steps of both packages' module path."""
     fully, under = _batch(data_seed)
-    s = Steppers(residual, "fp32")
+    s = Steppers(residual, "fp32", dropout)
     start = s.port_params()
     losses = [s.step(fully, under) for _ in range(3)]
     assert s.tstate.step == int(s.jstate.step) == 3
@@ -107,9 +110,8 @@ def three_module_steps(residual: bool, data_seed: int = 0):
             start)
 
 
-@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
-def test_three_module_path_steps_match_jax(residual):
-    jl, tl, want, got, start = three_module_steps(residual)
+def _check_three_steps(residual: bool, dropout: float):
+    jl, tl, want, got, start = three_module_steps(residual, dropout=dropout)
     for i, (j, t) in enumerate(zip(jl, tl)):
         assert abs(t - j) <= 1e-5, (i, t, j)
     assert tl[2] < tl[0]  # the steps train
@@ -118,12 +120,25 @@ def test_three_module_path_steps_match_jax(residual):
                                    err_msg=name)
     # the three steps moved the weights far more than the bar they are held to
     assert max((p - start[n]).abs().max().item() for n, p in got.items()) > 1e-3
+    return jl, tl
 
 
 @pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
-def test_bf16_module_path_steps_match_jax(residual):
+def test_three_module_path_steps_match_jax(residual):
+    _check_three_steps(residual, 0.0)
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+def test_three_module_path_steps_with_dropout_match_jax(residual):
+    """Dropout 0.1: both packages drop with the same Flax masks, so the
+    steps agree at the dropout-free bars; the masks change the losses."""
+    jl, tl = _check_three_steps(residual, 0.1)
+    assert abs(tl[0] - three_module_steps(residual)[1][0]) > 1e-4
+
+
+def _check_bf16_steps(residual: bool, dropout: float):
     fully, under = _batch(0)
-    s, ref = Steppers(residual, "bf16"), Steppers(residual, "fp32")
+    s, ref = Steppers(residual, "bf16", dropout), Steppers(residual, "fp32", dropout)
     start = s.port_params()
     for i in range(3):
         s.sync_jax_to_port()
@@ -145,6 +160,18 @@ def test_bf16_module_path_steps_match_jax(residual):
         jax_gap = max((want[n] - fp32[n]).abs().max().item() for n in got if n.endswith("bias"))
         assert jax_gap > 1e-4, (i, jax_gap)
     assert max((p - start[n]).abs().max().item() for n, p in s.port_params().items()) > 1e-3
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+def test_bf16_module_path_steps_match_jax(residual):
+    _check_bf16_steps(residual, 0.0)
+
+
+@pytest.mark.parametrize("residual", [False, True], ids=["plain", "residual"])
+def test_bf16_module_path_steps_with_dropout_match_jax(residual):
+    """Dropout 0.1 in bf16: the kept values scaled by Flax's bf16 keep
+    probability (0.8984375), at the dropout-free bars."""
+    _check_bf16_steps(residual, 0.1)
 
 
 def test_residual_model_has_its_skip_on_both_sides():

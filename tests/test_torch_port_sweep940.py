@@ -153,7 +153,7 @@ def test_sweep940_json_holds_every_field(sweep):
     assert set(out["launches"]) == {"data", "train_to_2", "train_to_3", "offline", "online",
                                     "shard0", "shard1"}
     assert set(out["launches"]["offline"]) == {"dft2c", "siren_train_fwd", "siren_train_bwd",
-                                               "siren_forward"}
+                                               "siren_forward", "threefry_dropout"}
     for key in ("summary", "online_summary", "sharded_summary"):
         assert set(out[key]) == {"PSNR", "SSIM", "NRMSE"}
     summary = (root / "eval" / "full" / "metrics_summary.txt").read_text()

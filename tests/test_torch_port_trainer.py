@@ -37,7 +37,10 @@ from mri_inr_tpu.train import trainer as jtrainer
 from mri_inr_tpu_torch.cli import train as cli_train
 from mri_inr_tpu_torch.data.dataset import MRIDataset
 from mri_inr_tpu_torch.interop import load_flax_params, params_from_flax
+from mri_inr_tpu_torch.models import flax_init
 from mri_inr_tpu_torch.models.modulated_siren import ModulatedSiren
+from mri_inr_tpu_torch.models.siren import flax_dropout
+from mri_inr_tpu_torch.ops import dropout as tdrop
 from mri_inr_tpu_torch.models.perceptual import PerceptualEncoderV2
 from mri_inr_tpu_torch.ops import siren_train_kernel as tstk
 from mri_inr_tpu_torch.ops import tiling as ttiling
@@ -177,14 +180,19 @@ def test_step_seed_is_a_pure_function_in_range(rank):
 
 def test_each_step_route_draws_its_jax_routes_seed(datasets, monkeypatch):
     """The fused per-step route draws the mesh step's seed (rank 0 folded in,
-    as ``train_mod_siren.py``'s one-device mesh does), the module step and
-    the scan epoch the unfolded seed: the seed each route's dropout sees."""
+    as ``train_mod_siren.py``'s one-device mesh does), the fused scan epoch
+    the unfolded seed; the module path, per step and in the scan epoch,
+    draws Flax's masks under the unfolded step key (its mesh step is GSPMD):
+    the draw each route's dropout sees."""
     train, _ = datasets
     fully, under = (torch.from_numpy(a) for a in next(train.batches(32, seed=0)))
     seen = set()
     seed_tensor = tstk.seed_tensor
     monkeypatch.setattr(tstk, "seed_tensor",
                         lambda seed, device: seen.add(int(seed)) or seed_tensor(seed, device))
+    keep_mask = tdrop.threefry_keep_mask
+    monkeypatch.setattr(tdrop, "threefry_keep_mask", lambda keys, *a, **k: seen.add(
+        tuple(keys.numpy().view(np.uint32))) or keep_mask(keys, *a, **k))
 
     def draws(use_pallas, scan):
         seen.clear()
@@ -202,8 +210,11 @@ def test_each_step_route_draws_its_jax_routes_seed(datasets, monkeypatch):
     mesh_seed, scan_seed = _jax_seeds(9, [5], rank=0)[0], _jax_seeds(9, [5])[0]
     assert mesh_seed != scan_seed
     assert draws(True, scan=False) == {mesh_seed}
-    assert draws(False, scan=False) == {scan_seed}
-    assert draws(True, scan=True) == draws(False, scan=True) == {scan_seed}
+    assert draws(True, scan=True) == {scan_seed}
+    step_key = jax.random.key_data(jax.random.fold_in(jax.random.key(9), 5))
+    layer_keys = {tuple(flax_init.fold_in_static(np.asarray(step_key), "net", f"layer_{i}",
+                                                 "Dropout_0", 1)) for i in range(3)}
+    assert draws(False, scan=False) == draws(False, scan=True) == layer_keys
 
 
 def test_fused_train_step_reduces_loss_with_dropout(datasets):
@@ -222,8 +233,9 @@ def test_fused_train_step_reduces_loss_with_dropout(datasets):
 @pytest.mark.parametrize("kw", [dict(), dict(residual=True)], ids=["plain", "residual"])
 def test_module_path_step_draws_dropout_from_the_step_seed(datasets, kw):
     """``use_pallas=False`` (and every residual model): dropout masks come
-    from the counter hash of the step's seed, so two runs repeat, the global
-    stream is untouched and the model is left in eval mode."""
+    from the step's key (Flax's masks, ``ops/dropout.py``), so two runs
+    repeat, the global stream is untouched and the model is left in eval
+    mode."""
     train, _ = datasets
     fully, under = (torch.from_numpy(a) for a in next(train.batches(32, seed=0)))
 
@@ -247,9 +259,12 @@ def test_module_path_step_draws_dropout_from_the_step_seed(datasets, kw):
 
 @pytest.mark.parametrize("kw", [dict(), dict(residual=True)], ids=["plain", "residual"])
 def test_module_path_masks_are_the_fused_paths_hash(datasets, kw):
-    """The module path's hidden layer i drops with ``dropout_mask(seed, i,
-    keep, (B, S, H))``, the fused path's mask: its first step's loss equals
-    a forward with those masks multiplied in by hand."""
+    """The module path no longer drops with the fused path's counter hash:
+    its hidden layer i keeps Flax's ``bernoulli`` mask of the layer's key
+    (``epoch_dropout_keys``, ``ops/dropout.py``), scaled as Flax's dropout
+    scales it. Its first step's loss equals a forward with those masks
+    applied by hand, and the masks differ from the hash's
+    ``dropout_mask(seed, i, keep, (B, S, H))``."""
     train, _ = datasets
     fully, under = (torch.from_numpy(a) for a in next(train.batches(32, seed=0)))
     model = _model(dropout=0.1, **kw)
@@ -258,12 +273,15 @@ def test_module_path_masks_are_the_fused_paths_hash(datasets, kw):
         layer.register_forward_hook(lambda m, args, out, i=i: seen.append((i, out.detach())))
     ref = _model(dropout=0.0, **kw)
     ref.load_state_dict(model.state_dict())
+    keys = ttrainer.epoch_dropout_keys(3, 0, 1, model)[0]
     seed = ttrainer.step_seed(3, 0)
     hand = {}
     for i, layer in enumerate(ref.net.layers):
-        mask = tstk.dropout_mask(torch.tensor([float(seed)]), i, 0.9, (32, 576, 64))
-        hand[i] = mask
-        layer.register_forward_hook(lambda m, args, out, i=i: (out.float() * hand[i]).to(out.dtype))
+        keep = tdrop.threefry_keep_mask(tdrop.keys_tensor(keys[i]), (32, 576, 64), 0.9)
+        hash_mask = tstk.dropout_mask(torch.tensor([float(seed)]), i, 0.9, (32, 576, 64))
+        assert not torch.equal(keep, hash_mask != 0)
+        hand[i] = keep
+        layer.register_forward_hook(lambda m, args, out, i=i: flax_dropout(out, hand[i], 0.1))
     step = ttrainer.make_train_step(model, tlosses.mse, 32, 24, use_pallas=False)
     loss = float(step(ttrainer.create_train_state(model, "sgd", 1e-2), fully, under, 3))
     with torch.no_grad():
@@ -272,8 +290,8 @@ def test_module_path_masks_are_the_fused_paths_hash(datasets, kw):
     assert loss == want
     assert [i for i, _ in seen] == list(range(len(model.net.layers)))
     for i, out in seen:  # each layer's output holds zeros exactly where its mask does
-        assert torch.equal(out == 0, hand[i] == 0)
-        assert 0.05 < float((hand[i] == 0).float().mean()) < 0.15
+        assert torch.equal(out == 0, ~hand[i])
+        assert 0.05 < float((~hand[i]).float().mean()) < 0.15
     assert all(layer.dropout_mask_fn is None for layer in model.net.layers)
 
 
