@@ -102,7 +102,9 @@ the CUDA toolkit. It imports nothing of JAX. Phases:
    TensorBoard losses against a one-process run on the ranks' two halves
    of every batch (1e-5) and one on the whole batch (9e-3, a bar that a
    one-process run with every rank on rank 0's rows, a planted fault, must
-   exceed)); one
+   exceed)); one fp32 step's gradients on the whole batch against the mean
+   of its two halves', printed by parameter group and checked against
+   nothing (``halves_gradient_gap``); one
    data-parallel step with dropout against Adam on the mean of the two
    ranks' local steps emulated here; the test CLI with ``--devices 2``
    against the one-process, ``--shard`` and ``--merge-shards`` files, and
@@ -1918,8 +1920,8 @@ def rank_worker(args: list[str]) -> int:
 
 
 def witness_runs(pkg, tmp: pathlib.Path, train_argv: list[str], tag: str,
-                 fault: bool = False) -> dict:
-    """Phase 13's one-process runs of the train CLI for three epochs, as
+                 fault: bool = False, epochs: int = 3) -> dict:
+    """Phase 13's one-process runs of the train CLI for ``epochs`` epochs, as
     (train loss, validation loss) an epoch: ``whole``, on the whole batch;
     ``halves``, every step's gradients computed on the ranks' two halves of
     the batch and averaged as the collective does
@@ -1932,7 +1934,7 @@ def witness_runs(pkg, tmp: pathlib.Path, train_argv: list[str], tag: str,
     def run(name: str):
         return [(r["train_loss"], r["val_loss"]) for r in cli_train.main(train_argv + [
             "--set", f"training.output_dir={tmp / f'dp_{name}_{tag}'}",
-            "--set", "training.epochs=3"])._progress]
+            "--set", f"training.epochs={epochs}"])._progress]
 
     out = {"whole": run("whole")}
     make_body = trainer._make_step_body
@@ -1942,6 +1944,45 @@ def witness_runs(pkg, tmp: pathlib.Path, train_argv: list[str], tag: str,
             out[name] = run(name)
     finally:
         trainer._make_step_body = make_body
+    return out
+
+
+GRAD_GROUPS = (("encoder", lambda n: n.startswith("encoder.")),
+               ("modulator", lambda n: n.startswith("modulator.")),
+               ("SIREN weights", lambda n: n.startswith("net.") and n.endswith("weight")),
+               ("SIREN biases", lambda n: n.startswith("net.") and n.endswith("bias")))
+
+
+def halves_gradient_gap(pkg, device) -> dict:
+    """One fp32 step's gradients of configs/train.yaml's seeded model (dropout
+    off, the fused route) on phase 13's global batch, against the mean of
+    the gradients of its ranks' two halves, summed in rank order as the
+    all-reduce sums them: per parameter group the relative gap
+    ``|halves - whole| / |whole|`` (norms over the group) and the largest
+    element's gap. A reading only: it checks nothing."""
+    cli_train, trainer, stk, losses = pkg["cli_train"], pkg["trainer"], pkg["stk"], pkg["losses"]
+    cfg, state = dp_state(pkg["config"], cli_train, trainer, device, "0.0", "sgd", "1e-2", "fp32")
+    model = state.model
+    fully, under = dp_batch(device)
+
+    def grads(f, u) -> dict:
+        model.zero_grad(set_to_none=True)
+        pred = stk.fused_train_apply(model, u, DP_SEED, sin5=cfg.training.sin5)
+        losses.mse(pred.float(), pkg["tiling"].extract_center_batch(f, 32, 24).float()).backward()
+        return {n: p.grad.detach().clone() for n, p in model.named_parameters()
+                if p.grad is not None}
+
+    whole = grads(fully, under)
+    rows = TRAIN_BATCH // RANKS
+    halves = [grads(fully[r * rows : (r + 1) * rows], under[r * rows : (r + 1) * rows])
+              for r in range(RANKS)]
+    out = {}
+    for group, member in GRAD_GROUPS:
+        names = [n for n in whole if member(n)]
+        w = torch.cat([whole[n].reshape(-1) for n in names]).double()
+        h = torch.cat([sum(g[n] for g in halves).reshape(-1) / RANKS for n in names]).double()
+        out[group] = {"relative": float((h - w).norm() / w.norm()),
+                      "max_abs": float((h - w).abs().max())}
     return out
 
 
@@ -2029,6 +2070,11 @@ def multirank_path(pkg, tmp: pathlib.Path, device, meta: pathlib.Path,
           "2-rank losses disagree with one process on the whole batch")
     check(gap["fault"] > MULTIRANK_WHOLE_BAR,
           "the whole-batch bar does not see half of the batch left out")
+    grad_gap = halves_gradient_gap(pkg, device)
+    print("one fp32 step, one process, the two halves' mean gradient against the whole "
+          "batch's (a reading, no check): " + "; ".join(
+              f"{g} {v['relative']:.3e} relative, max |diff| {v['max_abs']:.3e}"
+              for g, v in grad_gap.items()) + f" [{label}]")
     for r, rep in enumerate(first + resumed):
         if rep is resumed[0]:
             print("  (resumed run)")

@@ -17,7 +17,15 @@ had 1.191 when its row went to NaN on the card) and the latent at tens.
 - Control, the trunk as drawn: three SGD steps at lr 1e-3 on each route,
   each package on its own: losses within 1e-5, parameters within 1e-6 (the
   bars of ``test_torch_port_trainer.py::test_three_sgd_steps_match_jax``);
-  the trunk bit for bit at its init on both sides.
+  the trunk bit for bit at its init on both sides. The same with
+  ``model.dropout=0.1``, as the JAX rows trained: the module route drops
+  with Flax's masks under ``fold_in(key(1), step)`` on both sides, the fused
+  route with the JAX train CLI's fused seeds (its one-device mesh step,
+  rank 0 folded in, as the port's per-step route draws them). On this
+  trunk the untrained SIREN's hidden activations are small, so the masks
+  move the parameters little, but more than the packages part: without
+  them the port lies 5.6e-7 / 6.8e-7 (module / fused) from JAX's dropped
+  steps, with them 9.3e-10 / 3.5e-7.
 - Ill-posed: five Adam steps of the port (configs/train.yaml's lr 1e-4);
   before each, the JAX package's step from the port's parameters (SGD at lr
   2^20, so its update is its gradient scaled exactly) and from those
@@ -41,6 +49,7 @@ import torch
 
 from mri_inr_tpu.configuration import config as jconfig
 from mri_inr_tpu.models import modulated_siren as jms
+from mri_inr_tpu.parallel import mesh as jmesh
 from mri_inr_tpu.train import losses as jlosses
 from mri_inr_tpu.train import trainer as jtrainer
 from mri_inr_tpu_torch.configuration import config as tconfig
@@ -52,7 +61,8 @@ from mri_inr_tpu_torch.train import trainer as ttrainer
 torch.set_num_threads(1)
 
 SETS = ("model.dim_hidden=64", "model.latent_dim=32", "model.num_layers=3",
-        "model.dropout=0.0", "model.encoder_type=vgg")
+        "model.encoder_type=vgg")
+DROPOUT = 0.1  # the JAX rows' model.dropout (configs/train.yaml)
 ILL_POSED = 2.0
 TRUNK = "encoder.encoder.trunk."
 ROUTES = ["fused", "module"]
@@ -65,9 +75,17 @@ def _batch():
     return fully, under
 
 
+def _sets(dropout: float = 0.0) -> list[str]:
+    return [*SETS, f"model.dropout={dropout}"]
+
+
+def _jax_model(dropout: float = 0.0):
+    return jms.from_config(jconfig.load_train_configuration(None, _sets(dropout)).model)
+
+
 @pytest.fixture(scope="module")
 def jax_model():
-    return jms.from_config(jconfig.load_train_configuration(None, list(SETS)).model)
+    return _jax_model()
 
 
 def _init(jm, scale: float) -> dict:
@@ -80,16 +98,16 @@ def _init(jm, scale: float) -> dict:
     return params
 
 
-def _port_model(params) -> torch.nn.Module:
-    cfg = tconfig.load_train_configuration(None, list(SETS))
+def _port_model(params, dropout: float = 0.0) -> torch.nn.Module:
+    cfg = tconfig.load_train_configuration(None, _sets(dropout))
     return load_flax_params(tms.from_config(cfg.model, "fp32", device="cpu"), params)
 
 
-def _jax_step(jm, route: str, optimizer: str, lr: float, params):
+def _jax_step(jm, route: str, optimizer: str, lr: float, params, mesh=None):
     """(the JAX package's jitted step on ``route``, its state at ``params``)."""
     fused = route == "fused"
-    step = jtrainer.make_train_step(jm, jlosses.mse, 32, 24, use_pallas=fused, interpret=fused,
-                                    sin5=fused, freeze_encoder=True)
+    step = jtrainer.make_train_step(jm, jlosses.mse, 32, 24, mesh=mesh, use_pallas=fused,
+                                    interpret=fused, sin5=fused, freeze_encoder=True)
     state = jtrainer.create_train_state(jm, jax.random.key(0), jnp.zeros((4, 32, 32)),
                                         optimizer, lr)
     p = jax.tree.map(jnp.asarray, params)
@@ -114,18 +132,29 @@ def test_the_scaled_trunk_is_ill_posed(jax_model):
         assert tm.encode(under).abs().max().item() >= 10.0
 
 
-@pytest.mark.parametrize("route", ROUTES)
-def test_frozen_trunk_sgd_steps_match_jax(jax_model, route):
-    """The control: the trunk as drawn, each package on its own."""
+@pytest.mark.parametrize("route,dropout", [("fused", 0.0), ("module", 0.0),
+                                           ("fused", DROPOUT), ("module", DROPOUT)],
+                         ids=["fused", "module", "fused-dropout", "module-dropout"])
+def test_frozen_trunk_sgd_steps_match_jax(jax_model, route, dropout):
+    """The control: the trunk as drawn, each package on its own, dropout off
+    and at the JAX rows' rate."""
     fully, under = _batch()
     params = _init(jax_model, 1.0)
-    jstep, jstate = _jax_step(jax_model, route, "sgd", 1e-3, params)
-    tm = _port_model(params)
+    jm, mesh = jax_model, None
+    if dropout:
+        jm = _jax_model(dropout)
+        # the JAX train CLI's fused step runs under a mesh, one device here
+        mesh = jmesh.make_mesh(1) if route == "fused" else None
+    jstep, jstate = _jax_step(jm, route, "sgd", 1e-3, params, mesh)
+    jbatch = (jnp.asarray(fully), jnp.asarray(under))
+    if mesh is not None:
+        jbatch = jmesh.shard_batch(mesh, *jbatch)
+    tm = _port_model(params, dropout)
     init = {n: p.detach().clone() for n, p in tm.named_parameters()}
     tstep, tstate = _port_step(tm, route, "sgd", 1e-3)
     losses = []
     for i in range(3):
-        jstate, jloss = jstep(jstate, jnp.asarray(fully), jnp.asarray(under), jax.random.key(1))
+        jstate, jloss = jstep(jstate, *jbatch, jax.random.key(1))
         losses.append(float(tstep(tstate, torch.from_numpy(fully), torch.from_numpy(under), 1)))
         assert abs(losses[-1] - float(jloss)) <= 1e-5, (i, losses[-1], float(jloss))
     assert losses[-1] < losses[0]
@@ -137,6 +166,14 @@ def test_frozen_trunk_sgd_steps_match_jax(jax_model, route):
             assert torch.equal(p.detach(), init[name]), name
     assert max((p.detach() - init[n]).abs().max().item()
                for n, p in tm.named_parameters()) > 1e-4
+    if dropout:  # the masks were drawn: the port without them parts further from JAX
+        free = _port_model(params)
+        free_step, free_state = _port_step(free, route, "sgd", 1e-3)
+        for _ in range(3):
+            free_step(free_state, torch.from_numpy(fully), torch.from_numpy(under), 1)
+        gap, free_gap = (max((p.detach() - want[n]).abs().max().item()
+                             for n, p in m.named_parameters()) for m in (tm, free))
+        assert free_gap > gap, (gap, free_gap)
 
 
 def _nudged(params, eps: float):
