@@ -54,7 +54,7 @@ from mri_inr_tpu_torch.train import checkpoint as ckpt_lib
 from mri_inr_tpu_torch.train import losses
 from mri_inr_tpu_torch.train.trainer import (Trainer, create_train_state,
                                              splice_pretrained_encoder)
-from mri_inr_tpu_torch.utils.profiling import device_trace
+from mri_inr_tpu_torch.utils.profiling import SPANS, device_trace, span_report
 
 
 def resolve_data_axis(data_axis_size: int | None, batch_size: int) -> int:
@@ -227,8 +227,10 @@ def main(argv: list[str] | None = None, datasets=None) -> Trainer:
     profile_dir = tcfg.profile_dir
     if profile_dir and world > 1:  # a trace a rank
         profile_dir = pathlib.Path(profile_dir) / f"rank{distributed.process_index()}"
+    SPANS.reset()
     with device_trace(profile_dir):
         trainer.train(tcfg.epochs, initial_epoch)
+    print("host time by span over the training epochs:\n" + span_report())
     print(f"done; final step {trainer.state.step}; artifacts in {run_dir}")
     return trainer
 

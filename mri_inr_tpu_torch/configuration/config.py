@@ -31,7 +31,11 @@ the port they mean:
   ``training.device_data`` on the card the train CLI raises (anomaly
   detection cannot run inside a CUDA graph).
 - ``training.profile_dir``: a ``torch.profiler`` trace of the training
-  epochs, written there (``utils/profiling.device_trace``).
+  epochs, written there (``utils/profiling.device_trace``); the program's
+  spans (``mri.epoch.*``, ``mri.train.*``, ``mri.data.*``) are ranges in
+  it. With or without it, the train CLI prints the spans' host seconds and
+  entries over the training epochs when they end
+  (``utils/profiling.span_report``).
 - ``model.encoder_path`` and ``training.perceptual_encoder_path``: files
   of ``python -m mri_inr_tpu_torch.cli.train_encoder`` (torch state dicts),
   not the JAX package's Orbax directories.

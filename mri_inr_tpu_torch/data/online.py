@@ -33,6 +33,11 @@ address). Eval consumers read a separate stash of epoch-0 images
 (:meth:`OnlineKspaceDataset.device_image_stacks`), which remask training
 never overwrites.
 
+Spans (``utils/profiling.span``): ``mri.data.materialize`` around
+:meth:`OnlineKspaceDataset.materialize`, with ``mri.data.images`` (mask,
+DFT, normalise), ``mri.data.masks`` (the host draw) inside it and
+``mri.data.tiles``.
+
 ``h5py`` is imported by the ``.h5`` constructor only;
 :meth:`OnlineKspaceDataset.from_volumes` takes in-memory complex volumes.
 """
@@ -53,6 +58,7 @@ from mri_inr_tpu_torch.data.preprocessing import _stable_seed, get_mri_type, loa
 from mri_inr_tpu_torch.ops import fft_kernel, tiling
 from mri_inr_tpu_torch.utils import jax_random
 from mri_inr_tpu_torch.utils.device import resolve_device
+from mri_inr_tpu_torch.utils.profiling import span
 
 READ_THREADS = 8
 
@@ -171,35 +177,37 @@ class OnlineKspaceDataset:
         e = int(epoch) if self.remask else 0
         w = self._k.shape[3]
         rows = []
-        for vi, stem in enumerate(self.stems):
-            if self.mask_fn is not None:
-                rows.append(np.asarray(self.mask_fn(vi, e), bool))
-                continue
-            key = jax_random.key(_stable_seed(stem, self.cf, self.acc))
-            if self.remask:
-                key = jax_random.fold_in(key, e)
-            rows.append(kspace.random_mask(key, w, self.cf, self.acc))
-        return np.stack(rows)
+        with span("mri.data.masks"):
+            for vi, stem in enumerate(self.stems):
+                if self.mask_fn is not None:
+                    rows.append(np.asarray(self.mask_fn(vi, e), bool))
+                    continue
+                key = jax_random.key(_stable_seed(stem, self.cf, self.acc))
+                if self.remask:
+                    key = jax_random.fold_in(key, e)
+                rows.append(kspace.random_mask(key, w, self.cf, self.acc))
+            return np.stack(rows)
 
     @torch.no_grad()
     def _images(self, epoch: int | None) -> torch.Tensor:
         """(N, H, W) normalised images of the selected slices: fully
         sampled (``epoch`` None) or under mask epoch ``epoch``. One
         reconstruction call over all V*S slices."""
-        k = self._k
-        nvol, nsl, h, w, _ = k.shape
-        if epoch is not None:
-            m = torch.as_tensor(self.masks(epoch), device=self.device)
-            k = k * m[:, None, None, :, None].to(k.dtype)
-        recon = (fft_kernel.reconstruct_magnitude_ri_dft if self.device.type == "cuda"
-                 else kspace.reconstruct_magnitude_ri)
-        imgs = recon(k)  # (V, S, H, W)
-        del k
-        lo = imgs.amin(dim=(1, 2, 3), keepdim=True)
-        hi = imgs.amax(dim=(1, 2, 3), keepdim=True)
-        # a constant (zero-padded, corrupt) volume has hi == lo: zeros, not NaN
-        imgs = torch.where(hi > lo, (imgs - lo) / (hi - lo), 0.0)
-        return imgs.reshape(nvol * nsl, h, w).index_select(0, self._flat_idx)
+        with span("mri.data.images"):
+            k = self._k
+            nvol, nsl, h, w, _ = k.shape
+            if epoch is not None:
+                m = torch.as_tensor(self.masks(epoch), device=self.device)
+                k = k * m[:, None, None, :, None].to(k.dtype)
+            recon = (fft_kernel.reconstruct_magnitude_ri_dft if self.device.type == "cuda"
+                     else kspace.reconstruct_magnitude_ri)
+            imgs = recon(k)  # (V, S, H, W)
+            del k
+            lo = imgs.amin(dim=(1, 2, 3), keepdim=True)
+            hi = imgs.amax(dim=(1, 2, 3), keepdim=True)
+            # a constant (zero-padded, corrupt) volume has hi == lo: zeros, not NaN
+            imgs = torch.where(hi > lo, (imgs - lo) / (hi - lo), 0.0)
+            return imgs.reshape(nvol * nsl, h, w).index_select(0, self._flat_idx)
 
     def _tiles(self, imgs: torch.Tensor) -> torch.Tensor:
         return tiling.image_to_patches(imgs, self.outer, self.inner).reshape(
@@ -215,21 +223,26 @@ class OnlineKspaceDataset:
         otherwise). Both are the same tensors every call: ``under`` is
         rewritten in place, on the current stream, when the mask epoch
         changes."""
-        if self._fully is None:
-            self._fully_imgs = self._images(None)
-            self._fully = self._tiles(self._fully_imgs)
-        e = int(epoch) if self.remask else 0
-        if self._under_epoch != e:
-            # the epoch-e images are dropped: eval consumers read the
-            # epoch-0 stash, never a remask epoch's
-            tiles = self._tiles(self._images(e))
-            if self._under is None:
-                self._under = tiles.contiguous()
-            else:
-                self._under.copy_(tiles)
-            self._under_epoch = e
-            self.mask_epochs.append(e)
-        return self._fully, self._under
+        with span("mri.data.materialize"):
+            if self._fully is None:
+                self._fully_imgs = self._images(None)
+                with span("mri.data.tiles"):
+                    self._fully = self._tiles(self._fully_imgs)
+            e = int(epoch) if self.remask else 0
+            if self._under_epoch != e:
+                # the epoch-e images are dropped: eval consumers read the
+                # epoch-0 stash, never a remask epoch's
+                imgs = self._images(e)
+                with span("mri.data.tiles"):
+                    tiles = self._tiles(imgs)
+                    del imgs
+                    if self._under is None:
+                        self._under = tiles.contiguous()
+                    else:
+                        self._under.copy_(tiles)
+                self._under_epoch = e
+                self.mask_epochs.append(e)
+            return self._fully, self._under
 
     def batches(self, batch_size: int, seed: int, shuffle: bool = True, prefetch: int = 0):
         """Host batches with :class:`MRIDataset`'s epoch semantics

@@ -32,6 +32,10 @@ the forward on its band of rows and folds it with the halo exchange of
 the metrics. A slice whose patch-row count the ranks do not divide is
 reconstructed whole on every rank, as the JAX package falls back.
 
+Spans (``utils/profiling.span``): :func:`evaluate_files_device`'s
+``mri.sweep.stage``, ``mri.sweep.dispatch`` and ``mri.sweep.fetch`` (its
+``timings``).
+
 Not carried over: the device sweep's padding to a bucket of slices and its
 ``steady_probe``, which exist to reuse compiled TPU programs; PyTorch
 compiles nothing per shape.
@@ -52,6 +56,7 @@ from mri_inr_tpu_torch.eval import metrics as metrics_mod
 from mri_inr_tpu_torch.ops import tiling
 from mri_inr_tpu_torch.parallel import distributed, halo_fold
 from mri_inr_tpu_torch.utils.device import resolve_device
+from mri_inr_tpu_torch.utils.profiling import span
 
 #: the most patches one forward of a metric sweep takes: a stack runs in
 #: pieces of whole slices up to this many (81 slices of 320 x 320). The
@@ -282,47 +287,44 @@ def evaluate_files_device(reconstructor: SliceReconstructor, sampler,
     total = len(sampler) if num_samples is None else min(num_samples, len(sampler))
     device = reconstructor.device
 
-    t0 = time.perf_counter()
-    if hasattr(sampler, "device_stacks"):
-        slice_ids, fully, under = sampler.device_stacks(total)
-        groups = [(list(range(total)), fully.to(device), under.to(device))]
-    else:
-        pairs = [sampler.next_sample() for _ in range(total)]
-        slice_ids = [p.slice_id for p in pairs]
-        by_shape: dict[tuple[int, int], list[int]] = {}
-        for i, p in enumerate(pairs):
-            by_shape.setdefault(p.fully_sampled.shape, []).append(i)
-        groups = [
-            (idxs,
-             torch.from_numpy(np.stack([pairs[i].fully_sampled for i in idxs])).to(device),
-             torch.from_numpy(np.stack([pairs[i].undersampled for i in idxs])).to(device))
-            for idxs in by_shape.values()
-        ]
-    _sync(device)
-    stage_secs = time.perf_counter() - t0
+    with span("mri.sweep.stage") as stage:
+        if hasattr(sampler, "device_stacks"):
+            slice_ids, fully, under = sampler.device_stacks(total)
+            groups = [(list(range(total)), fully.to(device), under.to(device))]
+        else:
+            pairs = [sampler.next_sample() for _ in range(total)]
+            slice_ids = [p.slice_id for p in pairs]
+            by_shape: dict[tuple[int, int], list[int]] = {}
+            for i, p in enumerate(pairs):
+                by_shape.setdefault(p.fully_sampled.shape, []).append(i)
+            groups = [
+                (idxs,
+                 torch.from_numpy(np.stack([pairs[i].fully_sampled for i in idxs])).to(device),
+                 torch.from_numpy(np.stack([pairs[i].undersampled for i in idxs])).to(device))
+                for idxs in by_shape.values()
+            ]
+        _sync(device)
 
-    t1 = time.perf_counter()
-    futs = [(idxs, reconstructor.metrics_stack(fully, under))
-            for idxs, fully, under in groups]
-    dispatch_secs = time.perf_counter() - t1
+    with span("mri.sweep.dispatch") as dispatch:
+        futs = [(idxs, reconstructor.metrics_stack(fully, under))
+                for idxs, fully, under in groups]
 
-    t2 = time.perf_counter()
-    rows: dict[int, SliceResult] = {}
-    for idxs, fut in futs:
-        vals = fut.cpu().numpy()
-        for j, i in enumerate(idxs):
-            rows[i] = SliceResult(slice_ids[i], float(vals[0, j]), float(vals[1, j]),
-                                  float(vals[2, j]))
-    results = [rows[i] for i in range(total)]
-    fetch_secs = time.perf_counter() - t2
+    with span("mri.sweep.fetch") as fetch:
+        rows: dict[int, SliceResult] = {}
+        for idxs, fut in futs:
+            vals = fut.cpu().numpy()
+            for j, i in enumerate(idxs):
+                rows[i] = SliceResult(slice_ids[i], float(vals[0, j]), float(vals[1, j]),
+                                      float(vals[2, j]))
+        results = [rows[i] for i in range(total)]
 
     timings = {
-        "stage_seconds": stage_secs,
-        "dispatch_seconds": dispatch_secs,
-        "execute_fetch_seconds": fetch_secs,
+        "stage_seconds": stage.seconds,
+        "dispatch_seconds": dispatch.seconds,
+        "execute_fetch_seconds": fetch.seconds,
     }
-    log(f"device sweep: {total} slices staged in {stage_secs:.3f}s, "
-        f"dispatched in {dispatch_secs:.3f}s, executed+fetched in {fetch_secs:.3f}s")
+    log(f"device sweep: {total} slices staged in {stage.seconds:.3f}s, "
+        f"dispatched in {dispatch.seconds:.3f}s, executed+fetched in {fetch.seconds:.3f}s")
     return results, timings
 
 

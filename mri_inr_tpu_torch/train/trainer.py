@@ -35,7 +35,17 @@ In PyTorch's idiom:
   device from the epoch's index matrix (:func:`make_epoch_perm`), and on the
   card the epoch is one CUDA graph, captured once and replayed once per
   epoch. A dataset with ``materialize`` (the online k-space set) hands over
-  its device tiles each epoch; one with ``fully_tiles`` is uploaded once.
+  its device tiles each epoch; one with ``fully_tiles`` is uploaded once;
+- spans (``utils/profiling.span``: host seconds and entries, and a
+  ``torch.profiler`` range while one records) name an epoch's host work:
+  ``mri.epoch.train`` / ``mri.epoch.val`` around each epoch's loss,
+  ``mri.train.post_epoch`` (``mri.train.checkpoint`` inside),
+  ``mri.epoch.perm``, ``mri.epoch.fetch`` (the loss read back) and
+  ``mri.train.invalidate_packs``; in :class:`ScanEpoch` ``mri.epoch.call``
+  (its ``launch_seconds``) around ``mri.epoch.seeds``, ``mri.epoch.stage``
+  and ``mri.epoch.warm`` / ``capture`` / ``replay`` on the card or
+  ``mri.epoch.run`` (the plain loop). No span lies inside the body a graph
+  captures.
 
 Data parallelism (the counterpart of the JAX package's ``shard_map`` step
 over a ``data`` mesh): given a process group, every rank takes its
@@ -81,6 +91,7 @@ from mri_inr_tpu_torch.utils import jax_random
 from mri_inr_tpu_torch.utils import tensorboard as tb_lib
 from mri_inr_tpu_torch.utils import visualization
 from mri_inr_tpu_torch.utils.device import module_device, resolve_device
+from mri_inr_tpu_torch.utils.profiling import span
 
 
 @dataclass
@@ -493,16 +504,20 @@ class ScanEpoch:
             self._warm.clear()
             entry = None
         if entry is None and key not in self._warm:
-            side = torch.cuda.Stream(fully_all.device)
-            side.wait_stream(torch.cuda.current_stream(fully_all.device))
-            with torch.cuda.stream(side):
-                loss = self._run(state, fully_all, under_all, bufs, train)
-            torch.cuda.current_stream(fully_all.device).wait_stream(side)
+            with span("mri.epoch.warm"):
+                side = torch.cuda.Stream(fully_all.device)
+                side.wait_stream(torch.cuda.current_stream(fully_all.device))
+                with torch.cuda.stream(side):
+                    loss = self._run(state, fully_all, under_all, bufs, train)
+                torch.cuda.current_stream(fully_all.device).wait_stream(side)
             self._warm.add(key)
             return loss
         if entry is None:
-            entry = self._capture(key, state, fully_all, under_all, bufs, train, fingerprint)
-        entry.graph.replay()
+            with span("mri.epoch.capture"):
+                entry = self._capture(key, state, fully_all, under_all, bufs, train,
+                                      fingerprint)
+        with span("mri.epoch.replay"):
+            entry.graph.replay()
         for k, n in zip(_launch_counters(), entry.launches):
             k.launches += n
         self.replays += 1
@@ -510,31 +525,39 @@ class ScanEpoch:
 
     def __call__(self, state, fully_all: torch.Tensor, under_all: torch.Tensor,
                  perm: np.ndarray, base_seed: int, train: bool) -> torch.Tensor:
-        t0 = time.perf_counter()
+        with span("mri.epoch.call") as call:
+            loss = self._call(state, fully_all, under_all, perm, base_seed, train)
+        self.launch_seconds = call.seconds
+        return loss
+
+    def _call(self, state, fully_all, under_all, perm, base_seed, train) -> torch.Tensor:
         device = fully_all.device
         nb = perm.shape[0]
         # one process: the JAX scan epoch's dropout (its trainer.py:328);
         # over ranks the mesh step's, which the JAX package runs there instead
-        if not train:
-            seeds = np.zeros(nb, np.float32)
-        elif self.fused:
-            seeds = epoch_seeds(base_seed, state.step, nb, self.rank if self.world > 1 else None)
-        else:
-            seeds = epoch_dropout_keys(base_seed, state.step, nb, self.model).view(np.int32)
+        with span("mri.epoch.seeds"):
+            if not train:
+                seeds = np.zeros(nb, np.float32)
+            elif self.fused:
+                seeds = epoch_seeds(base_seed, state.step, nb,
+                                    self.rank if self.world > 1 else None)
+            else:
+                seeds = epoch_dropout_keys(base_seed, state.step, nb, self.model).view(np.int32)
         if self.world > 1:  # this rank's rows of every global batch
             perm = np.ascontiguousarray(mesh.local_rows(perm.T, self.rank, self.world).T)
         key = (fully_all.data_ptr(), under_all.data_ptr(), tuple(fully_all.shape),
                tuple(perm.shape), train)
-        bufs = self._stage(key, device, perm, seeds)
+        with span("mri.epoch.stage"):
+            bufs = self._stage(key, device, perm, seeds)
         if device.type == "cuda" and self.world == 1:
             loss = self._graphed(key, state, fully_all, under_all, bufs, train)
         else:
-            loss = self._run(state, fully_all, under_all, bufs, train)
-            if self.world > 1 and not train:
-                loss = distributed.all_reduce_mean_(loss.reshape(1), self.group)[0]
+            with span("mri.epoch.run"):
+                loss = self._run(state, fully_all, under_all, bufs, train)
+                if self.world > 1 and not train:
+                    loss = distributed.all_reduce_mean_(loss.reshape(1), self.group)[0]
         if train:
             state.step += nb
-        self.launch_seconds = time.perf_counter() - t0
         return loss
 
 
@@ -633,9 +656,11 @@ class Trainer:
                 fully = torch.from_numpy(fully).to(self.device)
                 under = torch.from_numpy(under).to(self.device)
                 losses.append(self._run_batch(fully, under, train))
-            loss = float(torch.stack(losses).mean())
+            with span("mri.epoch.fetch"):
+                loss = float(torch.stack(losses).mean())
         if train:
-            self.invalidate_packs()
+            with span("mri.train.invalidate_packs"):
+                self.invalidate_packs()
         return loss
 
     def _scan_epoch_loss(self, dataset, train: bool, epoch: int) -> float:
@@ -656,9 +681,11 @@ class Trainer:
                     torch.from_numpy(dataset.fully_tiles).to(self.device),
                     torch.from_numpy(dataset.under_tiles).to(self.device))
             fully_all, under_all = self._dev_tiles[key]
-        perm = make_epoch_perm(len(dataset), self.batch_size, epoch, shuffle=train)
-        return float(self.scan_epoch(self.state, fully_all, under_all, perm, self.base_seed,
-                                     train))
+        with span("mri.epoch.perm"):
+            perm = make_epoch_perm(len(dataset), self.batch_size, epoch, shuffle=train)
+        loss = self.scan_epoch(self.state, fully_all, under_all, perm, self.base_seed, train)
+        with span("mri.epoch.fetch"):
+            return float(loss)
 
     def invalidate_packs(self) -> None:
         """Make the validation step and the snapshots repack the kernel
@@ -689,9 +716,12 @@ class Trainer:
         try:
             for epoch in range(initial_epoch, epochs):
                 t0 = time.time()
-                train_loss = self._epoch_loss(self.train_dataset, train=True, epoch=epoch)
-                val_loss = self._epoch_loss(self.val_dataset, train=False, epoch=epoch)
-                self._post_epoch(epoch, train_loss, val_loss, time.time() - t0)
+                with span("mri.epoch.train"):
+                    train_loss = self._epoch_loss(self.train_dataset, train=True, epoch=epoch)
+                with span("mri.epoch.val"):
+                    val_loss = self._epoch_loss(self.val_dataset, train=False, epoch=epoch)
+                with span("mri.train.post_epoch"):
+                    self._post_epoch(epoch, train_loss, val_loss, time.time() - t0)
                 # a SIGTERM that reached any rank stops every rank here
                 if distributed.any_rank(bool(preempted)):
                     self.log(f"SIGTERM: stopping after epoch {epoch}")
@@ -708,9 +738,10 @@ class Trainer:
 
     def _save(self) -> None:
         """The primary writes the checkpoint; every rank waits for it."""
-        if self.primary:
-            ckpt_lib.save_state(self.run_dir, self.state.step, self.state)
-        distributed.sync_hosts("checkpoint")
+        with span("mri.train.checkpoint"):
+            if self.primary:
+                ckpt_lib.save_state(self.run_dir, self.state.step, self.state)
+            distributed.sync_hosts("checkpoint")
 
     # ------------------------------------------------------------------
     def _post_epoch(self, epoch: int, train_loss: float, val_loss: float, secs: float):

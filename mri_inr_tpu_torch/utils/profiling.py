@@ -1,8 +1,14 @@
 """Profiling helpers (counterpart of ``mri_inr_tpu/utils/profiling.py``): a
-wall-clock section timer, an opt-in ``torch.profiler`` trace and a timer
-for one call.
+wall-clock section timer that is also the program's span recorder, an
+opt-in ``torch.profiler`` trace and a timer for one call.
 
-- :class:`SectionTimer`: wall-clock seconds per named section.
+- :class:`SectionTimer`: wall-clock seconds and entries per named section;
+  while a ``torch.profiler`` records, each section is also a
+  ``record_function`` range, so it lands on the profiler's clock beside the
+  card's kernels (nesting gives the parent span by containment).
+- :data:`SPANS`: the process-wide recorder the program's spans use
+  (``mri.epoch.*``, ``mri.train.*``, ``mri.data.*``, ``mri.sweep.*``),
+  :func:`span`, its ``section``, and :func:`span_report`, its table.
 - :func:`device_trace`: a ``torch.profiler`` trace (CPU activity, and the
   card's kernels where one is present) written as a Chrome trace
   (``chrome://tracing``, Perfetto) under ``log_dir``; nothing for ``None``.
@@ -20,17 +26,51 @@ import time
 import torch
 
 
+class _Section:
+    """One entry of a section: a context manager whose ``seconds`` holds the
+    entry's host seconds once it has left."""
+
+    __slots__ = ("timer", "name", "seconds", "_t0", "_range")
+
+    def __init__(self, timer: "SectionTimer", name: str):
+        self.timer, self.name, self.seconds, self._range = timer, name, 0.0, None
+
+    def __enter__(self) -> "_Section":
+        # the cheap flag first: a record_function costs tens of microseconds
+        # with no profiler to take it
+        if torch.autograd.profiler._is_profiler_enabled:
+            self._range = torch.profiler.record_function(self.name)
+            self._range.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.seconds = time.perf_counter() - self._t0
+        if self._range is not None:
+            self._range.__exit__(*exc)
+            self._range = None
+        self.timer._add(self.name, self.seconds)
+
+
 class SectionTimer:
+    """Host seconds (``sections``) and entries (``counts``) per named
+    section. ``with timer.section(name) as s:`` times the block, also when
+    it raises; ``s.seconds`` is the entry's own time."""
+
     def __init__(self):
         self.sections: dict[str, float] = {}
+        self.counts: dict[str, int] = {}
 
-    @contextlib.contextmanager
-    def section(self, name: str):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.sections[name] = self.sections.get(name, 0.0) + (time.perf_counter() - t0)
+    def section(self, name: str) -> _Section:
+        return _Section(self, name)
+
+    def _add(self, name: str, secs: float) -> None:
+        self.sections[name] = self.sections.get(name, 0.0) + secs
+        self.counts[name] = self.counts.get(name, 0) + 1
+
+    def reset(self) -> None:
+        self.sections.clear()
+        self.counts.clear()
 
     def report(self) -> str:
         total = sum(self.sections.values()) or 1.0
@@ -38,6 +78,21 @@ class SectionTimer:
         for name, secs in sorted(self.sections.items(), key=lambda kv: -kv[1]):
             lines.append(f"{name:<30}{secs:>10.3f}{secs / total:>7.1%}")
         return "\n".join(lines)
+
+
+#: the program's spans: one recorder a process (``SPANS.reset()`` to start
+#: a new table)
+SPANS = SectionTimer()
+span = SPANS.section
+
+
+def span_report() -> str:
+    """:data:`SPANS`' host seconds and entries per span, the longest first.
+    No share: the spans nest, so a parent's seconds hold its children's."""
+    lines = [f"{'span':<30}{'seconds':>10}{'entries':>9}"]
+    for name, secs in sorted(SPANS.sections.items(), key=lambda kv: -kv[1]):
+        lines.append(f"{name:<30}{secs:>10.3f}{SPANS.counts[name]:>9}")
+    return "\n".join(lines)
 
 
 @contextlib.contextmanager
